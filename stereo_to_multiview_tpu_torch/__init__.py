@@ -1,0 +1,22 @@
+"""PyTorch/CUDA port of the stereo -> multiview engine.
+
+Side-by-side stereo in, AD-census disparity + N-view lenticular-interlaced
+frame out, on an NVIDIA H100.  The JAX package `stereo_to_multiview_tpu`
+is the reference; this package imports nothing of it (nor JAX) and keeps
+its module names, so each counterpart is easy to find:
+
+  config         -- PipelineConfig (same fields), config_from_dict
+  ops            -- one function per pipeline stage, on torch tensors
+  ops.costkern   -- kernels B2 (cost) and B3 (right-eye shear)
+  ops.band       -- kernels B4/B6 (horizontal passes, WTA) and B5
+                    (vertical passes) of the band engine's stereo core
+  csrc           -- the CUDA sources of those kernels (sm_90a)
+  kernels        -- nvcc build, ctypes loading, launch counters
+  models         -- process_frame
+  utils          -- BMP reader, stage annotation and timing
+"""
+
+from stereo_to_multiview_tpu_torch.config import (
+    PipelineConfig, config_from_dict)
+
+__all__ = ["PipelineConfig", "config_from_dict"]

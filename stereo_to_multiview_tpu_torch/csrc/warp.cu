@@ -1,0 +1,124 @@
+// B12: every intermediate view, warped from both eyes, masked and merged.
+//
+// Replaces the TPU kernel stereo_to_multiview_tpu/ops/warpkern.py
+// `_warp_merge_views_xm_kernel` (reached via
+// `dibr_warp_merge_views_kern_xm`).
+//
+// For view v with shifts sl = shifts_l[v] (= -shift), sr = shifts_r[v]
+// (= 1 - shift):
+//   from_l = warp(img_l, mask_r, disp_r, sl),  from_r = warp(img_r,
+//   mask_l, disp_l, sr),
+//   warp(I, M, D, s)(x) = u8(u8(w0 * I(x0) + w1 * I(x0 + 1)) * M(x)) with
+//   c = clamp(x + D(x) * s, 0, W - 1), x0 = floor(c),
+//   w0 = max(1 - |c - x0|, 0), w1 = max(1 - |c - (x0 + 1)|, 0), and the
+//   second sample clamped to column W - 1;
+//   out = u8(u8((1 - m) * from_l) + u8(m * from_r)), m = feathered.
+// u8() truncates toward zero (through a 64-bit integer, as PyTorch's
+// float -> uint8 cast does).  Every product and sum is rounded on its own
+// (__fmul_rn / __fadd_rn): the port follows the JAX package's unfused
+// synthesis, whose lerp rounds both products, and not the TPU kernel's
+// contracted multiply-add.
+//
+// Bound on the H100: memory, and little of it (at 1080p, 8 views: 12 MB
+// of images and 41 MB of float planes in, 37 MB out, ~27 us).  Design:
+// one thread per (view, pixel) computes both warps and the merge, so the
+// float warp volumes of the unfused chain never reach device memory; the
+// TPU kernel's loop over the block's disparity offsets (it cannot gather)
+// becomes a direct read of the two samples.
+
+#include "stm_common.cuh"
+
+#define WARP_TX 128
+#define WARP_MAX_VIEWS 32
+
+struct WarpShifts {
+  float l[WARP_MAX_VIEWS];
+  float r[WARP_MAX_VIEWS];
+};
+
+__device__ __forceinline__ uint8_t to_u8(float v) {
+  return (uint8_t)(long long)v;
+}
+
+// The per-pixel part of warp(I, M, D, s): the two weights, the two sample
+// columns and the mask value; `sample` applies it to one channel.
+struct Lerp {
+  float w0, w1, m;
+  int i0, i1;
+};
+
+__device__ __forceinline__ Lerp make_lerp(int x, float d, float s, float m,
+                                          int W) {
+  float c = __fadd_rn((float)x, __fmul_rn(d, s));
+  c = fminf(fmaxf(c, 0.0f), (float)(W - 1));
+  const float x0 = floorf(c);
+  Lerp l;
+  l.w0 = fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(c, x0))), 0.0f);
+  l.w1 = fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(c, __fadd_rn(x0, 1.0f)))),
+               0.0f);
+  l.i0 = (int)x0;
+  l.i1 = min(l.i0 + 1, W - 1);
+  l.m = m;
+  return l;
+}
+
+__device__ __forceinline__ uint8_t sample(const uint8_t* row, const Lerp& l,
+                                          int ch) {
+  const float v = __fadd_rn(__fmul_rn(l.w0, (float)row[l.i0 * 3 + ch]),
+                            __fmul_rn(l.w1, (float)row[l.i1 * 3 + ch]));
+  return to_u8(__fmul_rn((float)to_u8(v), l.m));
+}
+
+__global__ void __launch_bounds__(WARP_TX)
+warp_merge_kernel(const uint8_t* __restrict__ img_l,
+                  const uint8_t* __restrict__ img_r,
+                  const float* __restrict__ disp_l,
+                  const float* __restrict__ disp_r,
+                  const float* __restrict__ mask_l,
+                  const float* __restrict__ mask_r,
+                  const float* __restrict__ feather, WarpShifts shifts,
+                  uint8_t* __restrict__ out, int H, int W) {
+  const int x = blockIdx.x * WARP_TX + threadIdx.x;
+  const int y = blockIdx.y;
+  const int v = blockIdx.z;
+  if (x >= W) return;
+  const size_t i = (size_t)y * W + x;
+  const Lerp from_l = make_lerp(x, disp_r[i], shifts.l[v], mask_r[i], W);
+  const Lerp from_r = make_lerp(x, disp_l[i], shifts.r[v], mask_l[i], W);
+  const float m = feather[i];
+  const float m_b = __fsub_rn(1.0f, m);
+  const uint8_t* row_l = img_l + (size_t)y * W * 3;
+  const uint8_t* row_r = img_r + (size_t)y * W * 3;
+  uint8_t* o = out + (((size_t)v * H + y) * W + x) * 3;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const uint8_t b = to_u8(__fmul_rn(m_b, (float)sample(row_l, from_l, ch)));
+    const uint8_t a = to_u8(__fmul_rn(m, (float)sample(row_r, from_r, ch)));
+    o[ch] = (uint8_t)(b + a);
+  }
+}
+
+// img_l, img_r: (H, W, 3) u8; disp_*, mask_*, feather: (H, W) f32;
+// shifts_l, shifts_r: host arrays of nv <= 32 floats; out: (nv, H, W, 3)
+// u8.
+STM_API int stm_warp_merge(const void* img_l, const void* img_r,
+                           const void* disp_l, const void* disp_r,
+                           const void* mask_l, const void* mask_r,
+                           const void* feather, const float* shifts_l,
+                           const float* shifts_r, void* out, int H, int W,
+                           int nv, void* stream) {
+  if (H <= 0 || W <= 0 || nv <= 0 || nv > WARP_MAX_VIEWS ||
+      shifts_l == nullptr || shifts_r == nullptr)
+    return (int)cudaErrorInvalidValue;
+  WarpShifts s;
+  for (int v = 0; v < nv; ++v) {
+    s.l[v] = shifts_l[v];
+    s.r[v] = shifts_r[v];
+  }
+  dim3 grid((W + WARP_TX - 1) / WARP_TX, H, nv);
+  warp_merge_kernel<<<grid, WARP_TX, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
+      (const float*)disp_r, (const float*)mask_l, (const float*)mask_r,
+      (const float*)feather, s, (uint8_t*)out, H, W);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,165 @@
+"""Whole-frame pipeline: SBS uint8 frame in -> (disp_l, disp_r,
+interlaced) out.
+
+Stage order, with the hand-written CUDA kernel of each stage:
+  demux_sbs -> cross arms (B1) -> stereo core (cost init B2/B3, H,V,V,H
+  aggregation B4/B5, WTA B6) -> dcc (B7) -> irv (B8/B9 per round)
+  -> bilateral (B10) -> occlusion hits (B7) -> bleed + mask (B11)
+  -> feather -> backward warps + merge of every intermediate view (B12)
+  -> interlace
+
+The stereo core has band-engine semantics (quantized cost, exact integer
+aggregation, first-min WTA); the kernels' plain versions follow the JAX
+package's XLA-engine functions, which its tests hold equal to its
+band-engine kernels.
+
+Entry points run on the CUDA device unless the caller passes
+`device="cpu"` (the tests do); without a GPU and without that request
+they raise.  Knobs this slice does not port raise NotImplementedError
+naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from stereo_to_multiview_tpu_torch.config import PipelineConfig
+from stereo_to_multiview_tpu_torch.ops.band import band_stereo_core_chunked
+from stereo_to_multiview_tpu_torch.ops.cross import cross_arms
+from stereo_to_multiview_tpu_torch.ops.dcc import dr_dcc
+from stereo_to_multiview_tpu_torch.ops.demux import demux_sbs
+from stereo_to_multiview_tpu_torch.ops.dibr import (
+    dibr_bleed_mask, dibr_feather_mask, dibr_occl, warp_merge_views)
+from stereo_to_multiview_tpu_torch.ops.filters import filter_bilateral
+from stereo_to_multiview_tpu_torch.ops.irv import dr_irv
+from stereo_to_multiview_tpu_torch.ops.mux import mux_multiview
+from stereo_to_multiview_tpu_torch.utils.profiling import (
+    StageTimer, stage_scope)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The CUDA device unless the caller asks for another; raise when no
+    GPU is present and no device was asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to run the plain versions")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def check_ported(cfg: PipelineConfig):
+    """Raise NotImplementedError for any knob this slice does not port."""
+    todo = [
+        (cfg.engine == "xla", "engine='xla'", "queue A item 14"),
+        (cfg.use_hslo, "use_hslo", "queue A item 13"),
+        (cfg.use_median, "use_median", "queue A item 13"),
+        (cfg.lowres, "lowres disparity", "queue A item 11"),
+        ((cfg.num_rows_out, cfg.num_cols_out) != (cfg.num_rows, cfg.num_cols),
+         "output resolution != input resolution", "queue A item 12"),
+        (cfg.band_digits != 3, "band_digits != 3", "queue A item 14"),
+        (cfg.band_qscale != 127.0, "band_qscale != 127", "queue A item 14"),
+        (cfg.band_lossy_wta, "band_lossy_wta", "queue A item 14"),
+    ]
+    for bad, what, item in todo:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP {item})")
+    if cfg.engine not in ("auto", "band", "xla"):
+        raise ValueError(f"unknown engine {cfg.engine!r}")
+
+
+def raw_disparities(img_l, img_r, cfg: PipelineConfig,
+                    timer: StageTimer | None = None):
+    """Stereo matching up to IRV: images -> (disp_l, disp_r) float32
+    before the bilateral filter, plus the outlier labels (u8)."""
+    with stage_scope("ca_cross_arms", timer):
+        arms_l = cross_arms(img_l, cfg.ucd, cfg.lcd, cfg.usd, cfg.lsd)
+        arms_r = cross_arms(img_r, cfg.ucd, cfg.lcd, cfg.usd, cfg.lsd)
+    with stage_scope("stereo_core", timer):
+        disp_l, disp_r = band_stereo_core_chunked(img_l, img_r, arms_l,
+                                                  arms_r, cfg)
+    with stage_scope("dr_dcc", timer):
+        out_l, out_r = dr_dcc(disp_l, disp_r, cfg.dcc_thresh)
+    with stage_scope("dr_irv", timer):
+        irv = lambda d, o, a: dr_irv(d, o, a, cfg.irv_thresh_s,
+                                     cfg.irv_thresh_h, cfg.num_disp,
+                                     cfg.zero_disp, cfg.usd,
+                                     cfg.irv_iterations)
+        disp_l, out_l = irv(disp_l, out_l, arms_l)
+        disp_r, out_r = irv(disp_r, out_r, arms_r)
+    return disp_l, disp_r, out_l, out_r
+
+
+def compute_disparities(img_l, img_r, cfg: PipelineConfig,
+                        timer: StageTimer | None = None):
+    """Stereo matching half of the pipeline: images -> refined (disp_l,
+    disp_r) float32 plus the outlier labels."""
+    disp_l, disp_r, out_l, out_r = raw_disparities(img_l, img_r, cfg, timer)
+    with stage_scope("filter_bilateral", timer):
+        blf = lambda d: filter_bilateral(d, cfg.bilateral_radius,
+                                         cfg.bilateral_sigma_color,
+                                         cfg.bilateral_sigma_spatial)
+        disp_l, disp_r = blf(disp_l), blf(disp_r)
+    return disp_l, disp_r, out_l, out_r
+
+
+def synth_disp_bounds(cfg: PipelineConfig):
+    """(num_disp, zero_disp) bounds covering the disparity values the
+    synthesis stages see: the config's own at full resolution; scaled by
+    1/disp_scale on the lowres path."""
+    if not cfg.lowres or cfg.disp_scale == 1.0:
+        return cfg.num_disp, cfg.zero_disp
+    inv = 1.0 / cfg.disp_scale
+    zd = int(math.ceil(cfg.zero_disp * inv))
+    top = int(math.floor((cfg.num_disp - 1 - cfg.zero_disp) * inv))
+    return zd + top + 1, zd
+
+
+def _synth_shifts(v: int):
+    """Intermediate-view fractions 1 - v_i/(V-1), in float32."""
+    return tuple(float(np.float32(1.0) - np.float32(v_i) / np.float32(v - 1.0))
+                 for v_i in range(1, v - 1))
+
+
+def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
+                     timer: StageTimer | None = None) -> torch.Tensor:
+    """DIBR half: images + disparities -> (V, H, W, 3) u8 view stack.
+    View 0 = right source, view V-1 = left source; intermediate view v
+    warps L with disp_r at -shift and R with disp_l at 1 - shift,
+    shift = 1 - v/(V-1), and merges them with the feathered mask."""
+    with stage_scope("dibr_occl", timer):
+        occl_l, occl_r = dibr_occl(disp_l, disp_r)
+        mask_l = dibr_bleed_mask(occl_l, cfg.bleed_radius)
+        mask_r = dibr_bleed_mask(occl_r, cfg.bleed_radius)
+    with stage_scope("dibr_feather", timer):
+        feathered = dibr_feather_mask(mask_r, cfg.feather_radius,
+                                      cfg.feather_sigma)
+    with stage_scope("dibr_dbm", timer):
+        mids = warp_merge_views(img_l, img_r, disp_l, disp_r, mask_l,
+                                mask_r, feathered,
+                                _synth_shifts(cfg.num_views))
+    return torch.cat([img_r[None], mids, img_l[None]])
+
+
+def process_frame(sbs, cfg: PipelineConfig, device=None,
+                  timer: StageTimer | None = None):
+    """(H, 2W, 3) uint8 SBS frame (numpy array or tensor) -> (disp_l,
+    disp_r, interlaced) tensors on `device`: disparities (H, W) float32,
+    interlaced (H_out, W_out, 3) uint8."""
+    dev = resolve_device(device)
+    check_ported(cfg)
+    sbs = torch.as_tensor(sbs).to(dev)
+    if tuple(sbs.shape) != cfg.sbs_shape or sbs.dtype != torch.uint8:
+        raise ValueError(f"expected a {cfg.sbs_shape} uint8 frame, got "
+                         f"{tuple(sbs.shape)} {sbs.dtype}")
+    img_l, img_r = (t.contiguous() for t in demux_sbs(sbs))
+    disp_l, disp_r, _, _ = compute_disparities(img_l, img_r, cfg, timer)
+    views = synthesize_views(img_l, img_r, disp_l, disp_r, cfg, timer)
+    with stage_scope("mux_multiview", timer):
+        interlaced = mux_multiview(views, cfg.num_rows_out, cfg.num_cols_out,
+                                   cfg.angle)
+    return disp_l, disp_r, interlaced

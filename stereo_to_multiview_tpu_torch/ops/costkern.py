@@ -1,0 +1,160 @@
+"""AD-census cost init, quantized to u8: kernels B2 (pair volume) and B3
+(right-eye shear), with their plain PyTorch versions.
+
+cost_l(x, d) = C(L(x), R(clamp(x + d - zd)))      (left eye)
+cost_r(x, d) = C(L(clamp(x - (d - zd))), R(x))    (right eye)
+
+Both eyes come out of ONE pair volume P(x', d) = C(L(clamp(x')),
+R(clamp(x' + d - zd))) computed over x' in [-M, W + M), M = max(zd,
+D - zd): the left eye is the slice P[:, M:M+W] and the right eye the
+per-d shear P[:, x - (d - zd) + M, d].  C is looked up in the quantized
+cost table (`cost_table`), so the kernel and the plain version agree by
+construction.
+
+Layout: (H, W, D) with D innermost, the layout the aggregation reads.
+The wrappers take the plain version only for CPU tensors; on a CUDA
+tensor they launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from stereo_to_multiview_tpu_torch import kernels
+from stereo_to_multiview_tpu_torch.ops.cost import hamming48
+from stereo_to_multiview_tpu_torch.ops.mux import f32
+
+F32 = torch.float32
+AD_VALUES = 766      # 3 channels x |0..255|
+HAM_VALUES = 49      # 48 census bits
+
+
+def cost_table(ad_coeff: float, census_coeff: float,
+               qscale: float = 127.0) -> torch.Tensor:
+    """(766 * 49,) u8 table of the quantized AD-census cost, index
+    AD * 49 + H:  rint(qscale * ((1 - e^{-(AD * 0.33333333333) / l_ad})
+    + (1 - e^{-H / l_c}))), in float32 with the TPU kernel's op order
+    (stereo_to_multiview_tpu/ops/costkern.py:309-313).  Built on the CPU
+    and uploaded by the caller, so every device uses the same table."""
+    ad = torch.arange(AD_VALUES, dtype=F32)
+    ham = torch.arange(HAM_VALUES, dtype=F32)
+    a = 1.0 - torch.exp(-(ad * f32(0.33333333333)) * f32(1.0 / ad_coeff))
+    c = 1.0 - torch.exp(-ham * f32(1.0 / census_coeff))
+    q = torch.round((a[:, None] + c[None, :]) * f32(qscale))
+    return q.to(torch.int32).to(torch.uint8).reshape(-1)
+
+
+@functools.lru_cache(maxsize=8)
+def device_cost_table(ad_coeff: float, census_coeff: float,
+                      device: torch.device) -> torch.Tensor:
+    """`cost_table` on `device`, built and uploaded once per coefficients
+    and device: a copy from host memory waits for the device's queue, so
+    a frame must not repeat it."""
+    return cost_table(ad_coeff, census_coeff).to(device)
+
+
+def pair_margin(num_disp: int, zero_disp: int) -> int:
+    """Columns of the pair volume beyond each image edge."""
+    return max(zero_disp, num_disp - zero_disp)
+
+
+def cost_pair_plain(img_l, img_r, cen_l, cen_r, table, num_disp: int,
+                    zero_disp: int) -> torch.Tensor:
+    """Plain version of `cost_pair`: one disparity plane at a time."""
+    h, w = img_l.shape[:2]
+    dev = img_l.device
+    margin = pair_margin(num_disp, zero_disp)
+    xs = torch.arange(-margin, w + margin, device=dev)
+    xl = xs.clamp(0, w - 1)
+    lv = img_l[:, xl].to(torch.int32)
+    lc = cen_l[:, xl]
+    rv = img_r.to(torch.int32)
+    tab = table.to(dev).to(torch.int64)
+    out = torch.empty((h, w + 2 * margin, num_disp), dtype=torch.uint8,
+                      device=dev)
+    for d in range(num_disp):
+        xr = (xs + (d - zero_disp)).clamp(0, w - 1)
+        ad = (lv - rv[:, xr]).abs().sum(dim=-1)
+        ham = hamming48(lc, cen_r[:, xr])
+        out[:, :, d] = tab[ad * HAM_VALUES + ham].to(torch.uint8)
+    return out
+
+
+def pack_bgr(img: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) u8 -> (H, W) int32 b | g << 8 | r << 16."""
+    c = img.to(torch.int32)
+    return c[:, :, 0] | (c[:, :, 1] << 8) | (c[:, :, 2] << 16)
+
+
+@kernels.kernel_wrapper
+def cost_pair(img_l: torch.Tensor, img_r: torch.Tensor, cen_l: torch.Tensor,
+              cen_r: torch.Tensor, table: torch.Tensor, num_disp: int,
+              zero_disp: int) -> torch.Tensor:
+    """Pair volume P (H, W + 2*M, D) u8, M = pair_margin(D, zd), of two
+    (H, W, 3) u8 images and their (H, W, 2) int32 census codes.  Kernel
+    B2 (csrc/cost.cu)."""
+    if kernels.on_cpu(img_l):
+        return cost_pair_plain(img_l, img_r, cen_l, cen_r, table, num_disp,
+                               zero_disp)
+    dev = img_l.device
+    h, w = img_l.shape[:2]
+    for name, t, dt, nd in (("img_l", img_l, torch.uint8, 3),
+                            ("img_r", img_r, torch.uint8, 3),
+                            ("cen_l", cen_l, torch.int32, 3),
+                            ("cen_r", cen_r, torch.int32, 3),
+                            ("table", table, torch.uint8, 1)):
+        kernels.require(t, name, dt, nd, dev, contiguous=False)
+    if (img_r.shape != img_l.shape or img_l.shape[2] != 3
+            or cen_l.shape != (h, w, 2) or cen_r.shape != (h, w, 2)
+            or table.numel() != AD_VALUES * HAM_VALUES):
+        raise ValueError("cost_pair: inconsistent input shapes")
+    if num_disp % 4:
+        raise ValueError("cost_pair kernel needs num_disp % 4 == 0")
+    margin = pair_margin(num_disp, zero_disp)
+    lpk, rpk = pack_bgr(img_l), pack_bgr(img_r)
+    cl, cr, tab = cen_l.contiguous(), cen_r.contiguous(), table.contiguous()
+    out = torch.empty((h, w + 2 * margin, num_disp), dtype=torch.uint8,
+                      device=dev)
+    rc = kernels.lib("cost").stm_cost_pair(
+        lpk.data_ptr(), rpk.data_ptr(), cl.data_ptr(), cr.data_ptr(),
+        tab.data_ptr(), out.data_ptr(), h, w, num_disp, zero_disp,
+        kernels.stream_of(out))
+    kernels.check_launch(rc, "cost_pair")
+    cost_pair.launches += 1
+    return out
+
+
+def shear_right_plain(pair: torch.Tensor, zero_disp: int) -> torch.Tensor:
+    """Plain version of `shear_right`: one strided slice per d."""
+    h, wp, nd = pair.shape
+    margin = pair_margin(nd, zero_disp)
+    w = wp - 2 * margin
+    out = torch.empty((h, w, nd), dtype=pair.dtype, device=pair.device)
+    for d in range(nd):
+        x0 = margin - (d - zero_disp)
+        out[:, :, d] = pair[:, x0:x0 + w, d]
+    return out
+
+
+@kernels.kernel_wrapper
+def shear_right(pair: torch.Tensor, zero_disp: int) -> torch.Tensor:
+    """Right-eye volume (H, W, D) u8 from the pair volume (H, W + 2*M, D),
+    M = pair_margin(D, zd): out[y, x, d] = pair[y, x - (d - zd) + M, d].
+    Kernel B3 (csrc/shear.cu)."""
+    if kernels.on_cpu(pair):
+        return shear_right_plain(pair, zero_disp)
+    kernels.require(pair, "pair", torch.uint8, 3, pair.device)
+    h, wp, nd = pair.shape
+    w = wp - 2 * pair_margin(nd, zero_disp)
+    if nd % 4 or w <= 0:
+        raise ValueError("shear_right kernel needs D % 4 == 0 and a pair "
+                         "volume wider than 2 * max(zd, D - zd)")
+    out = torch.empty((h, w, nd), dtype=torch.uint8, device=pair.device)
+    rc = kernels.lib("shear").stm_shear_right(
+        pair.data_ptr(), out.data_ptr(), h, w, nd, zero_disp,
+        kernels.stream_of(out))
+    kernels.check_launch(rc, "shear_right")
+    shear_right.launches += 1
+    return out

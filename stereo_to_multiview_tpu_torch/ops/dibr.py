@@ -1,0 +1,165 @@
+"""Depth-image-based rendering: occlusion masks (kernels B7 and B11),
+mask feather, and the backward (gather) warp merged into the views
+(kernel B12), with the kernels' plain PyTorch versions.
+
+The wrappers take the plain version only for CPU tensors; on a CUDA
+tensor they launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from stereo_to_multiview_tpu_torch import kernels
+from stereo_to_multiview_tpu_torch.ops.dcc import launch_dcc, scatter_hit
+from stereo_to_multiview_tpu_torch.ops.filters import (
+    filter_bleed, filter_gaussian_lift)
+from stereo_to_multiview_tpu_torch.ops.mux import f32, mux_merge_ab
+
+F32 = torch.float32
+
+
+def op_invertnormf(v: torch.Tensor) -> torch.Tensor:
+    """v -> 1 - v."""
+    return 1.0 - v.to(F32)
+
+
+def dibr_occl_plain(disp_l: torch.Tensor, disp_r: torch.Tensor):
+    """Plain version of `dibr_occl`: one scatter per eye."""
+    hit_r = scatter_hit(disp_l.to(torch.int64))
+    hit_l = scatter_hit(-disp_r.to(torch.int64))
+    return hit_l.to(torch.uint8), hit_r.to(torch.uint8)
+
+
+@kernels.kernel_wrapper
+def dibr_occl(disp_l: torch.Tensor, disp_r: torch.Tensor):
+    """Visibility masks by forward scatter: occl_r[clamp(x + trunc(d_l))]
+    = 1 and occl_l[clamp(x - trunc(d_r))] = 1; returns (occl_l, occl_r)
+    u8.  Kernel B7 (csrc/dcc.cu) in its hits mode."""
+    if kernels.on_cpu(disp_l):
+        return dibr_occl_plain(disp_l, disp_r)
+    out = launch_dcc(disp_l, disp_r, 0.0, False, "dibr_occl")
+    dibr_occl.launches += 1
+    return out
+
+
+def dibr_occl_to_mask(occl: torch.Tensor) -> torch.Tensor:
+    """u8 mask -> float {0, 1}; only the value 1 maps to 1.0."""
+    return (occl == 1).to(F32)
+
+
+def dibr_bleed_mask_plain(occl: torch.Tensor, radius: int) -> torch.Tensor:
+    """Plain version of `dibr_bleed_mask`."""
+    return dibr_occl_to_mask(filter_bleed(occl, radius))
+
+
+@kernels.kernel_wrapper
+def dibr_bleed_mask(occl: torch.Tensor, radius: int) -> torch.Tensor:
+    """dibr_occl_to_mask(filter_bleed(occl, radius)): (H, W) u8 occlusion
+    hits -> float32 {0, 1} mask.  Kernel B11 (csrc/bleed.cu)."""
+    if kernels.on_cpu(occl):
+        return dibr_bleed_mask_plain(occl, radius)
+    kernels.require(occl, "occl", torch.uint8, 2, occl.device)
+    h, w = occl.shape
+    if not 0 <= radius < min(h, w):
+        raise ValueError("dibr_bleed_mask: radius must be below the "
+                         "plane's sides")
+    thresh = float(np.float32(((2 * radius + 1) ** 2 - 1) * 0.30))
+    mask = torch.empty((h, w), dtype=F32, device=occl.device)
+    rc = kernels.lib("bleed").stm_bleed_mask(
+        occl.data_ptr(), mask.data_ptr(), h, w, radius, thresh,
+        kernels.stream_of(mask))
+    kernels.check_launch(rc, "dibr_bleed_mask")
+    dibr_bleed_mask.launches += 1
+    return mask
+
+
+def dibr_feather_mask(mask_r: torch.Tensor, feather_radius: int,
+                      feather_sigma: float) -> torch.Tensor:
+    """Blend weight of the view merge: the inverted right-eye mask,
+    feathered with the lifting Gaussian."""
+    return filter_gaussian_lift(op_invertnormf(mask_r), feather_radius,
+                                feather_sigma)
+
+
+def dibr_backward_warp(img_in: torch.Tensor, mask: torch.Tensor,
+                       disp: torch.Tensor, shift: float) -> torch.Tensor:
+    """Gather warp: sample img_in at c = clamp(x + disp*shift, 0, W-1)
+    with x-only linear interpolation, truncate to u8, multiply by mask,
+    truncate again.  The two weights are the triangle weights
+    max(1 - |c - x0|, 0) and max(1 - |c - (x0 + 1)|, 0) at x0 = floor(c),
+    each evaluated in float32 exactly as the JAX package does."""
+    h, w, _ = img_in.shape
+    xs = torch.arange(w, dtype=F32, device=img_in.device)
+    c = (xs[None, :] + disp.to(F32) * f32(shift)).clamp(0.0, float(w - 1))
+    x0 = torch.floor(c)
+    w0 = (1.0 - (c - x0).abs()).clamp(min=0.0)
+    w1 = (1.0 - (c - (x0 + 1.0)).abs()).clamp(min=0.0)
+    i0 = x0.to(torch.int64)
+    i1 = (i0 + 1).clamp(max=w - 1)
+    img = img_in.to(F32)
+    v0 = torch.gather(img, 1, i0[:, :, None].expand(h, w, 3))
+    v1 = torch.gather(img, 1, i1[:, :, None].expand(h, w, 3))
+    interp = (w0[:, :, None] * v0 + w1[:, :, None] * v1).to(torch.uint8)
+    return (interp.to(F32) * mask.to(F32)[:, :, None]).to(torch.uint8)
+
+
+def merge_shifts(shifts):
+    """(shifts_l, shifts_r) float32 of the two warps of each intermediate
+    view: -shift for the left image, 1 - shift for the right one (the
+    difference taken in float64 and rounded once, as float32 constants
+    are made everywhere in the port)."""
+    return ([float(np.float32(-s)) for s in shifts],
+            [float(np.float32(1.0 - s)) for s in shifts])
+
+
+def warp_merge_views_plain(img_l, img_r, disp_l, disp_r, mask_l, mask_r,
+                           feathered, shifts) -> torch.Tensor:
+    """Plain version of `warp_merge_views`: two warps and a merge per
+    view."""
+    sl, sr = merge_shifts(shifts)
+    return torch.stack([
+        mux_merge_ab(dibr_backward_warp(img_l, mask_r, disp_r, a),
+                     dibr_backward_warp(img_r, mask_l, disp_l, b), feathered)
+        for a, b in zip(sl, sr)])
+
+
+@kernels.kernel_wrapper
+def warp_merge_views(img_l, img_r, disp_l, disp_r, mask_l, mask_r,
+                     feathered, shifts) -> torch.Tensor:
+    """Every intermediate view, (nv, H, W, 3) u8: for each shift, the
+    left image warped with disp_r at -shift (masked by mask_r) and the
+    right image warped with disp_l at 1 - shift (masked by mask_l),
+    merged with the feathered weight (`mux_merge_ab`).  Kernel B12
+    (csrc/warp.cu)."""
+    if not shifts:
+        return img_l.new_empty((0, *img_l.shape))
+    if kernels.on_cpu(img_l):
+        return warp_merge_views_plain(img_l, img_r, disp_l, disp_r, mask_l,
+                                      mask_r, feathered, shifts)
+    dev = img_l.device
+    h, w = img_l.shape[:2]
+    for name, t in (("img_l", img_l), ("img_r", img_r)):
+        kernels.require(t, name, torch.uint8, 3, dev)
+        if t.shape != (h, w, 3):
+            raise ValueError(f"warp_merge_views: {name} is not (H, W, 3)")
+    for name, t in (("disp_l", disp_l), ("disp_r", disp_r),
+                    ("mask_l", mask_l), ("mask_r", mask_r),
+                    ("feathered", feathered)):
+        kernels.require(t, name, F32, 2, dev)
+        if t.shape != (h, w):
+            raise ValueError(f"warp_merge_views: {name} is not (H, W)")
+    nv = len(shifts)
+    if nv > 32:
+        raise ValueError("warp_merge_views takes at most 32 views")
+    sl, sr = merge_shifts(shifts)
+    out = torch.empty((nv, h, w, 3), dtype=torch.uint8, device=dev)
+    rc = kernels.lib("warp").stm_warp_merge(
+        img_l.data_ptr(), img_r.data_ptr(), disp_l.data_ptr(),
+        disp_r.data_ptr(), mask_l.data_ptr(), mask_r.data_ptr(),
+        feathered.data_ptr(), kernels.host_f32(sl), kernels.host_f32(sr),
+        out.data_ptr(), h, w, nv, kernels.stream_of(out))
+    kernels.check_launch(rc, "warp_merge_views")
+    warp_merge_views.launches += 1
+    return out

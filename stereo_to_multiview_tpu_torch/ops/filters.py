@@ -1,0 +1,144 @@
+"""Post filters: lifting Gaussian (mask feather), bilateral (kernel B10
+and its plain PyTorch version), bleed.
+
+Float constants are float32 and every accumulation runs in the JAX
+package's order, so the results match it to the last bit wherever its
+compiler does not contract a multiply-add.  The bilateral's wrapper
+takes the plain version only for a CPU tensor; on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from stereo_to_multiview_tpu_torch import kernels
+from stereo_to_multiview_tpu_torch.ops.cost import clamp_index
+from stereo_to_multiview_tpu_torch.ops.mux import f32
+
+F32 = torch.float32
+
+
+def gaussian_kernel_2d(radius: int, sigma: float) -> np.ndarray:
+    """(2r+1)^2 float32 Gaussian exp(-(x^2+y^2)/2s^2) / (2 pi s^2)."""
+    y, x = np.mgrid[-radius:radius + 1, -radius:radius + 1].astype(np.float32)
+    var = np.float32(sigma) ** 2
+    num = np.exp(-(x * x + y * y) / (np.float32(2) * var))
+    return (num / (np.float32(2 * np.pi) * var)).astype(np.float32)
+
+
+def edge_pad(img: torch.Tensor, radius: int) -> torch.Tensor:
+    """Clamp-to-edge pad of an (H, W) plane by `radius` on every side."""
+    h, w = img.shape
+    rows = clamp_index(h, -radius, h + radius, img.device)
+    cols = clamp_index(w, -radius, w + radius, img.device)
+    return img[rows][:, cols]
+
+
+def filter_gaussian_lift(img: torch.Tensor, radius: int, sigma: float):
+    """out = max(input, gaussian_blur(input)), clamp-to-edge, normalized
+    by the full 2D kernel sum; the blur runs as an x pass then a y pass
+    with float32 taps."""
+    k1 = np.exp(-(np.arange(-radius, radius + 1, dtype=np.float64) ** 2)
+                / (2.0 * float(sigma) ** 2))
+    k2d_sum = float(gaussian_kernel_2d(radius, sigma).astype(np.float64).sum())
+    scale = 1.0 / (2.0 * np.pi * float(sigma) ** 2)
+    a = img.to(F32)
+    p = edge_pad(a, radius)
+    h, w = img.shape
+    acc_r = torch.zeros((h + 2 * radius, w), dtype=F32, device=img.device)
+    for j, kv in enumerate(k1):
+        acc_r = acc_r + f32(kv) * p[:, j:j + w]
+    acc = torch.zeros((h, w), dtype=F32, device=img.device)
+    for i, kv in enumerate(k1):
+        acc = acc + f32(kv) * acc_r[i:i + h]
+    return torch.maximum(a, acc * f32(scale / k2d_sum))
+
+
+def _bilateral_constants(radius: int, sigma_color: float,
+                         sigma_spatial: float):
+    """(spatial taps (2r+1)^2 float32, inv_2var, lut_scale): constants in
+    float64, rounded to float32 once, as the band engine's bilateral
+    kernel (stereo_to_multiview_tpu/ops/postkern.py `_bilat_kernel`)
+    makes them."""
+    sk = gaussian_kernel_2d(radius, sigma_spatial)
+    var = float(np.float32(sigma_color)) ** 2
+    lut_scale = f32(1.0 / float(np.sqrt(2 * np.pi * var)))
+    inv_2var = f32(1.0 / (2.0 * var))
+    return sk, inv_2var, lut_scale
+
+
+def filter_bilateral_plain(img: torch.Tensor, radius: int,
+                           sigma_color: float,
+                           sigma_spatial: float) -> torch.Tensor:
+    """Plain version of `filter_bilateral`: one shifted plane per tap."""
+    sk, inv_2var, lut_scale = _bilateral_constants(radius, sigma_color,
+                                                   sigma_spatial)
+    h, w = img.shape
+    a = img.to(F32)
+    p = edge_pad(a, radius)
+    num = torch.zeros((h, w), dtype=F32, device=img.device)
+    den = torch.zeros((h, w), dtype=F32, device=img.device)
+    for dx in range(-radius, radius + 1):
+        for dy in range(-radius, radius + 1):
+            s = p[dy + radius:dy + radius + h, dx + radius:dx + radius + w]
+            t = torch.floor((a - s).abs())
+            rw = torch.exp(-(t * t) * inv_2var) * lut_scale
+            wgt = f32(sk[dy + radius, dx + radius]) * rw
+            num = num + wgt * s
+            den = den + wgt
+    return num / den
+
+
+@kernels.kernel_wrapper
+def filter_bilateral(img: torch.Tensor, radius: int, sigma_color: float,
+                     sigma_spatial: float) -> torch.Tensor:
+    """Edge-preserving smoothing of a float disparity map: spatial weight
+    from the 2D Gaussian, range weight exp(-t^2 / 2 s_c^2) / sqrt(2 pi
+    s_c^2) at t = floor(|center - sample|); clamp-to-edge.
+
+    The tap order (dx outer, dy inner) is that of the band engine's
+    bilateral kernel, the one on the main path: the result feeds trunc()
+    in the occlusion test, so an ulp matters there.  Kernel B10
+    (csrc/bilateral.cu), radius <= 8."""
+    if kernels.on_cpu(img):
+        return filter_bilateral_plain(img, radius, sigma_color,
+                                      sigma_spatial)
+    kernels.require(img, "img", F32, 2, img.device)
+    if not 0 <= radius <= 8:
+        raise ValueError("filter_bilateral kernel takes radius 0..8")
+    sk, inv_2var, lut_scale = _bilateral_constants(radius, sigma_color,
+                                                   sigma_spatial)
+    h, w = img.shape
+    out = torch.empty_like(img)
+    rc = kernels.lib("bilateral").stm_bilateral(
+        img.data_ptr(), out.data_ptr(), kernels.host_f32(sk.reshape(-1)), h,
+        w, radius, float(inv_2var), float(lut_scale), kernels.stream_of(out))
+    kernels.check_launch(rc, "filter_bilateral")
+    filter_bilateral.launches += 1
+    return out
+
+
+def _bleed_index(n: int, off: int, device) -> torch.Tensor:
+    """Source index of the bleed filter's edge rule: i + off, negative
+    coordinates mirrored (s -> -s), coordinates past the end mapped to
+    n - 1 - off (the offset is subtracted: a reference quirk)."""
+    s = torch.arange(n, device=device) + off
+    s = torch.where(s < 0, -s, s)
+    return torch.where(s > n - 1, n - 1 - off, s)
+
+
+def filter_bleed(img: torch.Tensor, radius: int) -> torch.Tensor:
+    """Binary-mask dilation: 1 where more than 30% of the (2r+1)^2
+    neighbourhood is non-zero, else the input value (u8)."""
+    h, w = img.shape
+    ksz = (2 * radius + 1) ** 2
+    nz = (img > 0).to(torch.int32)
+    cnt = torch.zeros((h, w), dtype=torch.int32, device=img.device)
+    for dy in range(-radius, radius + 1):
+        row = nz[_bleed_index(h, dy, img.device)]
+        for dx in range(-radius, radius + 1):
+            cnt = cnt + row[:, _bleed_index(w, dx, img.device)]
+    return torch.where(cnt.to(F32) > f32((ksz - 1) * 0.30), 1,
+                       img.to(torch.uint8))

@@ -1,0 +1,75 @@
+"""Channel muxing and the lenticular multiview interlace.
+
+Float constants are float32 tensors, so every product rounds exactly as
+the JAX package's float32 arithmetic does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+F32 = torch.float32
+
+
+def f32(x) -> torch.Tensor:
+    """0-dim float32 constant (usable with tensors on any device)."""
+    return torch.tensor(np.float32(x), dtype=F32)
+
+
+def mux_average(img: torch.Tensor) -> torch.Tensor:
+    """BGR -> grayscale with uniform 0.3333333333333 weights (f32) and a
+    truncating uint8 store."""
+    c = f32(0.3333333333333)
+    acc = img[:, :, 0].to(F32) * c
+    acc = acc + img[:, :, 1].to(F32) * c
+    acc = acc + img[:, :, 2].to(F32) * c
+    return acc.to(torch.uint8)          # f32 -> u8 truncates toward zero
+
+
+def mux_merge_ab(img_b: torch.Tensor, img_a: torch.Tensor,
+                 mask_a: torch.Tensor) -> torch.Tensor:
+    """Masked blend with double truncation:
+    out = (u8)((1-m)*B) + (u8)(m*A) per channel."""
+    m = mask_a.to(F32)[:, :, None]
+    term_a = (m * img_a.to(F32)).to(torch.uint8)
+    term_b = ((1.0 - m) * img_b.to(F32)).to(torch.uint8)
+    return term_b + term_a
+
+
+def mux_view_pattern(v_cnt: int, rows: int, cols: int, angle: float,
+                     device=None) -> torch.Tensor:
+    """(rows, cols, 3) int64 view id per BGR color subpixel: R at +0,
+    G at +1, B at +2 (channel 0 is B, so it gets +2).  Geometry:
+    y_interval = V / tan(angle) / 3 in float32; each subpixel selects
+    view (3*tx + trunc((ty % round(y_interval) + 1) * V / y_interval))
+    mod V.  The per-row term is float32 numpy (rows values); the pattern
+    itself is built on `device`."""
+    y_interval = np.float32(v_cnt / math.tan(angle * math.pi / 180.0) / 3.0)
+    inv_y = np.float32(1.0) / y_interval
+    y_mod = max(int(math.floor(float(y_interval) + 0.5)), 1)  # C round()
+    ty = np.arange(rows)
+    y_view = (((ty % y_mod).astype(np.float32) + np.float32(1.0))
+              * np.float32(v_cnt) * inv_y).astype(np.float32)
+    yv = torch.from_numpy(y_view.astype(np.int64)).to(device)
+    tx = torch.arange(cols, device=device)
+    x_view = (tx[None, :] * 3 + yv[:, None]) % v_cnt
+    return torch.stack([(x_view + 2) % v_cnt, (x_view + 1) % v_cnt, x_view],
+                       dim=-1)
+
+
+def mux_multiview(views: torch.Tensor, num_rows_out: int, num_cols_out: int,
+                  angle: float) -> torch.Tensor:
+    """Slanted-lenticular interlace of (V, H, W, 3) uint8 views into
+    (H_out, W_out, 3).  View 0 = right source, view V-1 = left source.
+    Identity resolution only (H_out, W_out) == (H, W): each output
+    subpixel is then the selected view's own subpixel."""
+    v_cnt, h_in, w_in = views.shape[:3]
+    if (h_in, w_in) != (num_rows_out, num_cols_out):
+        raise NotImplementedError(
+            "resampled interlace (output resolution != input resolution) "
+            "is ROADMAP queue A item 12, not ported yet")
+    vid = mux_view_pattern(v_cnt, h_in, w_in, angle, views.device)
+    return torch.gather(views, 0, vid[None])[0]
