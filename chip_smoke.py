@@ -6,15 +6,22 @@
 1. Builds the CUDA kernels from stereo_to_multiview_tpu_torch/csrc (nvcc,
    sm_90a, one process per source, in parallel).
 2. Holds every kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it (1080p, D=128, usd=34): bit equality
-   required.  Times kernel, plain version, and one PyTorch library call
-   where one computes the same function.
-3. Drives the main path, `process_frame` at HD1080_D128 on a 1080p SBS
-   frame built from tests/data/fish_{1,2}.bmp: launch counts are zeroed
-   just before one frame and read just after (every kernel must have
-   launched); then a few frames are timed with per-stage CUDA events.
-4. Checks the output: shapes, dtypes, finite disparities in range, and a
-   small frame run on the card against the same frame run on the CPU.
+   the shapes the paths give it (1080p, D=128, usd=34, and once more as
+   the lowres path stages them: 540x960, D=64, synthesis at 1080p): bit
+   equality required.  Times kernel, plain version, and one PyTorch
+   library call where one computes the same function.  Also holds the
+   early-stop IRV against the fixed rounds, bit for bit.
+3. Drives three paths on a 1080p SBS frame built from
+   tests/data/bud_{2,3}.bmp: `process_frame` at HD1080_D128 (the main
+   path: fused synthesis), `process_frame` at HD1080_D128_HSLO_4K
+   (scanline optimisation, median, unfused synthesis, 4K interlace) and
+   `process_frame_lowres` at HD1080_LOWRES.  For each, launch counts are
+   zeroed just before one frame and read just after: every kernel of the
+   path must have launched, and the kernels the path replaces must not;
+   then a few frames are timed with per-stage CUDA events.
+4. Checks the outputs: shapes, dtypes, finite disparities in range, and
+   three small frames (plain, HSLO + median + resampled, lowres) run on
+   the card against the same frames run on the CPU.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
 a `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -35,32 +42,73 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12      # float32 outside the tensor cores; the
                             # kernels' integer ALU work is counted at it
 
-# kernel name -> (wrapper, source, replaced TPU kernel)
+# kernel name -> (wrapper, source, replaced TPU kernel, the path whose
+# launch count the kernels line reports)
 _SRC = "stereo_to_multiview_tpu_torch/csrc/"
 _TPU = "stereo_to_multiview_tpu/ops/"
+MAIN, HSLO4K, LOWRES = "HD1080_D128", "HD1080_D128_HSLO_4K", "HD1080_LOWRES"
 KERNELS = {
-    "B1 cross_arms": ("cross_arms", _SRC + "arms.cu", _TPU + "postkern.py:80"),
-    "B2 cost_pair": ("cost_pair", _SRC + "cost.cu", _TPU + "costkern.py:279"),
+    "B1 cross_arms": ("cross_arms", _SRC + "arms.cu",
+                      _TPU + "postkern.py:80", MAIN),
+    "B2 cost_pair": ("cost_pair", _SRC + "cost.cu",
+                     _TPU + "costkern.py:279", MAIN),
     "B3 shear_right": ("shear_right", _SRC + "shear.cu",
-                       _TPU + "costkern.py:342"),
+                       _TPU + "costkern.py:342", MAIN),
     "B4 h_pass_sum (pass 1)": ("h_pass_sum", _SRC + "hpass.cu",
-                               _TPU + "band.py:150"),
+                               _TPU + "band.py:150", MAIN),
     "B5 vv_pass (passes 2+3)": ("vv_pass", _SRC + "vpass.cu",
-                                _TPU + "band.py:330"),
+                                _TPU + "band.py:330", MAIN),
     "B6 h_pass_wta (pass 4 + WTA)": ("h_pass_wta", _SRC + "hpass.cu",
-                                     _TPU + "band.py:150"),
+                                     _TPU + "band.py:150", MAIN),
+    "B6 h_pass_sum (pass 4, no WTA)": ("h_pass_sum", _SRC + "hpass.cu",
+                                       _TPU + "band.py:150", HSLO4K),
     "B7 dr_dcc (labels)": ("dr_dcc", _SRC + "dcc.cu",
-                           _TPU + "postkern.py:255"),
+                           _TPU + "postkern.py:255", MAIN),
     "B7 dibr_occl (hits)": ("dibr_occl", _SRC + "dcc.cu",
-                            _TPU + "postkern.py:255"),
-    "B8 irv_rowspan": ("irv_rowspan", _SRC + "irv.cu", _TPU + "irvkern.py:60"),
-    "B9 irv_vote": ("irv_vote", _SRC + "irv.cu", _TPU + "irvkern.py:121"),
+                            _TPU + "postkern.py:255", MAIN),
+    "B8 irv_rowspan": ("irv_rowspan", _SRC + "irv.cu",
+                       _TPU + "irvkern.py:60", MAIN),
+    "B8 irv_rowspan (need)": ("irv_rowspan", _SRC + "irv.cu",
+                              _TPU + "irvkern.py:60", MAIN),
+    "B9 irv_vote": ("irv_vote", _SRC + "irv.cu", _TPU + "irvkern.py:121",
+                    MAIN),
+    "B9 irv_vote (need)": ("irv_vote", _SRC + "irv.cu",
+                           _TPU + "irvkern.py:121", MAIN),
     "B10 filter_bilateral": ("filter_bilateral", _SRC + "bilateral.cu",
-                             _TPU + "postkern.py:48"),
+                             _TPU + "postkern.py:48", MAIN),
     "B11 dibr_bleed_mask": ("dibr_bleed_mask", _SRC + "bleed.cu",
-                            _TPU + "postkern.py:442"),
+                            _TPU + "postkern.py:442", MAIN),
     "B12 warp_merge_views": ("warp_merge_views", _SRC + "warp.cu",
-                             _TPU + "warpkern.py:340"),
+                             _TPU + "warpkern.py:340", MAIN),
+    "B13 dc_hslo_wta": ("dc_hslo_wta", _SRC + "hslo.cu",
+                        _TPU + "hslokern.py:55", HSLO4K),
+    "B13 dc_hslo_wta (right eye, strong penalties)": (
+        "dc_hslo_wta", _SRC + "hslo.cu", _TPU + "hslokern.py:55", HSLO4K),
+    "B14 warp_views": ("warp_views", _SRC + "warp.cu",
+                       _TPU + "warpkern.py:290", HSLO4K),
+}
+# the third path gives B1-B10 other shapes (540x960, D=64, zero_disp=32)
+# and the synthesis kernels upscaled disparities of twice the range: each
+# is held against its plain version there too, under its own entry
+AT_LOWRES = " (HD1080_LOWRES shapes)"
+KERNELS.update({
+    name + AT_LOWRES: (wrapper, source, replaces, LOWRES)
+    for name, (wrapper, source, replaces, path) in list(KERNELS.items())
+    if path == MAIN})
+# the wrappers each path must not launch (its route replaces them); every
+# other wrapper must launch at least once on it
+NOT_ON_PATH = {
+    MAIN: {"dc_hslo_wta", "warp_views"},
+    HSLO4K: {"h_pass_wta", "warp_merge_views"},
+    LOWRES: {"dc_hslo_wta", "warp_views"},
+}
+# `h_pass_sum` counts two entry points of hpass.cu: pass 1 (u8, both eyes)
+# on every path, and pass 4 without the WTA (int32, both eyes) where the
+# scanline optimisation runs.  The exact count shows that both launched.
+EXACT_LAUNCHES = {
+    MAIN: {"h_pass_sum": 2},
+    HSLO4K: {"h_pass_sum": 4},
+    LOWRES: {"h_pass_sum": 2},
 }
 
 
@@ -94,9 +142,11 @@ def up3(img):
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
-def fish_sbs(rows: int, cols: int):
-    """SBS frame from the bundled fish pair, upscaled 3x (bilinear) and
-    tiled/cropped to (rows, 2*cols, 3)."""
+def stereo_sbs(rows: int, cols: int):
+    """SBS frame from the bundled bud stereo pair (bud_2 = left, bud_3 =
+    right, 384x640), upscaled 3x (bilinear) and tiled/cropped to (rows,
+    2*cols, 3).  The bundled fish_1/fish_2 are one and the same image: as
+    a pair they have zero disparity and no outlier anywhere."""
     import numpy as np
     from stereo_to_multiview_tpu_torch.utils.bmp import read_bmp
 
@@ -105,7 +155,7 @@ def fish_sbs(rows: int, cols: int):
         reps = (-(-rows // img.shape[0]), -(-cols // img.shape[1]), 1)
         return np.tile(img, reps)[:rows, :cols]
 
-    return np.concatenate([fit("fish_1.bmp"), fit("fish_2.bmp")], axis=1)
+    return np.concatenate([fit("bud_2.bmp"), fit("bud_3.bmp")], axis=1)
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -137,9 +187,13 @@ class KernelChecks:
     def __init__(self, reps: int):
         self.reps = reps
         self.results = {}
+        self.irv = {}
+        self.suffix = ""    # appended to every recorded name
 
-    def record(self, name, got, ref, kern, plain, nbytes, ops, library=None):
+    def record(self, name, got, ref, kern, plain, nbytes, ops, library=None,
+               plain_once=False):
         import torch
+        name += self.suffix
         torch.cuda.synchronize()
         pairs = (list(zip(got, ref)) if isinstance(got, tuple)
                  else [(got, ref)])
@@ -162,7 +216,8 @@ class KernelChecks:
         reps = self.reps
         r = self.results[name] = dict(
             max_abs_err=err, ms=time_ms(kern, reps),
-            plain_ms=time_ms(plain, max(1, reps // 4)), bound_ms=b_ms,
+            plain_ms=(time_ms(plain, 1, warmup=0) if plain_once
+                      else time_ms(plain, max(1, reps // 4))), bound_ms=b_ms,
             bound_by=b_by,
             library_ms=None if library is None else time_ms(library, reps))
         print(f"kernel {name}: equal to plain; {r['ms']:.4f} ms "
@@ -170,11 +225,13 @@ class KernelChecks:
               f"{b_by}, library {r['library_ms']})", flush=True)
 
 
-def check_core_kernels(chk, img_l, img_r, cfg):
-    """B1-B6 on the left eye of the main path's whole-frame stereo core;
-    returns both eyes' arms."""
+def check_core_kernels(chk, img_l, img_r, cfg, hslo=True):
+    """B1-B6 on the left eye of a path's whole-frame stereo core and, with
+    `hslo`, the scanline-optimisation route (pass 4 as a volume, B13 on
+    both eyes); returns both eyes' arms."""
     import torch
-    from stereo_to_multiview_tpu_torch.ops import band, costkern, cross
+    from stereo_to_multiview_tpu_torch.ops import (
+        band, costkern, cross, hslokern)
     from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
     from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
     from stereo_to_multiview_tpu_torch.ops.mux import mux_average
@@ -183,6 +240,7 @@ def check_core_kernels(chk, img_l, img_r, cfg):
     nd, zd, usd = cfg.num_disp, cfg.zero_disp, cfg.usd
     arm_args = (cfg.ucd, cfg.lcd, usd, cfg.lsd)
     arms = cross.cross_arms(img_l, *arm_args)
+    arms_r = cross.cross_arms(img_r, *arm_args)
     hw, hwd = h * w, h * w * nd
     # each walked step: two 3-channel max-abs-diffs and the tests (~14
     # integer operations); the walk ends at the arm's end or one past it
@@ -215,7 +273,9 @@ def check_core_kernels(chk, img_l, img_r, cfg):
                lambda: costkern.shear_right_plain(pair, zd),
                nbytes=pair.numel() + hwd, ops=0,
                library=lambda: torch.gather(pair, 1, idx))
-    del cost_r, idx
+    del idx
+    if not hslo:
+        del cost_r
 
     cost_l = pair[:, m:m + w]
     lr = (arms[LEFT], arms[RIGHT])
@@ -242,29 +302,120 @@ def check_core_kernels(chk, img_l, img_r, cfg):
                lambda: band.h_pass_wta(a2, *lr, zd, usd),
                lambda: band.h_pass_wta_plain(a2, *lr, zd, usd),
                nbytes=hwd * 4 + 2 * hw * 4 + hw * 4, ops=3 * hwd)
-    return arms, cross.cross_arms(img_r, *arm_args)
+    del disp
+    if not hslo:
+        return arms, arms_r
+
+    # the scanline-optimisation route: pass 4 as a volume, then B13
+    a4 = band.h_pass_sum(a2, *lr, 0, usd)
+    chk.record("B6 h_pass_sum (pass 4, no WTA)", a4,
+               band.h_pass_sum_plain(a2, *lr, 0, usd),
+               lambda: band.h_pass_sum(a2, *lr, 0, usd),
+               lambda: band.h_pass_sum_plain(a2, *lr, 0, usd),
+               nbytes=hwd * 4 + 2 * hw * 4 + hwd * 4, ops=3 * hwd)
+    del a2
+    kappa = band.agg_cost_scale(usd, cfg.band_digits, cfg.band_qscale)
+    hargs = (a4, mux_average(img_l), mux_average(img_r), nd, zd, cfg.hslo_T,
+             cfg.hslo_H1 * kappa, cfg.hslo_H2 * kappa, +1)
+    sdisp = hslokern.dc_hslo_wta(*hargs)
+    # bound: the volume and the grays read once, the disparities written
+    # once; two directions of ~12 float32 operations per (x, d).  The
+    # kernel itself moves four volumes (the int32 one twice, the float32
+    # scratch out and in) along 2 * W dependent steps per row.
+    chk.record("B13 dc_hslo_wta", sdisp, hslokern.dc_hslo_wta_plain(*hargs),
+               lambda: hslokern.dc_hslo_wta(*hargs),
+               lambda: hslokern.dc_hslo_wta_plain(*hargs),
+               nbytes=hwd * 4 + 2 * hw + hw * 4, ops=2 * 12 * hwd,
+               plain_once=True)
+    moved_ms = 4 * hwd * 4 / PEAK_BYTES_PER_S * 1e3
+    wta = (torch.argmin(a4, dim=2) - zd).to(torch.float32)
+    print(f"  B13 moves 4 volumes ({4 * hwd * 4 / 1e9:.2f} GB, "
+          f"{moved_ms:.3f} ms at the peak rate) along {2 * w} dependent "
+          f"steps per row; at the configuration's penalties the "
+          f"optimisation changes "
+          f"{float((sdisp != wta).float().mean()):.4f} of the left eye's "
+          f"WTA disparities", flush=True)
+    del a4, sdisp, wta, hargs
+
+    # The configuration's penalties are small beside this frame's sums, so
+    # few argmins move and a wrong tier, neighbour or edge would hardly
+    # show.  Once more on the right eye (sign -1, the grays swapped) with
+    # penalties of the costs' own size: P2 = a quarter of the median
+    # distance from a pixel's mean sum to its least, P1 = P2 / 3.
+    b4 = band.band_aggregate_q(cost_r, arms_r, usd, None, cfg.band_digits,
+                               cfg.band_qscale)
+    del cost_r
+    sample = b4[::8, ::8].to(torch.float32)
+    h2 = max(1.0, float((sample.mean(dim=2) - sample.amin(dim=2)).median())
+             / 4.0)
+    del sample
+    rargs = (b4, mux_average(img_r), mux_average(img_l), nd, zd, cfg.hslo_T,
+             h2 / 3.0, h2, -1)
+    rdisp = hslokern.dc_hslo_wta(*rargs)
+    chk.record("B13 dc_hslo_wta (right eye, strong penalties)", rdisp,
+               hslokern.dc_hslo_wta_plain(*rargs),
+               lambda: hslokern.dc_hslo_wta(*rargs),
+               lambda: hslokern.dc_hslo_wta_plain(*rargs),
+               nbytes=hwd * 4 + 2 * hw + hw * 4, ops=2 * 12 * hwd,
+               plain_once=True)
+    wta = (torch.argmin(b4, dim=2) - zd).to(torch.float32)
+    moved = float((rdisp != wta).float().mean())
+    print(f"  B13 right eye, P1 {h2 / 3.0:.1f}, P2 {h2:.1f}: the "
+          f"optimisation changes {moved:.4f} of the WTA disparities",
+          flush=True)
+    if moved < 0.02:
+        raise SmokeFailure("B13: the strong penalties move too few "
+                           "disparities to test the recurrence")
+    return arms, arms_r
 
 
-def check_post_kernels(chk, img_l, img_r, arms_l, arms_r, cfg):
-    """B7-B12 on the inputs the main path gives them: the stage outputs of
-    one frame computed with the kernels."""
-    from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
-    from stereo_to_multiview_tpu_torch.ops import dcc, dibr, filters, irv
-    from stereo_to_multiview_tpu_torch.ops.band import (
-        band_stereo_core_chunked)
+def vote_cells(need, outliers):
+    """(ceil(H / IRV_TILE), W) bool: the vote blocks (IRV_TILE rows of
+    one column) that hold an outlier at a need pixel; the gated B9
+    evaluates these and passes every other block through."""
+    import torch.nn.functional as F
+    from stereo_to_multiview_tpu_torch.ops.irv import TILE as IRV_TILE
+    h, w = need.shape
+    voting = need.to(bool) & (outliers != 0)
+    nt = -(-h // IRV_TILE)
+    return F.pad(voting, (0, 0, 0, nt * IRV_TILE - h)).reshape(
+        nt, IRV_TILE, w).any(dim=1)
+
+
+def rowspan_live(need, outliers, usd: int):
+    """(H, W) bool: the row spans the gated B8 computes.  A vote block of
+    `vote_cells` reads its rows plus `usd` either way; a row-span block
+    (one row, IRV_TILE columns) is computed iff one of its columns is so
+    read.  The smoke holds this mirror of the kernels' gating from both
+    sides: the live spans must equal the plain version's, and a vote fed
+    255 in every other span must equal the plain vote."""
+    import torch
+    import torch.nn.functional as F
+    from stereo_to_multiview_tpu_torch.ops.irv import TILE as IRV_TILE
+    h, w = need.shape
+    cells = vote_cells(need, outliers)                     # (nt, W)
+    nt = cells.shape[0]
+    rows = torch.arange(h, device=need.device)[:, None]
+    tiles = torch.arange(nt, device=need.device)[None, :]
+    reads = ((tiles * IRV_TILE - usd <= rows)
+             & (rows < (tiles + 1) * IRV_TILE + usd))      # (H, nt)
+    read = (reads.to(torch.float32) @ cells.to(torch.float32)) > 0  # (H, W)
+    nx = -(-w // IRV_TILE)
+    blocks = F.pad(read, (0, nx * IRV_TILE - w)).reshape(
+        h, nx, IRV_TILE).any(dim=2)
+    return blocks.repeat_interleave(IRV_TILE, dim=1)[:, :w]
+
+
+def check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg):
+    """B8 and B9 on the left eye's round 1, once more under a real
+    second-round `need`, and the pipeline's early-stop loop against the
+    fixed rounds; returns both eyes' disparities after IRV."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import irv
     from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
 
-    h, w = img_l.shape[:2]
+    h, w = dl.shape
     hw, nd, zd, usd = h * w, cfg.num_disp, cfg.zero_disp, cfg.usd
-    dl, dr = band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg)
-
-    labels = dcc.dr_dcc(dl, dr, cfg.dcc_thresh)
-    chk.record("B7 dr_dcc (labels)", labels,
-               dcc.dr_dcc_plain(dl, dr, cfg.dcc_thresh),
-               lambda: dcc.dr_dcc(dl, dr, cfg.dcc_thresh),
-               lambda: dcc.dr_dcc_plain(dl, dr, cfg.dcc_thresh),
-               nbytes=2 * hw * 4 + 2 * hw, ops=2 * hw * 10)
-
     ol = labels[0]
     lr, ud = (arms_l[LEFT], arms_l[RIGHT]), (arms_l[UP], arms_l[DOWN])
     cnt = irv.irv_rowspan(dl, ol, *lr, nd, zd, usd)
@@ -281,12 +432,104 @@ def check_post_kernels(chk, img_l, img_r, arms_l, arms_r, cfg):
                lambda: irv.irv_vote_plain(cnt, dl, ol, *ud, *vote),
                nbytes=cnt.numel() + hw * (4 + 1 + 8) + hw * (4 + 1),
                ops=4 * cnt.numel())
-    del cnt
 
+    # round 2 under the real frontier of round 1's changes
+    d1, o1 = irv.irv_vote(cnt, dl, ol, *ud, *vote)
+    del cnt
+    changed = o1 != ol
+    if bool(changed.any()):
+        print("  IRV round 2: the frontier of round 1's changes", flush=True)
+    else:
+        # round 1 changed no label on this frame: the frontier a change
+        # would leave, around a sparse subset of the real outliers
+        ys = torch.arange(h, device=dl.device)[:, None]
+        xs = torch.arange(w, device=dl.device)[None, :]
+        changed = (ol != 0) & (ys % 97 == 0) & (xs % 89 == 0)
+        print(f"  IRV round 2: round 1 changed no label; the frontier is "
+              f"built around {int(changed.sum())} of the frame's outliers",
+              flush=True)
+    need = irv.dilate_frontier(changed, usd)
+    del changed
+    live = rowspan_live(need, o1, usd)[:, :, None]
+    live_share = float(live.float().mean())
+    cell_share = float(vote_cells(need, o1).float().mean())
+    print(f"  IRV round 2: need covers {float(need.float().mean()):.4f} of "
+          f"the pixels, {cell_share:.4f} of the vote blocks and "
+          f"{live_share:.4f} of the row spans are live", flush=True)
+    n_cnt = hw * (nd + 1)
+    cnt_n = irv.irv_rowspan(d1, o1, *lr, nd, zd, usd, need)
+    cnt_p = irv.irv_rowspan_plain(d1, o1, *lr, nd, zd, usd)
+    chk.record("B8 irv_rowspan (need)", torch.where(live, cnt_n, 0),
+               torch.where(live, cnt_p, 0),
+               lambda: irv.irv_rowspan(d1, o1, *lr, nd, zd, usd, need),
+               lambda: irv.irv_rowspan_plain(d1, o1, *lr, nd, zd, usd),
+               nbytes=hw * (4 + 1 + 8 + 1) + live_share * n_cnt,
+               ops=4 * live_share * n_cnt)
+    # the skipped spans are undefined: give the gated vote 255 (a count no
+    # span reaches) in each, so that reading one would show
+    cnt_n = torch.where(live, cnt_n, 255)
+    chk.record("B9 irv_vote (need)",
+               irv.irv_vote(cnt_n, d1, o1, *ud, *vote, need),
+               irv.irv_vote_plain(cnt_p, d1, o1, *ud, *vote, need),
+               lambda: irv.irv_vote(cnt_n, d1, o1, *ud, *vote, need),
+               lambda: irv.irv_vote_plain(cnt_p, d1, o1, *ud, *vote, need),
+               nbytes=(cell_share * (1 + 2 * usd / irv.TILE) * n_cnt
+                       + hw * (4 + 1 + 8 + 1) + hw * (4 + 1)),
+               ops=4 * cell_share * n_cnt)
+    del cnt_n, cnt_p, live, need, d1, o1
+
+    # the pipeline's early-stop IRV against the fixed rounds
     irv_args = (cfg.irv_thresh_s, cfg.irv_thresh_h, nd, zd, usd,
                 cfg.irv_iterations)
-    dl, _ = irv.dr_irv(dl, ol, arms_l, *irv_args)
-    dr, _ = irv.dr_irv(dr, labels[1], arms_r, *irv_args)
+    rounds = []
+    fixed_l = irv.dr_irv(dl, ol, arms_l, *irv_args)
+    fixed_r = irv.dr_irv(dr, labels[1], arms_r, *irv_args)
+    early_l = irv.dr_irv_early_stop(dl, ol, arms_l, *irv_args, rounds)
+    early_r = irv.dr_irv_early_stop(dr, labels[1], arms_r, *irv_args, rounds)
+    for name, a, b in (("left", fixed_l, early_l), ("right", fixed_r,
+                                                    early_r)):
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise SmokeFailure(f"early-stop IRV differs from the fixed "
+                               f"rounds ({name} eye)")
+    fixed_ms = time_ms(lambda: irv.dr_irv(dl, ol, arms_l, *irv_args), 3)
+    early_ms = time_ms(
+        lambda: irv.dr_irv_early_stop(dl, ol, arms_l, *irv_args), 3)
+    flag = fixed_l[1] != ol
+    t0 = time.perf_counter()
+    for _ in range(20):
+        bool(flag.any())
+    read_ms = (time.perf_counter() - t0) * 1e3 / 20
+    chk.irv[chk.suffix.strip() or MAIN] = dict(rounds_left=rounds[0], rounds_right=rounds[1],
+                   of=cfg.irv_iterations, fixed_ms_left=fixed_ms,
+                   early_stop_ms_left=early_ms, changed_read_ms=read_ms)
+    print(f"early-stop IRV: equal to the {cfg.irv_iterations} fixed rounds "
+          f"bit for bit; rounds run: left {rounds[0]}, right {rounds[1]}; "
+          f"left eye {early_ms:.3f} ms against {fixed_ms:.3f} ms fixed; one "
+          f"`changed` read on an idle device {read_ms:.3f} ms (host clock)",
+          flush=True)
+    return fixed_l[0], fixed_r[0]
+
+
+def check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg):
+    """B7 (labels), B8, B9 and B10 on the inputs a path gives them: the
+    stage outputs of one frame computed with the kernels.  Returns both
+    eyes' filtered disparities."""
+    from stereo_to_multiview_tpu_torch.ops import dcc, filters
+    from stereo_to_multiview_tpu_torch.ops.band import (
+        band_stereo_core_chunked)
+
+    h, w = img_l.shape[:2]
+    hw, nd, zd, usd = h * w, cfg.num_disp, cfg.zero_disp, cfg.usd
+    dl, dr = band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg)
+
+    labels = dcc.dr_dcc(dl, dr, cfg.dcc_thresh)
+    chk.record("B7 dr_dcc (labels)", labels,
+               dcc.dr_dcc_plain(dl, dr, cfg.dcc_thresh),
+               lambda: dcc.dr_dcc(dl, dr, cfg.dcc_thresh),
+               lambda: dcc.dr_dcc_plain(dl, dr, cfg.dcc_thresh),
+               nbytes=2 * hw * 4 + 2 * hw, ops=2 * hw * 10)
+
+    dl, dr = check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg)
     r = cfg.bilateral_radius
     blf = (r, cfg.bilateral_sigma_color, cfg.bilateral_sigma_spatial)
     bl = filters.filter_bilateral(dl, *blf)
@@ -295,8 +538,16 @@ def check_post_kernels(chk, img_l, img_r, arms_l, arms_r, cfg):
                lambda: filters.filter_bilateral(dl, *blf),
                lambda: filters.filter_bilateral_plain(dl, *blf),
                nbytes=2 * hw * 4, ops=20 * (2 * r + 1) ** 2 * hw)
-    br = filters.filter_bilateral(dr, *blf)
+    return bl, filters.filter_bilateral(dr, *blf)
 
+
+def check_synth_kernels(chk, img_l, img_r, bl, br, cfg, unfused=True):
+    """B7 (hits), B11, B12 and, with `unfused`, B14 on a frame's images
+    and filtered disparities."""
+    from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
+    from stereo_to_multiview_tpu_torch.ops import dibr
+
+    hw = img_l.shape[0] * img_l.shape[1]
     occl = dibr.dibr_occl(bl, br)
     chk.record("B7 dibr_occl (hits)", occl, dibr.dibr_occl_plain(bl, br),
                lambda: dibr.dibr_occl(bl, br),
@@ -323,103 +574,165 @@ def check_post_kernels(chk, img_l, img_r, arms_l, arms_r, cfg):
                lambda: dibr.warp_merge_views_plain(*wargs),
                nbytes=2 * hw * 3 + 5 * hw * 4 + views.numel(),
                ops=views.numel() * 20)
+    del views
+    if not unfused:
+        return
+
+    uargs = (img_l, img_r, bl, br, _synth_shifts(cfg.num_views))
+    vab = dibr.warp_views(*uargs)
+    chk.record("B14 warp_views", vab, dibr.warp_views_plain(*uargs),
+               lambda: dibr.warp_views(*uargs),
+               lambda: dibr.warp_views_plain(*uargs),
+               nbytes=2 * hw * 3 + 2 * hw * 4 + 2 * vab[0].numel() * 4,
+               ops=2 * vab[0].numel() * 8)
 
 
-def run_main_path(sbs, cfg, n_frames: int):
-    """Phase 3: one counted frame, then n_frames timed frames."""
+def run_path(name, entry, sbs, cfg, n_frames: int):
+    """Phase 3, one path: `entry(sbs, cfg)` once with the launch counts
+    zeroed just before and read just after, then n_frames timed frames."""
     import torch
     from stereo_to_multiview_tpu_torch import kernels
-    from stereo_to_multiview_tpu_torch.models.pipeline import process_frame
     from stereo_to_multiview_tpu_torch.utils.profiling import StageTimer
 
-    dev = torch.device("cuda")
-    sbs_dev = torch.as_tensor(sbs).to(dev)
+    sbs_dev = torch.as_tensor(sbs).to(torch.device("cuda"))
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    out = process_frame(sbs_dev, cfg)
+    out = entry(sbs_dev, cfg)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in kernels.wrappers().items()}
-    print(f"main path: first frame {first_s * 1e3:.1f} ms; launches "
-          f"{launches}", flush=True)
-    missing = [n for n, c in launches.items() if c <= 0]
+    print(f"path {name}: first frame {first_s * 1e3:.1f} ms; launches "
+          f"{launches}; expected zero: {sorted(NOT_ON_PATH[name])}",
+          flush=True)
+    missing = [n for n, c in launches.items()
+               if c <= 0 and n not in NOT_ON_PATH[name]]
     if missing:
-        raise SmokeFailure(f"kernels not launched on the main path: {missing}")
+        raise SmokeFailure(f"path {name}: kernels not launched: {missing}")
+    stray = [n for n in NOT_ON_PATH[name] if launches.get(n, 0) != 0]
+    if stray:
+        raise SmokeFailure(f"path {name}: kernels launched that the path "
+                           f"replaces: {stray}")
+    for n, want in EXACT_LAUNCHES[name].items():
+        if launches[n] != want:
+            raise SmokeFailure(f"path {name}: {n} launched {launches[n]} "
+                               f"times, expected {want}")
 
     timer = StageTimer()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_frames):
-        out = process_frame(sbs_dev, cfg, timer=timer)
+        out = entry(sbs_dev, cfg, timer=timer)
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3 / n_frames
     stages = {k: v / n_frames for k, v in timer.ms().items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"main path: {frame_ms:.2f} ms/frame over {n_frames} frames "
+    print(f"path {name}: {frame_ms:.2f} ms/frame over {n_frames} frames "
           f"(host clock, synchronized); peak device memory {peak_gb:.2f} GB",
           flush=True)
-    print("stages (CUDA events, ms/frame): " + ", ".join(
+    print(f"path {name} stages (CUDA events, ms/frame): " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
-    return out, launches, frame_ms, stages, peak_gb
+    return out, dict(launches=launches, frame_ms=frame_ms, stages_ms=stages,
+                     peak_memory_gb=peak_gb, first_frame_ms=first_s * 1e3)
 
 
-def check_outputs(out, cfg):
-    """Phase 4a: the 1080p outputs are well formed."""
+def check_outputs(name, out, cfg, disp_bounds):
+    """Phase 4a: a path's 1080p outputs are well formed; disp_bounds =
+    (num_disp, zero_disp) of the disparity values it may hold."""
     import torch
     dl, dr, il = out
-    lo, hi = cfg.disp_range
-    for name, d in (("disp_l", dl), ("disp_r", dr)):
+    lo, hi = -disp_bounds[1], disp_bounds[0] - disp_bounds[1]
+    for eye, d in (("disp_l", dl), ("disp_r", dr)):
         if tuple(d.shape) != (cfg.num_rows, cfg.num_cols) or d.dtype != \
                 torch.float32:
-            raise SmokeFailure(f"{name}: shape {tuple(d.shape)} {d.dtype}")
+            raise SmokeFailure(f"{name} {eye}: shape {tuple(d.shape)} "
+                               f"{d.dtype}")
         if not bool(torch.isfinite(d).all()):
-            raise SmokeFailure(f"{name}: non-finite values")
+            raise SmokeFailure(f"{name} {eye}: non-finite values")
         if float(d.min()) < lo or float(d.max()) >= hi:
-            raise SmokeFailure(f"{name}: values outside [{lo}, {hi})")
+            raise SmokeFailure(f"{name} {eye}: values outside [{lo}, {hi})")
+        if float(d.std()) == 0.0:
+            raise SmokeFailure(f"{name} {eye}: constant disparities")
+        print(f"path {name} {eye}: min {float(d.min()):.3f}, max "
+              f"{float(d.max()):.3f}, mean {float(d.mean()):.3f}, std "
+              f"{float(d.std()):.3f}", flush=True)
     if tuple(il.shape) != cfg.out_shape or il.dtype != torch.uint8:
-        raise SmokeFailure(f"interlaced: shape {tuple(il.shape)} {il.dtype}")
+        raise SmokeFailure(f"{name} interlaced: shape {tuple(il.shape)} "
+                           f"{il.dtype}")
     if float(il.float().std()) < 10.0:
-        raise SmokeFailure("interlaced: degenerate image")
+        raise SmokeFailure(f"{name} interlaced: degenerate image")
 
 
-def check_small_frame():
+def check_small_frame(label, cfg):
     """Phase 4b: a small frame on the card (kernels) against the same
-    frame on the CPU (plain versions): disparities before the bilateral
-    and the labels exact; final disparities and interlace within the
-    float32 rounding of torch.exp on the two devices."""
+    frame on the CPU (plain versions): disparities before the median and
+    bilateral filters and the labels exact; final disparities and
+    interlace within the float32 rounding of torch.exp on the two
+    devices.  A lowres config goes through process_frame_lowres."""
     import numpy as np
     import torch
-    from stereo_to_multiview_tpu_torch.config import PipelineConfig
     from stereo_to_multiview_tpu_torch.models import pipeline
+    from stereo_to_multiview_tpu_torch.ops.scale import tx_scale_bilinear
 
-    cfg = PipelineConfig(num_rows=96, num_cols=160, num_rows_out=96,
-                         num_cols_out=160, num_disp=32, zero_disp=16,
-                         usd=12, lsd=6, num_views=8, irv_iterations=3,
-                         bilateral_radius=3, feather_radius=5)
-    sbs = fish_sbs(96, 160)
+    sbs = stereo_sbs(cfg.num_rows, cfg.num_cols)
+    entry = (pipeline.process_frame_lowres if cfg.lowres
+             else pipeline.process_frame)
     res = {}
     for dev in ("cuda", "cpu"):
         l, r = (t.contiguous().to(dev) for t in
                 pipeline.demux_sbs(torch.from_numpy(sbs)))
+        if cfg.lowres:
+            l, r = (tx_scale_bilinear(t, cfg.num_rows_disp,
+                                      cfg.num_cols_disp).contiguous()
+                    for t in (l, r))
         raw = pipeline.raw_disparities(l, r, cfg)
-        final = pipeline.process_frame(sbs, cfg, device=dev)
+        if cfg.use_hslo and dev == "cuda":
+            # the penalties must be strong enough to move disparities, or
+            # the comparison below would not see the optimisation at all
+            wta = pipeline.raw_disparities(l, r, cfg.replace(use_hslo=False))
+            moved = float((raw[0] != wta[0]).float().mean())
+            print(f"small frame {label}: the scanline optimisation changes "
+                  f"{moved:.4f} of the left eye's disparities", flush=True)
+            if moved < 0.02:
+                raise SmokeFailure(f"small frame {label}: the penalties "
+                                   f"move too few disparities")
+        final = entry(sbs, cfg, device=dev)
         res[dev] = [x.cpu().numpy() for x in (*raw, *final)]
     g, c = res["cuda"], res["cpu"]
     for i, name in enumerate(("raw disp_l", "raw disp_r", "labels_l",
                               "labels_r")):
         if not np.array_equal(g[i], c[i]):
-            raise SmokeFailure(f"small frame: {name} differs card vs CPU")
+            raise SmokeFailure(f"small frame {label}: {name} differs card "
+                               f"vs CPU")
     dmax = max(float(np.abs(g[4] - c[4]).max()),
                float(np.abs(g[5] - c[5]).max()))
     same = float(np.mean(g[6] == c[6]))
-    print(f"small frame 96x160 D=32: raw disparities and labels equal card "
-          f"vs CPU; final disparity max diff {dmax:.3g}; interlaced "
-          f"identical on {same:.5f} of subpixels", flush=True)
+    print(f"small frame {label} {cfg.num_rows}x{cfg.num_cols} "
+          f"D={cfg.num_disp}: raw disparities and labels equal card vs CPU; "
+          f"final disparity max diff {dmax:.3g}; interlaced identical on "
+          f"{same:.5f} of subpixels", flush=True)
     if dmax > 1e-4 or same < 0.999:
-        raise SmokeFailure("small frame: card and CPU outputs disagree")
+        raise SmokeFailure(f"small frame {label}: card and CPU outputs "
+                           f"disagree")
     return dict(final_disp_max_diff=dmax, interlaced_same=same)
+
+
+def small_configs():
+    """The three small configurations of phase 4b."""
+    from stereo_to_multiview_tpu_torch.config import PipelineConfig
+    base = PipelineConfig(num_rows=96, num_cols=160, num_rows_out=96,
+                          num_cols_out=160, num_disp=32, zero_disp=16,
+                          usd=12, lsd=6, num_views=8, irv_iterations=3,
+                          bilateral_radius=3, feather_radius=5)
+    return {
+        "plain": base,
+        "hslo+median+resampled": base.replace(
+            use_hslo=True, use_median=True, num_views=6, num_rows_out=120,
+            num_cols_out=192, hslo_H1=3000.0, hslo_H2=9000.0),
+        "lowres": base.replace(num_rows_disp=48, num_cols_disp=80,
+                               disp_scale=0.5, num_disp=16, zero_disp=8),
+    }
 
 
 def main() -> int:
@@ -433,8 +746,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     try:
-        from stereo_to_multiview_tpu_torch import kernels
-        from stereo_to_multiview_tpu_torch.config import HD1080_D128
+        from stereo_to_multiview_tpu_torch import config, kernels
+        from stereo_to_multiview_tpu_torch.models import pipeline
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -458,42 +771,76 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}", flush=True)
 
-        cfg = HD1080_D128
-        sbs = fish_sbs(cfg.num_rows, cfg.num_cols)
+        cfg = config.HD1080_D128
+        sbs = stereo_sbs(cfg.num_rows, cfg.num_cols)
         dev = torch.device("cuda")
-        from stereo_to_multiview_tpu_torch.ops.demux import demux_sbs
         img_l, img_r = (t.contiguous() for t in
-                        demux_sbs(torch.from_numpy(sbs).to(dev)))
+                        pipeline.demux_sbs(torch.from_numpy(sbs).to(dev)))
         chk = KernelChecks(reps=10)
         arms_l, arms_r = check_core_kernels(chk, img_l, img_r, cfg)
         torch.cuda.empty_cache()
-        check_post_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
-        kres = chk.results
-        del img_l, img_r, arms_l, arms_r
+        bl, br = check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
+        check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
+        del arms_l, arms_r, bl, br
         torch.cuda.empty_cache()
 
-        out, launches, frame_ms, stages, peak_gb = run_main_path(sbs, cfg, 3)
-        check_outputs(out, cfg)
-        report["small_frame"] = check_small_frame()
+        # the same kernels on what the third path gives them, staged as
+        # process_frame_lowres stages it: the pair scaled to 540x960 and
+        # D=64 up to the bilateral filter, then the disparities scaled
+        # back to 1080p (and doubled) for the synthesis
+        from stereo_to_multiview_tpu_torch.ops.scale import (
+            tx_disp_scale, tx_scale_bilinear)
+        lcfg = config.HD1080_LOWRES
+        low_l, low_r = (tx_scale_bilinear(t, lcfg.num_rows_disp,
+                                          lcfg.num_cols_disp).contiguous()
+                        for t in (img_l, img_r))
+        chk.suffix = AT_LOWRES
+        arms_l, arms_r = check_core_kernels(chk, low_l, low_r, lcfg,
+                                            hslo=False)
+        bl, br = (tx_disp_scale(d, lcfg.num_rows, lcfg.num_cols,
+                                1.0 / lcfg.disp_scale).contiguous()
+                  for d in check_disp_kernels(chk, low_l, low_r, arms_l,
+                                              arms_r, lcfg))
+        check_synth_kernels(chk, img_l, img_r, bl, br, lcfg, unfused=False)
+        chk.suffix = ""
+        kres = chk.results
+        report["irv_early_stop"] = chk.irv
+        del img_l, img_r, low_l, low_r, arms_l, arms_r, bl, br
+        torch.cuda.empty_cache()
+
+        paths = {}
+        for name, entry, pcfg in (
+                (MAIN, pipeline.process_frame, cfg),
+                (HSLO4K, pipeline.process_frame, config.HD1080_D128_HSLO_4K),
+                (LOWRES, pipeline.process_frame_lowres,
+                 config.HD1080_LOWRES)):
+            out, paths[name] = run_path(name, entry, sbs, pcfg, 3)
+            check_outputs(name, out, pcfg, pipeline.synth_disp_bounds(pcfg))
+            del out
+            torch.cuda.empty_cache()
+        report["small_frames"] = {label: check_small_frame(label, scfg)
+                                  for label, scfg in small_configs().items()}
     except (SmokeFailure, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     rows = []
-    for name, (wrapper, source, replaces) in KERNELS.items():
+    for name, (wrapper, source, replaces, path) in KERNELS.items():
         r = kres[name]
         rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=launches[wrapper],
+                         replaces=replaces, path=path,
+                         launches=paths[path]["launches"][wrapper],
                          max_abs_err=r["max_abs_err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"],
                          library_ms=r["library_ms"]))
-    report.update(kernels=rows, frame_ms=frame_ms, stages_ms=stages,
-                  peak_memory_gb=peak_gb, launches=launches)
+    report.update(kernels=rows, paths=paths)
     os.makedirs(os.path.join(HERE, "out"), exist_ok=True)
     with open(os.path.join(HERE, "out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(f"frame: {frame_ms:.2f} ms per frame at HD1080_D128 on {card}")
+    for name, p in paths.items():
+        print(f"frame: {p['frame_ms']:.2f} ms per frame at {name} on {card}")
+    print(f"gpu: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

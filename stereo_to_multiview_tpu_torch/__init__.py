@@ -10,9 +10,16 @@ its module names, so each counterpart is easy to find:
   ops.costkern   -- kernels B2 (cost) and B3 (right-eye shear)
   ops.band       -- kernels B4/B6 (horizontal passes, WTA) and B5
                     (vertical passes) of the band engine's stereo core
+  ops.hslokern   -- kernel B13 (scanline optimisation + WTA); ops.hslo
+                    holds its plain version
+  ops.irv        -- kernels B8/B9 (an IRV round, `need`-gated) and the
+                    early-stopping round loop
+  ops.dibr       -- kernels B7 (hits), B11, B12 (fused warp + merge) and
+                    B14 (the unfused synthesis' warps)
+  ops.scale      -- the rescales of the lowres path and the interlace
   csrc           -- the CUDA sources of those kernels (sm_90a)
   kernels        -- nvcc build, ctypes loading, launch counters
-  models         -- process_frame
+  models         -- process_frame, process_frame_lowres
   utils          -- BMP reader, stage annotation and timing
 """
 

@@ -73,8 +73,8 @@ class PipelineConfig:
     band_lossy_wta: bool = False # pass-4 bf16 WTA dial (not ported)
     xla_agg_qscale: float = 0.0  # JAX XLA engine only
     band_row_chunk: int = 0      # stereo-core rows per chunk (0 = whole)
-    irv_row_chunk: int = 0       # JAX IRV chunking (the port's IRV is
-                                 # whole-frame; results are identical)
+    irv_row_chunk: int = 0       # IRV rows per chunk; the port's IRV is
+                                 # whole-frame and takes only 0
 
     # --- optional stages ---
     use_median: bool = False
@@ -142,3 +142,16 @@ FISH = PipelineConfig(num_rows=384, num_cols=640, num_rows_out=384,
 HD1080_D128 = PipelineConfig(
     num_rows=1080, num_cols=1920, num_rows_out=1080, num_cols_out=1920,
     num_disp=128, zero_disp=64, num_views=8)
+
+# 1080p stereo to a 4K lenticular panel with the scanline optimisation
+# and the median filter on: the HSLO kernel runs once per eye and the
+# unfused synthesis (resampled interlace) replaces the fused warp+merge.
+HD1080_D128_HSLO_4K = HD1080_D128.replace(
+    use_hslo=True, use_median=True, num_rows_out=2160, num_cols_out=3840)
+
+# Disparity at half resolution (the reference's adcensus_stm_2 shape),
+# synthesis at full resolution on the disparities scaled by 1/disp_scale.
+HD1080_LOWRES = PipelineConfig(
+    num_rows=1080, num_cols=1920, num_rows_out=1080, num_cols_out=1920,
+    num_rows_disp=540, num_cols_disp=960, disp_scale=0.5, num_disp=64,
+    zero_disp=32, num_views=8)

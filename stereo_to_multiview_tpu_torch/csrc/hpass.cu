@@ -5,13 +5,18 @@
 //   pass 1 (B4): y = sum over [x - LEFT, x + RIGHT) of the u8 cost volume,
 //                rescaled by s1, stored int32;
 //   pass 4 (B6): the same sum of the int32 VV output, then the first-min
-//                argmin over D: disp = argmin - zd as float32.
+//                argmin over D: disp = argmin - zd as float32; or, for the
+//                scanline optimisation that follows it when cfg.use_hslo
+//                is set, the sum alone as an int32 volume (`_band_pass_h`
+//                with out_dtype int32 and no WTA, band.py
+//                `band_aggregate_q(zero_disp=None, final_out_t=True)`).
 // Volumes are (H, W, D), D innermost; the u8 input may have a row stride
 // larger than W*D (the left eye is a column slice of the pair volume).
 //
 // Bound on the H100: memory.  At 1080p/D=128 pass 1 reads 0.27 GB of u8
 // and writes 1.06 GB of int32 per eye (~0.4 ms); pass 4 reads 1.06 GB
-// and writes 8 MB (~0.32 ms).  Design: per (row, 64-column tile) block,
+// and writes 8 MB (~0.32 ms), or 1.06 GB without the WTA (~0.64 ms).
+// Design: per (row, 64-column tile) block,
 // one thread per d builds its column's prefix sums over the tile plus the
 // arm reach in shared memory (coalesced loads, each input read 1 +
 // 2*usd/64 times, mostly from L2), so each output is one subtraction
@@ -77,4 +82,14 @@ STM_API int stm_hpass_wta_i32(const void* in, const void* an, const void* ap,
                               int zd, void* stream) {
   return launch_hpass<int32_t, true>(in, (long long)W * D, an, ap, nullptr,
                                      disp, H, W, D, reach, 0, zd, stream);
+}
+
+// Pass 4 without WTA: in (H, W, D) i32 contiguous; an/ap (H, W) i32;
+// out (H, W, D) i32, rescaled by `shift` (0 on the ported path).
+STM_API int stm_hpass_sum_i32(const void* in, const void* an, const void* ap,
+                              void* out, int H, int W, int D, int reach,
+                              int shift, void* stream) {
+  return launch_hpass<int32_t, false>(in, (long long)W * D, an, ap, out,
+                                      nullptr, H, W, D, reach, shift, 0,
+                                      stream);
 }

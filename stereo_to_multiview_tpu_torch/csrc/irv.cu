@@ -30,6 +30,16 @@
 // Both stage their tile's window bounds (from the arms) in shared memory
 // first, so the per-position loop waits on no device-memory load; B9
 // keeps 16-bit prefixes so that more blocks fit on an SM.
+//
+// `need` gating (the TPU kernels' flag-gated DMA, irvkern.py `wflags` /
+// `vflags`): with a `need` plane, only outliers at need pixels vote; every
+// other pixel keeps its disparity and label.  A B9 block (one column, 64
+// rows) with no such pixel copies its inputs through and reads no spans.
+// B8 first marks those live (64-row tile, column) cells in a small u8 map
+// (`irv_live_kernel`), and a B8 block (one row, 64 columns) whose row no
+// live cell of its columns can read (the cell's rows plus the vote reach)
+// writes nothing: those spans stay undefined and are never read.  Without
+// `need` both kernels do the full round.
 
 #include "stm_common.cuh"
 
@@ -43,17 +53,46 @@ __device__ __forceinline__ int irv_key(float d, uint8_t outl, int B, int zd) {
   return (b >= 0 && b < B) ? (int)b : B;
 }
 
+// live[t][x] = 1 iff column x has an outlier at a need pixel in rows
+// [t * IRV_TILE, (t + 1) * IRV_TILE): the cells whose votes B9 evaluates.
+__global__ void irv_live_kernel(const uint8_t* __restrict__ need,
+                                const uint8_t* __restrict__ outl,
+                                uint8_t* __restrict__ live, int H, int W) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = blockIdx.y;
+  if (x >= W) return;
+  const int r1 = min((t + 1) * IRV_TILE, H);
+  uint8_t any = 0;
+  for (int r = t * IRV_TILE; r < r1; ++r) {
+    const size_t i = (size_t)r * W + x;
+    any |= (need[i] != 0) & (outl[i] != 0);
+  }
+  live[(size_t)t * W + x] = any;
+}
+
 __global__ void irv_rowspan_kernel(const float* __restrict__ disp,
                                    const uint8_t* __restrict__ outl,
                                    const int* __restrict__ left,
                                    const int* __restrict__ right,
-                                   uint8_t* __restrict__ cnt, int W, int B,
-                                   int zd, int reach) {
+                                   const uint8_t* __restrict__ live,
+                                   uint8_t* __restrict__ cnt, int H, int W,
+                                   int B, int zd, int reach) {
   extern __shared__ int smem[];
   const int C = B + 1;
   const int y = blockIdx.y;
   const int p0 = blockIdx.x * IRV_TILE;
   const int p1 = min(p0 + IRV_TILE, W);
+  if (live != nullptr) {
+    // a live cell (t, x) reads the rows [t * TILE - reach, (t + 1) * TILE
+    // + reach) of column x
+    const int nt = (H + IRV_TILE - 1) / IRV_TILE;
+    const int t0 = max(y - reach, 0) / IRV_TILE;
+    const int t1 = min((y + reach) / IRV_TILE, nt - 1);
+    int any = 0;
+    for (int i = threadIdx.x; i < (t1 - t0 + 1) * (p1 - p0); i += blockDim.x)
+      any |= live[(size_t)(t0 + i / (p1 - p0)) * W + p0 + i % (p1 - p0)];
+    if (!__syncthreads_or(any)) return;
+  }
   const int lo = max(p0 - reach, 0);
   const int hi = min(p1 + reach, W);
   int* win_a = smem;                                  // IRV_TILE window
@@ -90,6 +129,7 @@ __global__ void irv_vote_kernel(const uint8_t* __restrict__ cnt,
                                 const uint8_t* __restrict__ outl,
                                 const int* __restrict__ up,
                                 const int* __restrict__ down,
+                                const uint8_t* __restrict__ need,
                                 float* __restrict__ disp_out,
                                 uint8_t* __restrict__ outl_out, int H, int W,
                                 int B, int zd, int reach, int thresh_s,
@@ -99,6 +139,21 @@ __global__ void irv_vote_kernel(const uint8_t* __restrict__ cnt,
   const int x = blockIdx.x;
   const int p0 = blockIdx.y * IRV_TILE;
   const int p1 = min(p0 + IRV_TILE, H);
+  if (need != nullptr) {
+    int any = 0;
+    for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
+      const size_t i = (size_t)p * W + x;
+      any |= (need[i] != 0) & (outl[i] != 0);
+    }
+    if (!__syncthreads_or(any)) {       // no vote to evaluate: pass through
+      for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
+        const size_t i = (size_t)p * W + x;
+        disp_out[i] = disp[i];
+        outl_out[i] = outl[i];
+      }
+      return;
+    }
+  }
   const int lo = max(p0 - reach, 0);
   const int hi = min(p1 + reach, H);
   const int nw = blockDim.x >> 5;
@@ -162,7 +217,8 @@ __global__ void irv_vote_kernel(const uint8_t* __restrict__ cnt,
     const int total = tot[t];
     const int max_d = best > 0 ? arg - zd : (int)d;
     const float ratio = __fdiv_rn((float)(max_d + zd), (float)max(total, 1));
-    const bool accept = o != 0 && total > thresh_s && ratio > thresh_h;
+    const bool accept = o != 0 && (need == nullptr || need[i] != 0) &&
+                        total > thresh_s && ratio > thresh_h;
     disp_out[i] = accept ? (float)max_d : d;
     outl_out[i] = accept ? 0 : o;
   }
@@ -171,11 +227,13 @@ __global__ void irv_vote_kernel(const uint8_t* __restrict__ cnt,
 static inline int irv_threads(int C) { return (C + 31) / 32 * 32; }
 
 // disp (H, W) f32, outl (H, W) u8, left/right (H, W) i32; cnt (H, W, B + 1)
-// u8.  Arms clamp to [0, reach], reach <= 127.
+// u8.  Arms clamp to [0, reach], reach <= 127.  need (H, W) u8 or null;
+// with need, live is a (ceil(H / 64), W) u8 scratch and the spans no
+// needed vote reads are left unwritten.
 STM_API int stm_irv_rowspan(const void* disp, const void* outl,
-                            const void* left, const void* right, void* cnt,
-                            int H, int W, int B, int zd, int reach,
-                            void* stream) {
+                            const void* left, const void* right,
+                            const void* need, void* live, void* cnt, int H,
+                            int W, int B, int zd, int reach, void* stream) {
   const int threads = irv_threads(B + 1);
   if (H <= 0 || W <= 0 || B <= 0 || threads > 1024 || reach < 0 ||
       reach > 127)
@@ -185,19 +243,27 @@ STM_API int stm_irv_rowspan(const void* disp, const void* outl,
                           sizeof(uint16_t);
   cudaError_t err = stm_smem_cap(irv_rowspan_kernel, smem);
   if (err != cudaSuccess) return (int)err;
+  if (need != nullptr) {
+    if (live == nullptr) return (int)cudaErrorInvalidValue;
+    dim3 lgrid((W + 127) / 128, (H + IRV_TILE - 1) / IRV_TILE);
+    irv_live_kernel<<<lgrid, 128, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)need, (const uint8_t*)outl, (uint8_t*)live, H, W);
+  }
   dim3 grid((W + IRV_TILE - 1) / IRV_TILE, H);
   irv_rowspan_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const float*)disp, (const uint8_t*)outl, (const int*)left,
-      (const int*)right, (uint8_t*)cnt, W, B, zd, reach);
+      (const int*)right, need != nullptr ? (const uint8_t*)live : nullptr,
+      (uint8_t*)cnt, H, W, B, zd, reach);
   return (int)cudaGetLastError();
 }
 
-// cnt (H, W, B + 1) u8 from stm_irv_rowspan; disp/outl the round's input;
-// up/down (H, W) i32; disp_out (H, W) f32, outl_out (H, W) u8.
+// cnt (H, W, B + 1) u8 from stm_irv_rowspan (called with the same need);
+// disp/outl the round's input; up/down (H, W) i32; need (H, W) u8 or null;
+// disp_out (H, W) f32, outl_out (H, W) u8.
 STM_API int stm_irv_vote(const void* cnt, const void* disp, const void* outl,
-                         const void* up, const void* down, void* disp_out,
-                         void* outl_out, int H, int W, int B, int zd,
-                         int reach, int thresh_s, float thresh_h,
+                         const void* up, const void* down, const void* need,
+                         void* disp_out, void* outl_out, int H, int W, int B,
+                         int zd, int reach, int thresh_s, float thresh_h,
                          void* stream) {
   const int threads = irv_threads(B + 1);
   if (H <= 0 || W <= 0 || B <= 0 || threads > 1024 || reach < 0 ||
@@ -213,7 +279,8 @@ STM_API int stm_irv_vote(const void* cnt, const void* disp, const void* outl,
   dim3 grid(W, (H + IRV_TILE - 1) / IRV_TILE);
   irv_vote_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)cnt, (const float*)disp, (const uint8_t*)outl,
-      (const int*)up, (const int*)down, (float*)disp_out, (uint8_t*)outl_out,
-      H, W, B, zd, reach, thresh_s, thresh_h);
+      (const int*)up, (const int*)down, (const uint8_t*)need,
+      (float*)disp_out, (uint8_t*)outl_out, H, W, B, zd, reach, thresh_s,
+      thresh_h);
   return (int)cudaGetLastError();
 }

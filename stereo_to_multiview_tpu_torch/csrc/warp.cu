@@ -1,8 +1,12 @@
 // B12: every intermediate view, warped from both eyes, masked and merged.
+// B14: the same two warps of every view, floored, without mask and merge.
 //
-// Replaces the TPU kernel stereo_to_multiview_tpu/ops/warpkern.py
+// B12 replaces the TPU kernel stereo_to_multiview_tpu/ops/warpkern.py
 // `_warp_merge_views_xm_kernel` (reached via
-// `dibr_warp_merge_views_kern_xm`).
+// `dibr_warp_merge_views_kern_xm`); B14 replaces `_warp_views_xm_kernel`
+// (reached via `dibr_warp_views_kern_xm`), the unfused synthesis taken
+// when the output resolution differs from the input's, bleed_radius != 1
+// or there is no intermediate view to merge in the fused way.
 //
 // For view v with shifts sl = shifts_l[v] (= -shift), sr = shifts_r[v]
 // (= 1 - shift):
@@ -25,6 +29,14 @@
 // float warp volumes of the unfused chain never reach device memory; the
 // TPU kernel's loop over the block's disparity offsets (it cannot gather)
 // becomes a direct read of the two samples.
+//
+// B14 writes those float volumes, because the unfused chain's mask
+// multiply and merge follow it: va[v] = u8(lerp(img_l, disp_r, sl)) and
+// vb[v] = u8(lerp(img_r, disp_l, sr)) as float32, (nv, H, W, 3) each.  Its
+// bound is its output: 2 x 149 MB written at 1080p and 6 views against 28
+// MB read (~0.1 ms).  Same design, one thread per (view, pixel); the
+// sampling code is B12's own (`make_lerp`, `lerp_u8`), so the two cannot
+// drift apart.
 
 #include "stm_common.cuh"
 
@@ -41,7 +53,8 @@ __device__ __forceinline__ uint8_t to_u8(float v) {
 }
 
 // The per-pixel part of warp(I, M, D, s): the two weights, the two sample
-// columns and the mask value; `sample` applies it to one channel.
+// columns and the mask value; `lerp_u8` is the truncated lerp of one
+// channel, `sample` the masked sample.
 struct Lerp {
   float w0, w1, m;
   int i0, i1;
@@ -62,11 +75,15 @@ __device__ __forceinline__ Lerp make_lerp(int x, float d, float s, float m,
   return l;
 }
 
+__device__ __forceinline__ uint8_t lerp_u8(const uint8_t* row, const Lerp& l,
+                                           int ch) {
+  return to_u8(__fadd_rn(__fmul_rn(l.w0, (float)row[l.i0 * 3 + ch]),
+                         __fmul_rn(l.w1, (float)row[l.i1 * 3 + ch])));
+}
+
 __device__ __forceinline__ uint8_t sample(const uint8_t* row, const Lerp& l,
                                           int ch) {
-  const float v = __fadd_rn(__fmul_rn(l.w0, (float)row[l.i0 * 3 + ch]),
-                            __fmul_rn(l.w1, (float)row[l.i1 * 3 + ch]));
-  return to_u8(__fmul_rn((float)to_u8(v), l.m));
+  return to_u8(__fmul_rn((float)lerp_u8(row, l, ch), l.m));
 }
 
 __global__ void __launch_bounds__(WARP_TX)
@@ -120,5 +137,51 @@ STM_API int stm_warp_merge(const void* img_l, const void* img_r,
       (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
       (const float*)disp_r, (const float*)mask_l, (const float*)mask_r,
       (const float*)feather, s, (uint8_t*)out, H, W);
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(WARP_TX)
+warp_views_kernel(const uint8_t* __restrict__ img_l,
+                  const uint8_t* __restrict__ img_r,
+                  const float* __restrict__ disp_l,
+                  const float* __restrict__ disp_r, WarpShifts shifts,
+                  float* __restrict__ va, float* __restrict__ vb, int H,
+                  int W) {
+  const int x = blockIdx.x * WARP_TX + threadIdx.x;
+  const int y = blockIdx.y;
+  const int v = blockIdx.z;
+  if (x >= W) return;
+  const size_t i = (size_t)y * W + x;
+  const Lerp from_l = make_lerp(x, disp_r[i], shifts.l[v], 1.0f, W);
+  const Lerp from_r = make_lerp(x, disp_l[i], shifts.r[v], 1.0f, W);
+  const uint8_t* row_l = img_l + (size_t)y * W * 3;
+  const uint8_t* row_r = img_r + (size_t)y * W * 3;
+  const size_t o = (((size_t)v * H + y) * W + x) * 3;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    va[o + ch] = (float)lerp_u8(row_l, from_l, ch);
+    vb[o + ch] = (float)lerp_u8(row_r, from_r, ch);
+  }
+}
+
+// img_l, img_r: (H, W, 3) u8; disp_l, disp_r: (H, W) f32; shifts_l,
+// shifts_r: host arrays of nv <= 32 floats; va, vb: (nv, H, W, 3) f32.
+STM_API int stm_warp_views(const void* img_l, const void* img_r,
+                           const void* disp_l, const void* disp_r,
+                           const float* shifts_l, const float* shifts_r,
+                           void* va, void* vb, int H, int W, int nv,
+                           void* stream) {
+  if (H <= 0 || W <= 0 || nv <= 0 || nv > WARP_MAX_VIEWS ||
+      shifts_l == nullptr || shifts_r == nullptr)
+    return (int)cudaErrorInvalidValue;
+  WarpShifts s;
+  for (int v = 0; v < nv; ++v) {
+    s.l[v] = shifts_l[v];
+    s.r[v] = shifts_r[v];
+  }
+  dim3 grid((W + WARP_TX - 1) / WARP_TX, H, nv);
+  warp_views_kernel<<<grid, WARP_TX, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
+      (const float*)disp_r, s, (float*)va, (float*)vb, H, W);
   return (int)cudaGetLastError();
 }

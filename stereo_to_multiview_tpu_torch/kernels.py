@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
-SOURCES = ("arms", "cost", "shear", "hpass", "vpass", "dcc", "irv",
+SOURCES = ("arms", "cost", "shear", "hpass", "vpass", "hslo", "dcc", "irv",
            "bilateral", "bleed", "warp")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -40,14 +40,17 @@ _SIGS = {
     "stm_cost_pair": [_P] * 6 + [_I] * 4 + [_P],
     "stm_shear_right": [_P, _P] + [_I] * 4 + [_P],
     "stm_hpass_sum_u8": [_P, _LL, _P, _P, _P] + [_I] * 5 + [_P],
+    "stm_hpass_sum_i32": [_P, _P, _P, _P] + [_I] * 5 + [_P],
     "stm_hpass_wta_i32": [_P, _P, _P, _P] + [_I] * 5 + [_P],
+    "stm_hslo_wta": [_P] * 5 + [_I] * 5 + [_F, _P, _P, _P],
     "stm_vv_pass": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "stm_dcc": [_P] * 4 + [_I, _I, _F, _I, _P],
-    "stm_irv_rowspan": [_P] * 5 + [_I] * 5 + [_P],
-    "stm_irv_vote": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "stm_irv_rowspan": [_P] * 7 + [_I] * 5 + [_P],
+    "stm_irv_vote": [_P] * 8 + [_I] * 6 + [_F, _P],
     "stm_bilateral": [_P] * 3 + [_I] * 3 + [_F, _F, _P],
     "stm_bleed_mask": [_P, _P, _I, _I, _I, _F, _P],
     "stm_warp_merge": [_P] * 10 + [_I] * 3 + [_P],
+    "stm_warp_views": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 _libs: dict = {}

@@ -3,10 +3,18 @@ interlaced) out.
 
 Stage order, with the hand-written CUDA kernel of each stage:
   demux_sbs -> cross arms (B1) -> stereo core (cost init B2/B3, H,V,V,H
-  aggregation B4/B5, WTA B6) -> dcc (B7) -> irv (B8/B9 per round)
-  -> bilateral (B10) -> occlusion hits (B7) -> bleed + mask (B11)
-  -> feather -> backward warps + merge of every intermediate view (B12)
-  -> interlace
+  aggregation B4/B5, WTA B6; with use_hslo the pass-4 volume and the
+  scanline optimisation + WTA, B13) -> dcc (B7) -> irv (B8/B9 per round,
+  stopping at the fixpoint) -> [median] -> bilateral (B10)
+  -> occlusion hits (B7) -> bleed + mask (B11) -> feather
+  -> backward warps + merge of every intermediate view (B12, fused), or
+     the warps alone (B14) with mask and merge after them (unfused: a
+     resampled output, bleed_radius != 1)
+  -> interlace (resampling every view when the output resolution
+     differs)
+
+`process_frame_lowres` computes the disparities on a downscaled pair and
+scales them back up before the synthesis.
 
 The stereo core has band-engine semantics (quantized cost, exact integer
 aggregation, first-min WTA); the kernels' plain versions follow the JAX
@@ -15,7 +23,7 @@ band-engine kernels.
 
 Entry points run on the CUDA device unless the caller passes
 `device="cpu"` (the tests do); without a GPU and without that request
-they raise.  Knobs this slice does not port raise NotImplementedError
+they raise.  Knobs the port does not have yet raise NotImplementedError
 naming their ROADMAP item.
 """
 
@@ -32,10 +40,14 @@ from stereo_to_multiview_tpu_torch.ops.cross import cross_arms
 from stereo_to_multiview_tpu_torch.ops.dcc import dr_dcc
 from stereo_to_multiview_tpu_torch.ops.demux import demux_sbs
 from stereo_to_multiview_tpu_torch.ops.dibr import (
-    dibr_bleed_mask, dibr_feather_mask, dibr_occl, warp_merge_views)
-from stereo_to_multiview_tpu_torch.ops.filters import filter_bilateral
-from stereo_to_multiview_tpu_torch.ops.irv import dr_irv
-from stereo_to_multiview_tpu_torch.ops.mux import mux_multiview
+    dibr_bleed_mask, dibr_feather_mask, dibr_occl, warp_merge_views,
+    warp_views)
+from stereo_to_multiview_tpu_torch.ops.filters import (
+    filter_bilateral, filter_median)
+from stereo_to_multiview_tpu_torch.ops.irv import dr_irv_early_stop
+from stereo_to_multiview_tpu_torch.ops.mux import mux_merge_ab, mux_multiview
+from stereo_to_multiview_tpu_torch.ops.scale import (
+    tx_disp_scale, tx_scale_bilinear)
 from stereo_to_multiview_tpu_torch.utils.profiling import (
     StageTimer, stage_scope)
 
@@ -52,14 +64,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_ported(cfg: PipelineConfig):
-    """Raise NotImplementedError for any knob this slice does not port."""
+    """Raise NotImplementedError for any knob that is not ported yet."""
     todo = [
         (cfg.engine == "xla", "engine='xla'", "queue A item 14"),
-        (cfg.use_hslo, "use_hslo", "queue A item 13"),
-        (cfg.use_median, "use_median", "queue A item 13"),
-        (cfg.lowres, "lowres disparity", "queue A item 11"),
-        ((cfg.num_rows_out, cfg.num_cols_out) != (cfg.num_rows, cfg.num_cols),
-         "output resolution != input resolution", "queue A item 12"),
+        (cfg.irv_row_chunk != 0, "irv_row_chunk > 0", "queue A item 7"),
         (cfg.band_digits != 3, "band_digits != 3", "queue A item 14"),
         (cfg.band_qscale != 127.0, "band_qscale != 127", "queue A item 14"),
         (cfg.band_lossy_wta, "band_lossy_wta", "queue A item 14"),
@@ -75,7 +83,8 @@ def check_ported(cfg: PipelineConfig):
 def raw_disparities(img_l, img_r, cfg: PipelineConfig,
                     timer: StageTimer | None = None):
     """Stereo matching up to IRV: images -> (disp_l, disp_r) float32
-    before the bilateral filter, plus the outlier labels (u8)."""
+    before the median and bilateral filters, plus the outlier labels
+    (u8)."""
     with stage_scope("ca_cross_arms", timer):
         arms_l = cross_arms(img_l, cfg.ucd, cfg.lcd, cfg.usd, cfg.lsd)
         arms_r = cross_arms(img_r, cfg.ucd, cfg.lcd, cfg.usd, cfg.lsd)
@@ -85,10 +94,9 @@ def raw_disparities(img_l, img_r, cfg: PipelineConfig,
     with stage_scope("dr_dcc", timer):
         out_l, out_r = dr_dcc(disp_l, disp_r, cfg.dcc_thresh)
     with stage_scope("dr_irv", timer):
-        irv = lambda d, o, a: dr_irv(d, o, a, cfg.irv_thresh_s,
-                                     cfg.irv_thresh_h, cfg.num_disp,
-                                     cfg.zero_disp, cfg.usd,
-                                     cfg.irv_iterations)
+        irv = lambda d, o, a: dr_irv_early_stop(
+            d, o, a, cfg.irv_thresh_s, cfg.irv_thresh_h, cfg.num_disp,
+            cfg.zero_disp, cfg.usd, cfg.irv_iterations)
         disp_l, out_l = irv(disp_l, out_l, arms_l)
         disp_r, out_r = irv(disp_r, out_r, arms_r)
     return disp_l, disp_r, out_l, out_r
@@ -99,6 +107,9 @@ def compute_disparities(img_l, img_r, cfg: PipelineConfig,
     """Stereo matching half of the pipeline: images -> refined (disp_l,
     disp_r) float32 plus the outlier labels."""
     disp_l, disp_r, out_l, out_r = raw_disparities(img_l, img_r, cfg, timer)
+    if cfg.use_median:
+        with stage_scope("filter_median", timer):
+            disp_l, disp_r = filter_median(disp_l), filter_median(disp_r)
     with stage_scope("filter_bilateral", timer):
         blf = lambda d: filter_bilateral(d, cfg.bilateral_radius,
                                          cfg.bilateral_sigma_color,
@@ -125,12 +136,23 @@ def _synth_shifts(v: int):
                  for v_i in range(1, v - 1))
 
 
+def fused_synthesis(cfg: PipelineConfig, h: int, w: int) -> bool:
+    """Whether the synthesis runs the fused warp + mask + merge kernel
+    (B12): some intermediate view, bleed radius 1, and an output at the
+    input's resolution.  Otherwise the warps alone (B14) with the mask
+    multiply and the merge after them."""
+    return (cfg.num_views > 2 and cfg.bleed_radius == 1
+            and (cfg.num_rows_out, cfg.num_cols_out) == (h, w))
+
+
 def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
                      timer: StageTimer | None = None) -> torch.Tensor:
     """DIBR half: images + disparities -> (V, H, W, 3) u8 view stack.
     View 0 = right source, view V-1 = left source; intermediate view v
     warps L with disp_r at -shift and R with disp_l at 1 - shift,
-    shift = 1 - v/(V-1), and merges them with the feathered mask."""
+    shift = 1 - v/(V-1), and merges them with the feathered mask.  The
+    two routes (`fused_synthesis`) give the same values."""
+    h, w = img_l.shape[:2]
     with stage_scope("dibr_occl", timer):
         occl_l, occl_r = dibr_occl(disp_l, disp_r)
         mask_l = dibr_bleed_mask(occl_l, cfg.bleed_radius)
@@ -138,11 +160,36 @@ def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
     with stage_scope("dibr_feather", timer):
         feathered = dibr_feather_mask(mask_r, cfg.feather_radius,
                                       cfg.feather_sigma)
+    shifts = _synth_shifts(cfg.num_views)
     with stage_scope("dibr_dbm", timer):
-        mids = warp_merge_views(img_l, img_r, disp_l, disp_r, mask_l,
-                                mask_r, feathered,
-                                _synth_shifts(cfg.num_views))
+        if fused_synthesis(cfg, h, w):
+            mids = warp_merge_views(img_l, img_r, disp_l, disp_r, mask_l,
+                                    mask_r, feathered, shifts)
+        else:
+            va, vb = warp_views(img_l, img_r, disp_l, disp_r, shifts)
+            mids = [mux_merge_ab(
+                (va[j] * mask_r[:, :, None]).to(torch.uint8),
+                (vb[j] * mask_l[:, :, None]).to(torch.uint8), feathered)
+                for j in range(len(shifts))]
+            mids = (torch.stack(mids) if mids
+                    else img_l.new_empty((0, *img_l.shape)))
     return torch.cat([img_r[None], mids, img_l[None]])
+
+
+def _frame_images(sbs, cfg: PipelineConfig, dev):
+    """The SBS frame on `dev`, checked and split into (img_l, img_r)."""
+    sbs = torch.as_tensor(sbs).to(dev)
+    if tuple(sbs.shape) != cfg.sbs_shape or sbs.dtype != torch.uint8:
+        raise ValueError(f"expected a {cfg.sbs_shape} uint8 frame, got "
+                         f"{tuple(sbs.shape)} {sbs.dtype}")
+    return tuple(t.contiguous() for t in demux_sbs(sbs))
+
+
+def _synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg, timer):
+    views = synthesize_views(img_l, img_r, disp_l, disp_r, cfg, timer)
+    with stage_scope("mux_multiview", timer):
+        return mux_multiview(views, cfg.num_rows_out, cfg.num_cols_out,
+                             cfg.angle)
 
 
 def process_frame(sbs, cfg: PipelineConfig, device=None,
@@ -152,14 +199,34 @@ def process_frame(sbs, cfg: PipelineConfig, device=None,
     interlaced (H_out, W_out, 3) uint8."""
     dev = resolve_device(device)
     check_ported(cfg)
-    sbs = torch.as_tensor(sbs).to(dev)
-    if tuple(sbs.shape) != cfg.sbs_shape or sbs.dtype != torch.uint8:
-        raise ValueError(f"expected a {cfg.sbs_shape} uint8 frame, got "
-                         f"{tuple(sbs.shape)} {sbs.dtype}")
-    img_l, img_r = (t.contiguous() for t in demux_sbs(sbs))
+    img_l, img_r = _frame_images(sbs, cfg, dev)
     disp_l, disp_r, _, _ = compute_disparities(img_l, img_r, cfg, timer)
-    views = synthesize_views(img_l, img_r, disp_l, disp_r, cfg, timer)
-    with stage_scope("mux_multiview", timer):
-        interlaced = mux_multiview(views, cfg.num_rows_out, cfg.num_cols_out,
-                                   cfg.angle)
+    interlaced = _synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg,
+                                       timer)
+    return disp_l, disp_r, interlaced
+
+
+def process_frame_lowres(sbs, cfg: PipelineConfig, device=None,
+                         timer: StageTimer | None = None):
+    """`process_frame` with the disparities computed at
+    (num_rows_disp, num_cols_disp): the pair is downscaled bilinearly,
+    the disparities are upscaled to (H, W) and multiplied by
+    1 / disp_scale, and the synthesis runs at full resolution (the
+    disparity values then span `synth_disp_bounds(cfg)`)."""
+    if not cfg.lowres:
+        raise ValueError("cfg must set num_rows_disp/num_cols_disp")
+    dev = resolve_device(device)
+    check_ported(cfg)
+    img_l, img_r = _frame_images(sbs, cfg, dev)
+    with stage_scope("tx_scale", timer):
+        lo_l = tx_scale_bilinear(img_l, cfg.num_rows_disp, cfg.num_cols_disp)
+        lo_r = tx_scale_bilinear(img_r, cfg.num_rows_disp, cfg.num_cols_disp)
+    dl, dr, _, _ = compute_disparities(lo_l.contiguous(), lo_r.contiguous(),
+                                       cfg, timer)
+    with stage_scope("tx_scale", timer):
+        up = lambda d: tx_disp_scale(d, cfg.num_rows, cfg.num_cols,
+                                     1.0 / cfg.disp_scale).contiguous()
+        disp_l, disp_r = up(dl), up(dr)
+    interlaced = _synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg,
+                                       timer)
     return disp_l, disp_r, interlaced

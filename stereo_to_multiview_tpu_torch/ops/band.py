@@ -1,5 +1,6 @@
 """The band engine's stereo core: quantized cost, four-pass cross
-aggregation (H, V, V, H) and first-min WTA, on kernels B2-B6.
+aggregation (H, V, V, H) and first-min WTA, on kernels B2-B6; with
+cfg.use_hslo, the scanline optimisation (kernel B13) before the WTA.
 
 Every aggregate is an exact integer: the u8 cost q = rint(127 * cost) is
 summed over half-open windows [p - arm_neg, p + arm_pos) and rescaled
@@ -24,6 +25,7 @@ from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
 from stereo_to_multiview_tpu_torch.ops.costkern import (
     cost_pair, device_cost_table, pair_margin, shear_right)
 from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+from stereo_to_multiview_tpu_torch.ops.hslokern import dc_hslo_wta
 from stereo_to_multiview_tpu_torch.ops.mux import mux_average
 
 QSCALE = 127.0
@@ -115,22 +117,32 @@ def _check_arms(vol, arms, names):
 def h_pass_sum(vol: torch.Tensor, arm_neg: torch.Tensor,
                arm_pos: torch.Tensor, shift: int,
                max_arm: int) -> torch.Tensor:
-    """Pass 1: horizontal window sum of an (H, W, D) u8 volume, rescaled
-    by `shift`, as (H, W, D) int32.  The volume may have any row stride
-    (x stride D, d stride 1).  Kernel B4 (csrc/hpass.cu)."""
+    """Horizontal window sum of an (H, W, D) volume, rescaled by `shift`,
+    as (H, W, D) int32.  Pass 1 takes the u8 cost volume, which may have
+    any row stride (x stride D, d stride 1): kernel B4.  Pass 4 without
+    the WTA (the volume the scanline optimisation reads) takes the
+    contiguous int32 volume of the vertical passes: kernel B6's sum-only
+    entry.  Both in csrc/hpass.cu."""
     if kernels.on_cpu(vol):
         return h_pass_sum_plain(vol, arm_neg, arm_pos, shift, max_arm)
-    kernels.require(vol, "vol", torch.uint8, 3, vol.device, contiguous=False)
+    if vol.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"h_pass_sum: dtype {vol.dtype}, expected uint8 or "
+                        f"int32")
+    u8 = vol.dtype == torch.uint8
+    kernels.require(vol, "vol", vol.dtype, 3, vol.device, contiguous=not u8)
     h, w, nd = vol.shape
     if vol.stride(2) != 1 or vol.stride(1) != nd:
         raise ValueError("h_pass_sum: volume must have d stride 1 and "
                          "x stride D")
     _check_arms(vol, (arm_neg, arm_pos), ("arm_neg", "arm_pos"))
     out = torch.empty((h, w, nd), dtype=torch.int32, device=vol.device)
-    rc = kernels.lib("hpass").stm_hpass_sum_u8(
-        vol.data_ptr(), vol.stride(0), arm_neg.data_ptr(),
-        arm_pos.data_ptr(), out.data_ptr(), h, w, nd, max_arm, shift,
-        kernels.stream_of(out))
+    tail = (arm_neg.data_ptr(), arm_pos.data_ptr(), out.data_ptr(), h, w, nd,
+            max_arm, shift, kernels.stream_of(out))
+    if u8:
+        rc = kernels.lib("hpass").stm_hpass_sum_u8(
+            vol.data_ptr(), vol.stride(0), *tail)
+    else:
+        rc = kernels.lib("hpass").stm_hpass_sum_i32(vol.data_ptr(), *tail)
     kernels.check_launch(rc, "h_pass_sum")
     h_pass_sum.launches += 1
     return out
@@ -180,11 +192,14 @@ def h_pass_wta(vol: torch.Tensor, arm_neg: torch.Tensor,
 
 
 def band_aggregate_q(cost_q: torch.Tensor, arms: torch.Tensor, max_arm: int,
-                     zero_disp: int, digits: int = 3,
+                     zero_disp: int | None = None, digits: int = 3,
                      qscale: float = QSCALE) -> torch.Tensor:
     """Four-pass cross aggregation (H, V, V, H) of an (H, W, D) u8
-    quantized cost volume with arms (4, H, W) int32, fused with the
-    first-min WTA: returns (H, W) float32 disparities."""
+    quantized cost volume with arms (4, H, W) int32.  With zero_disp the
+    first-min WTA is fused into pass 4 and the (H, W) float32
+    disparities are returned; with zero_disp None, the (H, W, D) int32
+    aggregated volume (exact integers at `agg_cost_scale` of the cost's
+    unit)."""
     if digits != 3 or qscale != QSCALE:
         raise NotImplementedError(
             "band_digits != 3 / band_qscale != 127 are ROADMAP queue A "
@@ -193,7 +208,19 @@ def band_aggregate_q(cost_q: torch.Tensor, arms: torch.Tensor, max_arm: int,
     s1, s2, s3 = agg_rescale_shifts(max_arm, digits, qscale)
     a = h_pass_sum(cost_q, arms[LEFT], arms[RIGHT], s1, max_arm)
     a = vv_pass(a, arms[UP], arms[DOWN], s2, s3, max_arm)
+    if zero_disp is None:
+        return h_pass_sum(a, arms[LEFT], arms[RIGHT], 0, max_arm)
     return h_pass_wta(a, arms[LEFT], arms[RIGHT], zero_disp, max_arm)
+
+
+def agg_cost_scale(max_arm: int, digits: int = 3,
+                   qscale: float = QSCALE) -> float:
+    """Cost-unit scale of the quantized aggregate: `band_aggregate_q`'s
+    volume is about the float aggregate * qscale / 2^(s1+s2+s3).  Terms
+    added to that volume (the scanline optimisation's penalties) are
+    multiplied by it to keep their strength."""
+    s1, s2, s3 = agg_rescale_shifts(max_arm, digits, qscale)
+    return qscale / float(2 ** (s1 + s2 + s3))
 
 
 def _chunk_bounds(h: int, chunk: int, halo: int):
@@ -209,12 +236,16 @@ def _chunk_bounds(h: int, chunk: int, halo: int):
 
 
 def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
-    """Cost init + 4-pass quantized aggregation + fused WTA for both
-    eyes, over row chunks of cfg.band_row_chunk output rows (0 = whole
-    frame).  Each chunk recomputes a halo of 2*usd rows (the reach of the
-    two V passes); the census codes come from the whole frame.  Exact
-    integer aggregation makes the result independent of the chunking.
-    Returns (disp_l, disp_r) float32 (H, W)."""
+    """Cost init + 4-pass quantized aggregation + WTA for both eyes, over
+    row chunks of cfg.band_row_chunk output rows (0 = whole frame).  Each
+    chunk recomputes a halo of 2*usd rows (the reach of the two V
+    passes); the census codes come from the whole frame.  Exact integer
+    aggregation makes the result independent of the chunking.
+
+    cfg.use_hslo puts the horizontal scanline optimisation (kernel B13)
+    between the aggregation and the WTA, its penalties scaled into the
+    aggregate's cost units; rows are independent in it, so chunking
+    stays exact.  Returns (disp_l, disp_r) float32 (H, W)."""
     h, w = img_l.shape[:2]
     usd = cfg.usd
     if usd > _HALO:
@@ -224,8 +255,11 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
     ext, bounds = _chunk_bounds(h, chunk, 2 * usd)
     margin = pair_margin(nd, zd)
     table = device_cost_table(cfg.ad_coeff, cfg.census_coeff, img_l.device)
-    cen_l = census_transform_9x7(mux_average(img_l))
-    cen_r = census_transform_9x7(mux_average(img_r))
+    gray_l, gray_r = mux_average(img_l), mux_average(img_r)
+    cen_l = census_transform_9x7(gray_l)
+    cen_r = census_transform_9x7(gray_r)
+    if cfg.use_hslo:
+        kappa = agg_cost_scale(usd, cfg.band_digits, cfg.band_qscale)
 
     parts_l, parts_r = [], []
     for start, lo in bounds:
@@ -235,10 +269,19 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
         cost_l = pair[:, margin:margin + w]
         cost_r = shear_right(pair, zd)
         n_valid = min(chunk, h - (start + lo))
-        for cost, arms, parts in ((cost_l, arms_l, parts_l),
-                                  (cost_r, arms_r, parts_r)):
-            disp = band_aggregate_q(cost, arms[:, sl], usd, zd,
-                                    cfg.band_digits, cfg.band_qscale)
+        for cost, arms, sign, parts in ((cost_l, arms_l, +1, parts_l),
+                                        (cost_r, arms_r, -1, parts_r)):
+            if cfg.use_hslo:
+                vol = band_aggregate_q(cost, arms[:, sl], usd, None,
+                                       cfg.band_digits, cfg.band_qscale)
+                ga, gb = ((gray_l, gray_r) if sign > 0
+                          else (gray_r, gray_l))
+                disp = dc_hslo_wta(vol, ga[sl], gb[sl], nd, zd, cfg.hslo_T,
+                                   cfg.hslo_H1 * kappa, cfg.hslo_H2 * kappa,
+                                   sign)
+            else:
+                disp = band_aggregate_q(cost, arms[:, sl], usd, zd,
+                                        cfg.band_digits, cfg.band_qscale)
             parts.append(disp[lo:lo + n_valid])
     if len(parts_l) == 1:
         return parts_l[0], parts_r[0]

@@ -1,6 +1,8 @@
 """Depth-image-based rendering: occlusion masks (kernels B7 and B11),
-mask feather, and the backward (gather) warp merged into the views
-(kernel B12), with the kernels' plain PyTorch versions.
+mask feather, and the backward (gather) warp, either merged into the
+views in one kernel (B12, the fused synthesis) or as the float warp
+volumes of every view (B14, the unfused synthesis), with the kernels'
+plain PyTorch versions.
 
 The wrappers take the plain version only for CPU tensors; on a CUDA
 tensor they launch the kernel or raise.
@@ -83,11 +85,11 @@ def dibr_feather_mask(mask_r: torch.Tensor, feather_radius: int,
                                 feather_sigma)
 
 
-def dibr_backward_warp(img_in: torch.Tensor, mask: torch.Tensor,
-                       disp: torch.Tensor, shift: float) -> torch.Tensor:
-    """Gather warp: sample img_in at c = clamp(x + disp*shift, 0, W-1)
-    with x-only linear interpolation, truncate to u8, multiply by mask,
-    truncate again.  The two weights are the triangle weights
+def warp_interp_u8(img_in: torch.Tensor, disp: torch.Tensor,
+                   shift: float) -> torch.Tensor:
+    """The un-masked part of the gather warp: sample img_in at c =
+    clamp(x + disp*shift, 0, W-1) with x-only linear interpolation and
+    truncate to u8.  The two weights are the triangle weights
     max(1 - |c - x0|, 0) and max(1 - |c - (x0 + 1)|, 0) at x0 = floor(c),
     each evaluated in float32 exactly as the JAX package does."""
     h, w, _ = img_in.shape
@@ -101,7 +103,14 @@ def dibr_backward_warp(img_in: torch.Tensor, mask: torch.Tensor,
     img = img_in.to(F32)
     v0 = torch.gather(img, 1, i0[:, :, None].expand(h, w, 3))
     v1 = torch.gather(img, 1, i1[:, :, None].expand(h, w, 3))
-    interp = (w0[:, :, None] * v0 + w1[:, :, None] * v1).to(torch.uint8)
+    return (w0[:, :, None] * v0 + w1[:, :, None] * v1).to(torch.uint8)
+
+
+def dibr_backward_warp(img_in: torch.Tensor, mask: torch.Tensor,
+                       disp: torch.Tensor, shift: float) -> torch.Tensor:
+    """Gather warp: `warp_interp_u8`, multiplied by mask, truncated
+    again."""
+    interp = warp_interp_u8(img_in, disp, shift)
     return (interp.to(F32) * mask.to(F32)[:, :, None]).to(torch.uint8)
 
 
@@ -163,3 +172,48 @@ def warp_merge_views(img_l, img_r, disp_l, disp_r, mask_l, mask_r,
     kernels.check_launch(rc, "warp_merge_views")
     warp_merge_views.launches += 1
     return out
+
+
+def warp_views_plain(img_l, img_r, disp_l, disp_r, shifts):
+    """Plain version of `warp_views`: two un-masked warps per view."""
+    sl, sr = merge_shifts(shifts)
+    va = torch.stack([warp_interp_u8(img_l, disp_r, a).to(F32) for a in sl])
+    vb = torch.stack([warp_interp_u8(img_r, disp_l, b).to(F32) for b in sr])
+    return va, vb
+
+
+@kernels.kernel_wrapper
+def warp_views(img_l, img_r, disp_l, disp_r, shifts):
+    """The two directional warps of every intermediate view, without mask
+    and merge: (va, vb), each (nv, H, W, 3) float32 with integral values;
+    va[v] = the left image warped with disp_r at -shifts[v], vb[v] = the
+    right image warped with disp_l at 1 - shifts[v].  Kernel B14
+    (csrc/warp.cu)."""
+    if not shifts:
+        empty = img_l.new_empty((0, *img_l.shape), dtype=F32)
+        return empty, empty.clone()
+    if kernels.on_cpu(img_l):
+        return warp_views_plain(img_l, img_r, disp_l, disp_r, shifts)
+    dev = img_l.device
+    h, w = img_l.shape[:2]
+    for name, t in (("img_l", img_l), ("img_r", img_r)):
+        kernels.require(t, name, torch.uint8, 3, dev)
+        if t.shape != (h, w, 3):
+            raise ValueError(f"warp_views: {name} is not (H, W, 3)")
+    for name, t in (("disp_l", disp_l), ("disp_r", disp_r)):
+        kernels.require(t, name, F32, 2, dev)
+        if t.shape != (h, w):
+            raise ValueError(f"warp_views: {name} is not (H, W)")
+    nv = len(shifts)
+    if nv > 32:
+        raise ValueError("warp_views takes at most 32 views")
+    sl, sr = merge_shifts(shifts)
+    va = torch.empty((nv, h, w, 3), dtype=F32, device=dev)
+    vb = torch.empty_like(va)
+    rc = kernels.lib("warp").stm_warp_views(
+        img_l.data_ptr(), img_r.data_ptr(), disp_l.data_ptr(),
+        disp_r.data_ptr(), kernels.host_f32(sl), kernels.host_f32(sr),
+        va.data_ptr(), vb.data_ptr(), h, w, nv, kernels.stream_of(va))
+    kernels.check_launch(rc, "warp_views")
+    warp_views.launches += 1
+    return va, vb

@@ -1,5 +1,5 @@
 """Post filters: lifting Gaussian (mask feather), bilateral (kernel B10
-and its plain PyTorch version), bleed.
+and its plain PyTorch version), 3x3 median, bleed.
 
 Float constants are float32 and every accumulation runs in the JAX
 package's order, so the results match it to the last bit wherever its
@@ -118,6 +118,24 @@ def filter_bilateral(img: torch.Tensor, radius: int, sigma_color: float,
     kernels.check_launch(rc, "filter_bilateral")
     filter_bilateral.launches += 1
     return out
+
+
+# Median of nine as 19 compare-exchanges (Paeth's network): after them
+# element 4 holds the median.
+_MEDIAN9 = ((1, 2), (4, 5), (7, 8), (0, 1), (3, 4), (6, 7), (1, 2), (4, 5),
+            (7, 8), (0, 3), (5, 8), (4, 7), (3, 6), (1, 4), (2, 5), (4, 7),
+            (4, 2), (6, 4), (4, 2))
+
+
+def filter_median(img: torch.Tensor) -> torch.Tensor:
+    """3x3 median of an (H, W) plane, clamp-to-edge, as elementwise
+    minimum/maximum exchanges of the nine shifted planes."""
+    h, w = img.shape
+    p = edge_pad(img, 1)
+    v = [p[dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)]
+    for a, b in _MEDIAN9:
+        v[a], v[b] = torch.minimum(v[a], v[b]), torch.maximum(v[a], v[b])
+    return v[4]
 
 
 def _bleed_index(n: int, off: int, device) -> torch.Tensor:

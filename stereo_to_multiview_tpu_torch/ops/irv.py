@@ -11,17 +11,23 @@ reliable pixel, the vote's total.  Vote rule, with the reference's quirk
 of dividing the winning *disparity* (not its count): an outlier accepts
 max_d iff total > thresh_s and (max_d + zero_disp) / total > thresh_h.
 
-The port runs the fixed `iterations` rounds.  The band engine stops at
-the first round that changes no label; every later round is then the
-identity, so the outcome is the same.  The wrappers take the plain
-version only for CPU tensors; on a CUDA tensor they launch the kernel or
-raise.  Arms are clamped to [0, usd] by kernel and plain version alike
-(cross arms never exceed usd).
+A round takes an optional `need` plane: only outliers at need pixels
+vote, every other pixel keeps its disparity and label.  `dr_irv` runs the
+fixed `iterations` rounds; `dr_irv_early_stop`, the pipeline's, stops at
+the first round that changes no label (every later round would be the
+identity) and hands each round the dilated frontier of the previous
+round's changes as its `need`, which is exact: a vote can only change
+when a pixel inside its cross region did.
+
+The wrappers take the plain version only for CPU tensors; on a CUDA
+tensor they launch the kernel or raise.  Arms are clamped to [0, usd] by
+kernel and plain version alike (cross arms never exceed usd).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from stereo_to_multiview_tpu_torch import kernels
 from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
@@ -47,10 +53,13 @@ def span_sum_inclusive(vol: torch.Tensor, arm_neg: torch.Tensor,
     return cs.gather(axis, hi) - cs.gather(axis, lo)
 
 
+TILE = 64        # rows of a vote block / columns of a row-span block
+
+
 def irv_rowspan_plain(disp, outliers, left, right, num_disp: int,
                       zero_disp: int, usd: int) -> torch.Tensor:
-    """Plain version of `irv_rowspan`: the one-hot volume, then a
-    prefix-sum span along the row."""
+    """Plain version of `irv_rowspan` (every span, whatever `need`): the
+    one-hot volume, then a prefix-sum span along the row."""
     reliable = outliers == 0
     bins = torch.arange(num_disp, device=disp.device, dtype=torch.int32)
     onehot = reliable[:, :, None] & (disp.to(torch.int32)[:, :, None]
@@ -61,9 +70,9 @@ def irv_rowspan_plain(disp, outliers, left, right, num_disp: int,
 
 
 def irv_vote_plain(cnt, disp, outliers, up, down, thresh_s: int,
-                   thresh_h: float, zero_disp: int, usd: int):
+                   thresh_h: float, zero_disp: int, usd: int, need=None):
     """Plain version of `irv_vote`: a prefix-sum span along the column,
-    then argmax and the vote rule."""
+    then argmax and the vote rule, applied at need pixels only."""
     span = span_sum_inclusive(cnt.to(torch.int32), up.clamp(0, usd),
                               down.clamp(0, usd), axis=0)
     hist, total = span[:, :, :-1], span[:, :, -1]
@@ -74,41 +83,60 @@ def irv_vote_plain(cnt, disp, outliers, up, down, thresh_s: int,
     ratio = ((max_d + zero_disp).to(torch.float32)
              / total.clamp(min=1).to(torch.float32))
     accept = (outliers != 0) & (total > thresh_s) & (ratio > f32(thresh_h))
+    if need is not None:
+        accept = accept & need.to(torch.bool)
     return (torch.where(accept, max_d.to(torch.float32), disp),
             torch.where(accept, 0, outliers))
 
 
-def _check_planes(disp, outliers, arms, names, what):
+def _check_planes(disp, outliers, arms, names, what, need=None):
+    """Validate a round's planes; returns `need` as a u8 plane (or
+    None)."""
     kernels.require(disp, "disp", torch.float32, 2, disp.device)
     kernels.require(outliers, "outliers", torch.uint8, 2, disp.device)
     for name, a in zip(names, arms):
         kernels.require(a, name, torch.int32, 2, disp.device)
+    if need is not None:
+        if need.dtype not in (torch.bool, torch.uint8):
+            raise TypeError(f"{what}: need must be bool or uint8")
+        need = need.view(torch.uint8) if need.dtype == torch.bool else need
+        kernels.require(need, "need", torch.uint8, 2, disp.device)
+        arms = (*arms, need)
     if any(t.shape != disp.shape for t in (outliers, *arms)):
         raise ValueError(f"{what}: plane shapes differ")
+    return need
 
 
 @kernels.kernel_wrapper
 def irv_rowspan(disp: torch.Tensor, outliers: torch.Tensor,
                 left: torch.Tensor, right: torch.Tensor, num_disp: int,
-                zero_disp: int, usd: int) -> torch.Tensor:
+                zero_disp: int, usd: int, need=None) -> torch.Tensor:
     """(H, W, B + 1) u8 row spans of one IRV round: channel b < B counts
     the reliable pixels of bin b (trunc(disp) + zero_disp == b) in
-    [x - LEFT, x + RIGHT], channel B every reliable pixel there.  Kernel
-    B8 (csrc/irv.cu)."""
+    [x - LEFT, x + RIGHT], channel B every reliable pixel there.  With a
+    `need` plane (bool or u8) the kernel computes only the spans that a
+    vote at an outlying need pixel may read, at the grain of its blocks
+    (TILE rows of a column for a vote, TILE columns of a row for a span);
+    the others are left undefined, and `irv_vote` with the same `need`
+    never reads them.
+    Kernel B8 (csrc/irv.cu)."""
     if kernels.on_cpu(disp):
         return irv_rowspan_plain(disp, outliers, left, right, num_disp,
                                  zero_disp, usd)
-    _check_planes(disp, outliers, (left, right), ("left", "right"),
-                  "irv_rowspan")
+    need = _check_planes(disp, outliers, (left, right), ("left", "right"),
+                         "irv_rowspan", need)
     if not 0 <= usd <= 127:
         raise ValueError("irv_rowspan: u8 counts need usd <= 127")
     h, w = disp.shape
     cnt = torch.empty((h, w, num_disp + 1), dtype=torch.uint8,
                       device=disp.device)
+    live = None if need is None else torch.empty(
+        (-(-h // TILE), w), dtype=torch.uint8, device=disp.device)
     rc = kernels.lib("irv").stm_irv_rowspan(
         disp.data_ptr(), outliers.data_ptr(), left.data_ptr(),
-        right.data_ptr(), cnt.data_ptr(), h, w, num_disp, zero_disp, usd,
-        kernels.stream_of(cnt))
+        right.data_ptr(), None if need is None else need.data_ptr(),
+        None if live is None else live.data_ptr(), cnt.data_ptr(), h, w,
+        num_disp, zero_disp, usd, kernels.stream_of(cnt))
     kernels.check_launch(rc, "irv_rowspan")
     irv_rowspan.launches += 1
     return cnt
@@ -117,13 +145,16 @@ def irv_rowspan(disp: torch.Tensor, outliers: torch.Tensor,
 @kernels.kernel_wrapper
 def irv_vote(cnt: torch.Tensor, disp: torch.Tensor, outliers: torch.Tensor,
              up: torch.Tensor, down: torch.Tensor, thresh_s: int,
-             thresh_h: float, zero_disp: int, usd: int):
+             thresh_h: float, zero_disp: int, usd: int, need=None):
     """The vote of one IRV round from its row spans: (disp, outliers)
-    after the round.  Kernel B9 (csrc/irv.cu)."""
+    after the round.  With a `need` plane (bool or u8) the vote is
+    applied at need pixels only; every other pixel keeps its disparity
+    and label.  Kernel B9 (csrc/irv.cu)."""
     if kernels.on_cpu(cnt):
         return irv_vote_plain(cnt, disp, outliers, up, down, thresh_s,
-                              thresh_h, zero_disp, usd)
-    _check_planes(disp, outliers, (up, down), ("up", "down"), "irv_vote")
+                              thresh_h, zero_disp, usd, need)
+    need = _check_planes(disp, outliers, (up, down), ("up", "down"),
+                         "irv_vote", need)
     kernels.require(cnt, "cnt", torch.uint8, 3, disp.device)
     h, w = disp.shape
     if cnt.shape[:2] != (h, w) or cnt.shape[2] < 2:
@@ -134,7 +165,8 @@ def irv_vote(cnt: torch.Tensor, disp: torch.Tensor, outliers: torch.Tensor,
     out_out = torch.empty_like(outliers)
     rc = kernels.lib("irv").stm_irv_vote(
         cnt.data_ptr(), disp.data_ptr(), outliers.data_ptr(), up.data_ptr(),
-        down.data_ptr(), disp_out.data_ptr(), out_out.data_ptr(), h, w,
+        down.data_ptr(), None if need is None else need.data_ptr(),
+        disp_out.data_ptr(), out_out.data_ptr(), h, w,
         cnt.shape[2] - 1, zero_disp, usd, thresh_s, float(f32(thresh_h)),
         kernels.stream_of(disp_out))
     kernels.check_launch(rc, "irv_vote")
@@ -142,13 +174,66 @@ def irv_vote(cnt: torch.Tensor, disp: torch.Tensor, outliers: torch.Tensor,
     return disp_out, out_out
 
 
+def irv_round(disp, outliers, arms, thresh_s: int, thresh_h: float,
+              num_disp: int, zero_disp: int, usd: int, need=None):
+    """One synchronous voting round: (disp, outliers) after it."""
+    cnt = irv_rowspan(disp, outliers, arms[LEFT], arms[RIGHT], num_disp,
+                      zero_disp, usd, need)
+    return irv_vote(cnt, disp, outliers, arms[UP], arms[DOWN], thresh_s,
+                    thresh_h, zero_disp, usd, need)
+
+
 def dr_irv(disp: torch.Tensor, outliers: torch.Tensor, arms: torch.Tensor,
            thresh_s: int, thresh_h: float, num_disp: int, zero_disp: int,
            usd: int, iterations: int):
     """(disp, outliers) after `iterations` synchronous voting rounds."""
     for _ in range(iterations):
-        cnt = irv_rowspan(disp, outliers, arms[LEFT], arms[RIGHT], num_disp,
-                          zero_disp, usd)
-        disp, outliers = irv_vote(cnt, disp, outliers, arms[UP], arms[DOWN],
-                                  thresh_s, thresh_h, zero_disp, usd)
+        disp, outliers = irv_round(disp, outliers, arms, thresh_s, thresh_h,
+                                   num_disp, zero_disp, usd)
+    return disp, outliers
+
+
+def dilate_frontier(changed: torch.Tensor, usd: int,
+                    grain: int = 8) -> torch.Tensor:
+    """Block-granular Chebyshev dilation of a change mask: every
+    grain x grain block within ceil(usd / grain) + 1 blocks (either
+    axis) of a block holding a changed pixel.  It covers every pixel
+    whose cross region (reach usd) holds a changed pixel; the extra
+    pixels only re-vote to their previous outcome."""
+    h, w = changed.shape
+    r = -(-usd // grain) + 1
+    blocks = F.max_pool2d(changed[None, None].to(torch.float32), grain,
+                          ceil_mode=True)
+    blocks = F.max_pool2d(blocks, 2 * r + 1, stride=1, padding=r)
+    full = blocks[0, 0].repeat_interleave(grain, 0).repeat_interleave(
+        grain, 1)
+    return full[:h, :w] > 0
+
+
+def dr_irv_early_stop(disp: torch.Tensor, outliers: torch.Tensor,
+                      arms: torch.Tensor, thresh_s: int, thresh_h: float,
+                      num_disp: int, zero_disp: int, usd: int,
+                      iterations: int, rounds_run: list | None = None):
+    """`dr_irv` with the band engine's round loop: stop after the first
+    round that changes no label (a vote only turns an outlier reliable,
+    so every later round is the identity), and give each round after the
+    first the dilated frontier of the previous round's changes as its
+    `need`.  Bit-equal to `dr_irv`.  Reading whether a label changed
+    costs one device-to-host copy per round.  `rounds_run`, if given,
+    gets the number of rounds appended."""
+    need = None
+    done = 0
+    while done < iterations:
+        before = outliers
+        disp, outliers = irv_round(disp, outliers, arms, thresh_s, thresh_h,
+                                   num_disp, zero_disp, usd, need)
+        done += 1
+        if done == iterations:
+            break
+        changed = outliers != before
+        if not bool(changed.any()):
+            break
+        need = dilate_frontier(changed, usd)
+    if rounds_run is not None:
+        rounds_run.append(done)
     return disp, outliers

@@ -11,6 +11,8 @@ import math
 import numpy as np
 import torch
 
+from stereo_to_multiview_tpu_torch.ops.scale import lerp_axis
+
 F32 = torch.float32
 
 
@@ -60,16 +62,24 @@ def mux_view_pattern(v_cnt: int, rows: int, cols: int, angle: float,
                        dim=-1)
 
 
+def resample_views_f32(views_f32: torch.Tensor, num_rows_out: int,
+                       num_cols_out: int) -> torch.Tensor:
+    """(V, H, W, 3) float32 -> (V, H_out, W_out, 3) float32 bilinear
+    resample of every view: the x-lerps, then the y-lerp."""
+    return lerp_axis(lerp_axis(views_f32, 2, num_cols_out), 1, num_rows_out)
+
+
 def mux_multiview(views: torch.Tensor, num_rows_out: int, num_cols_out: int,
                   angle: float) -> torch.Tensor:
     """Slanted-lenticular interlace of (V, H, W, 3) uint8 views into
     (H_out, W_out, 3).  View 0 = right source, view V-1 = left source.
-    Identity resolution only (H_out, W_out) == (H, W): each output
-    subpixel is then the selected view's own subpixel."""
+    At identity resolution each output subpixel is the selected view's
+    own subpixel; otherwise every view is first resampled bilinearly to
+    the output resolution with a truncating u8 store."""
     v_cnt, h_in, w_in = views.shape[:3]
     if (h_in, w_in) != (num_rows_out, num_cols_out):
-        raise NotImplementedError(
-            "resampled interlace (output resolution != input resolution) "
-            "is ROADMAP queue A item 12, not ported yet")
-    vid = mux_view_pattern(v_cnt, h_in, w_in, angle, views.device)
+        views = resample_views_f32(views.to(F32), num_rows_out,
+                                   num_cols_out).to(torch.uint8)
+    vid = mux_view_pattern(v_cnt, num_rows_out, num_cols_out, angle,
+                           views.device)
     return torch.gather(views, 0, vid[None])[0]

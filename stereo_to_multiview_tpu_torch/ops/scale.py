@@ -1,0 +1,83 @@
+"""Rescale transforms of the low-resolution disparity path and of the
+interlace's output-resolution resampling.
+
+A resize has static sampling coordinates s_i = clamp(i / n_out * n_in,
+0, n_in - 1), computed in float32 on the host.  Each axis is two
+`index_select`s (the samples at floor(s) and at floor(s) + 1, the latter
+clamped to the far edge) and an elementwise lerp (1 - w) * a + w * b;
+the x axis runs first, then y, which is the reference's association
+(top and bottom x-lerps, then the y-lerp).  The JAX package computes the
+same two-term sums as matmuls with mostly-zero weight matrices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+F32 = torch.float32
+
+
+def samp_coords(n_out: int, n_in: int) -> np.ndarray:
+    """Sampling coordinates in float32: clamp(i / n_out * n_in, 0,
+    n_in - 1)."""
+    i = np.arange(n_out, dtype=np.float32)
+    return np.clip(i / np.float32(n_out) * np.float32(n_in),
+                   np.float32(0.0), np.float32(n_in - 1))
+
+
+def lerp_taps(n_out: int, n_in: int, device):
+    """(i0, i1, w) of one axis: the two sample indices (int64 tensors)
+    and the float32 weight of the second."""
+    s = samp_coords(n_out, n_in)
+    i0 = np.floor(s).astype(np.int64)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    w = (s - i0.astype(np.float32)).astype(np.float32)
+    return (torch.from_numpy(i0).to(device), torch.from_numpy(i1).to(device),
+            torch.from_numpy(w).to(device))
+
+
+def lerp_axis(a: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
+    """Linear resample of float32 `a` along `axis` to n_out samples."""
+    i0, i1, w = lerp_taps(n_out, a.shape[axis], a.device)
+    shape = [1] * a.dim()
+    shape[axis] = n_out
+    w = w.reshape(shape)
+    return (a.index_select(axis, i0) * (1.0 - w)
+            + a.index_select(axis, i1) * w)
+
+
+def resize_bilinear_f32(img: torch.Tensor, out_rows: int,
+                        out_cols: int) -> torch.Tensor:
+    """Float bilinear resize of an (H, W) or (H, W, C) image; the input
+    cast to float32 when the shapes already match."""
+    a = img.to(F32)
+    if tuple(img.shape[:2]) == (out_rows, out_cols):
+        return a
+    return lerp_axis(lerp_axis(a, 1, out_cols), 0, out_rows)
+
+
+def tx_scale_bilinear(img: torch.Tensor, out_rows: int,
+                      out_cols: int) -> torch.Tensor:
+    """Bilinear image resize with a truncating u8 store."""
+    return resize_bilinear_f32(img, out_rows, out_cols).to(torch.uint8)
+
+
+def tx_scale_nearest(img: torch.Tensor, out_rows: int,
+                     out_cols: int) -> torch.Tensor:
+    """Nearest resize: the sample at the truncated coordinate."""
+    h, w = img.shape[:2]
+    if (h, w) == (out_rows, out_cols):
+        return img
+    sy = torch.from_numpy(samp_coords(out_rows, h).astype(np.int64))
+    sx = torch.from_numpy(samp_coords(out_cols, w).astype(np.int64))
+    return img.index_select(0, sy.to(img.device)).index_select(
+        1, sx.to(img.device))
+
+
+def tx_disp_scale(disp: torch.Tensor, out_rows: int, out_cols: int,
+                  disp_scale: float) -> torch.Tensor:
+    """Bilinear disparity resize with the values multiplied by
+    disp_scale (float32)."""
+    scale = torch.tensor(np.float32(disp_scale), dtype=F32)
+    return resize_bilinear_f32(disp, out_rows, out_cols) * scale

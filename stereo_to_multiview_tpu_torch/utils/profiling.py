@@ -4,8 +4,9 @@
 as a `record_function` range in traces).  Given a `StageTimer`, it also
 records a pair of CUDA events around the stage, so a caller can read the
 per-stage device time after a synchronize.  The stage names are the JAX
-package's: ca_cross_arms, stereo_core, dr_dcc, dr_irv, filter_bilateral,
-dibr_occl, dibr_feather, dibr_dbm, mux_multiview.
+package's: ca_cross_arms, stereo_core, dr_dcc, dr_irv, filter_median,
+filter_bilateral, dibr_occl, dibr_feather, dibr_dbm, mux_multiview; and
+tx_scale for the lowres path's rescales.
 """
 
 from __future__ import annotations

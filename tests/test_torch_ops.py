@@ -110,17 +110,16 @@ def test_process_frame_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(use_hslo=True), dict(use_median=True), dict(engine="xla"),
-    dict(num_rows_disp=4, num_cols_disp=8), dict(num_cols_out=32),
-    dict(band_digits=2), dict(band_qscale=255.0),
-    dict(band_lossy_wta=True)])
+    dict(engine="xla"), dict(band_digits=2), dict(band_qscale=255.0),
+    dict(band_lossy_wta=True), dict(irv_row_chunk=4)])
 def test_unported_knobs_raise(knob):
+    """A knob the port lacks raises, naming its ROADMAP item."""
     base = dict(num_rows=8, num_cols=16, num_rows_out=8, num_cols_out=16,
                 num_disp=4, zero_disp=2, usd=2, lsd=1)
     cfg = tconfig.PipelineConfig(**{**base, **knob})
+    sbs = np.zeros(cfg.sbs_shape, np.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.process_frame(np.zeros(cfg.sbs_shape, np.uint8), cfg,
-                            device="cpu")
+        tpipe.process_frame(sbs, cfg, device="cpu")
 
 
 def test_kernel_wrapper_rejects_other_devices():
