@@ -6,22 +6,37 @@
 1. Builds the CUDA kernels from stereo_to_multiview_tpu_torch/csrc (nvcc,
    sm_90a, one process per source, in parallel).
 2. Holds every kernel against its plain PyTorch version on the card, at
-   the shapes the paths give it (1080p, D=128, usd=34, and once more as
-   the lowres path stages them: 540x960, D=64, synthesis at 1080p): bit
-   equality required.  Times kernel, plain version, and one PyTorch
-   library call where one computes the same function.  Also holds the
-   early-stop IRV against the fixed rounds, bit for bit.
-3. Drives three paths on a 1080p SBS frame built from
-   tests/data/bud_{2,3}.bmp: `process_frame` at HD1080_D128 (the main
-   path: fused synthesis), `process_frame` at HD1080_D128_HSLO_4K
-   (scanline optimisation, median, unfused synthesis, 4K interlace) and
-   `process_frame_lowres` at HD1080_LOWRES.  For each, launch counts are
-   zeroed just before one frame and read just after: every kernel of the
-   path must have launched, and the kernels the path replaces must not;
-   then a few frames are timed with per-stage CUDA events.
+   the shapes the paths give it (1080p, D=128, usd=34; once more as the
+   lowres path stages them: 540x960, D=64, synthesis at 1080p; and at the
+   chunk shapes of the 4K preset: 680 and 1152 rows of 3840 columns,
+   synthesis of 14 views at 2160x3840): bit equality required.  Times
+   kernel, plain version, and one PyTorch library call where one computes
+   the same function.  Also holds the early-stop IRV against the fixed
+   rounds and the row-chunked IRV against the whole-frame one, bit for
+   bit, and the lane-major window passes at the band_digits 2 and 1
+   shifts.
+3. Drives the paths on SBS frames built from tests/data/bud_{2,3}.bmp:
+   `process_frame` at HD1080_D128 (the main path: fused synthesis), at
+   HD1080_D128_HSLO_4K (scanline optimisation, median, unfused synthesis,
+   4K interlace), at HD1080_D128 with band_digits 2 and 1, and at
+   UHD4K_16V (2160x3840, 16 views, row-chunked stereo core and IRV);
+   `process_frame_lowres` at HD1080_LOWRES; and the disparity-major
+   stereo core `band_stereo_core_dm` at 1080p/D=128, whole-frame and in
+   540-row chunks, and at 2160x3840 in 540-row chunks (its kernels held
+   against their plain versions on a 680x3840 chunk first), which must
+   equal the lane-major core at band_digits=2 in every pixel of both
+   eyes.  For each, launch counts are zeroed just before one run and read
+   just after: every kernel of the path must have launched, and the
+   kernels the path replaces must not; then a few runs are timed with
+   CUDA events.
 4. Checks the outputs: shapes, dtypes, finite disparities in range, and
-   three small frames (plain, HSLO + median + resampled, lowres) run on
-   the card against the same frames run on the CPU.
+   small frames (plain, HSLO + median + resampled, lowres, and the
+   disparity-major core) run on the card against the same frames run on
+   the CPU.
+
+`python3 chip_smoke.py --frames N [--package-root DIR]` instead times only
+the three preset paths, N frames each, on the package under DIR: the way
+to compare two commits' frame times within one call.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
 a `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -47,6 +62,12 @@ PEAK_OPS_PER_S = 67e12      # float32 outside the tensor cores; the
 _SRC = "stereo_to_multiview_tpu_torch/csrc/"
 _TPU = "stereo_to_multiview_tpu/ops/"
 MAIN, HSLO4K, LOWRES = "HD1080_D128", "HD1080_D128_HSLO_4K", "HD1080_LOWRES"
+DIGITS2, DIGITS1 = "HD1080_D128 band_digits=2", "HD1080_D128 band_digits=1"
+UHD4K = "UHD4K_16V"
+DM, DM_CHUNKED, DM_4K = (
+    "band_stereo_core_dm HD1080_D128",
+    "band_stereo_core_dm HD1080_D128 band_row_chunk=540",
+    "band_stereo_core_dm UHD4K_16V")
 KERNELS = {
     "B1 cross_arms": ("cross_arms", _SRC + "arms.cu",
                       _TPU + "postkern.py:80", MAIN),
@@ -95,13 +116,60 @@ KERNELS.update({
     name + AT_LOWRES: (wrapper, source, replaces, LOWRES)
     for name, (wrapper, source, replaces, path) in list(KERNELS.items())
     if path == MAIN})
+# ... and at the chunk shapes of the 4K preset
+AT_4K = " (UHD4K_16V chunk shapes)"
+KERNELS.update({
+    name + AT_4K: (wrapper, source, replaces, UHD4K)
+    for name, (wrapper, source, replaces, path) in list(KERNELS.items())
+    if path == MAIN})
+# the lane-major window passes at the shifts of band_digits 2 and 1
+for _digits, _path in ((2, DIGITS2), (1, DIGITS1)):
+    for _name in ("B4 h_pass_sum (pass 1)", "B5 vv_pass (passes 2+3)",
+                  "B6 h_pass_wta (pass 4 + WTA)"):
+        _w, _s, _r, _ = KERNELS[_name]
+        KERNELS[f"{_name[:-1]}, band_digits={_digits} shifts)"] = (
+            _w, _s, _r, _path)
+# the disparity-major core, whole-frame and at a 540-row chunk's extent
+AT_CHUNK = " (680-row chunk)"
+DM_KERNELS = {
+    "B16 cost_dm (stacked u8)": ("cost_dm", _SRC + "cost_dm.cu",
+                                 _TPU + "costkern.py:57", DM),
+    "B16 ci_adcensus_kern (row-major pair u8)": (
+        "cost_dm", _SRC + "cost_dm.cu", _TPU + "costkern.py:57", DM),
+    "B16 ci_adcensus_kern (row-major pair float32)": (
+        "cost_dm", _SRC + "cost_dm.cu", _TPU + "costkern.py:57", DM),
+    "B18a pass1_dm": ("pass1_dm", _SRC + "band_dm.cu", _TPU + "band.py:832",
+                      DM),
+    "B18b vv_dm (passes 2+3)": ("vv_dm", _SRC + "band_dm.cu",
+                                _TPU + "band.py:853", DM),
+    "B18c pass4_wta_dm": ("pass4_wta_dm", _SRC + "band_dm.cu",
+                          _TPU + "band.py:909", DM),
+    "B18c pass4_wta_dm (tied planes)": (
+        "pass4_wta_dm", _SRC + "band_dm.cu", _TPU + "band.py:909", DM),
+}
+KERNELS.update(DM_KERNELS)
+# ... on a width that is no multiple of 4, where rows are not aligned for
+# the horizontal passes' vector loads and stores, and on a 680-row chunk
+# of the 4K preset (3840 columns)
+AT_ODD = " (200x1001, unaligned rows)"
+for _suffix, _path in ((AT_CHUNK, DM_CHUNKED), (AT_ODD, DM), (AT_4K, DM_4K)):
+    KERNELS.update({
+        name + _suffix: (wrapper, source, replaces, _path)
+        for name, (wrapper, source, replaces, path) in DM_KERNELS.items()
+        if name in ("B16 cost_dm (stacked u8)", "B18a pass1_dm",
+                    "B18b vv_dm (passes 2+3)", "B18c pass4_wta_dm")})
 # the wrappers each path must not launch (its route replaces them); every
 # other wrapper must launch at least once on it
+DM_WRAPPERS = {"cost_dm", "pass1_dm", "vv_dm", "pass4_wta_dm"}
+LANE_CORE_WRAPPERS = {"cost_pair", "shear_right", "h_pass_sum", "vv_pass",
+                      "h_pass_wta"}
 NOT_ON_PATH = {
-    MAIN: {"dc_hslo_wta", "warp_views"},
-    HSLO4K: {"h_pass_wta", "warp_merge_views"},
-    LOWRES: {"dc_hslo_wta", "warp_views"},
+    MAIN: {"dc_hslo_wta", "warp_views"} | DM_WRAPPERS,
+    HSLO4K: {"h_pass_wta", "warp_merge_views"} | DM_WRAPPERS,
+    LOWRES: {"dc_hslo_wta", "warp_views"} | DM_WRAPPERS,
 }
+for _path in (DIGITS2, DIGITS1, UHD4K):
+    NOT_ON_PATH[_path] = NOT_ON_PATH[MAIN]
 # `h_pass_sum` counts two entry points of hpass.cu: pass 1 (u8, both eyes)
 # on every path, and pass 4 without the WTA (int32, both eyes) where the
 # scanline optimisation runs.  The exact count shows that both launched.
@@ -109,6 +177,9 @@ EXACT_LAUNCHES = {
     MAIN: {"h_pass_sum": 2},
     HSLO4K: {"h_pass_sum": 4},
     LOWRES: {"h_pass_sum": 2},
+    DIGITS2: {"h_pass_sum": 2},
+    DIGITS1: {"h_pass_sum": 2},
+    UHD4K: {"h_pass_sum": 8},       # 4 row chunks x 2 eyes
 }
 
 
@@ -491,6 +562,18 @@ def check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg):
         if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
             raise SmokeFailure(f"early-stop IRV differs from the fixed "
                                f"rounds ({name} eye)")
+    # each round streamed over two row chunks (halo usd) against the
+    # whole-frame rounds
+    row_chunk = -(-h // 2)
+    for name, d, o, a, fixed in (("left", dl, ol, arms_l, fixed_l),
+                                 ("right", dr, labels[1], arms_r, fixed_r)):
+        got = irv.dr_irv_early_stop(d, o, a, *irv_args, row_chunk=row_chunk)
+        if not (torch.equal(got[0], fixed[0])
+                and torch.equal(got[1], fixed[1])):
+            raise SmokeFailure(f"IRV over {row_chunk}-row chunks differs "
+                               f"from the whole-frame rounds ({name} eye)")
+    chunked_ms = time_ms(lambda: irv.dr_irv_early_stop(
+        dl, ol, arms_l, *irv_args, row_chunk=row_chunk), 3)
     fixed_ms = time_ms(lambda: irv.dr_irv(dl, ol, arms_l, *irv_args), 3)
     early_ms = time_ms(
         lambda: irv.dr_irv_early_stop(dl, ol, arms_l, *irv_args), 3)
@@ -501,12 +584,14 @@ def check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg):
     read_ms = (time.perf_counter() - t0) * 1e3 / 20
     chk.irv[chk.suffix.strip() or MAIN] = dict(rounds_left=rounds[0], rounds_right=rounds[1],
                    of=cfg.irv_iterations, fixed_ms_left=fixed_ms,
-                   early_stop_ms_left=early_ms, changed_read_ms=read_ms)
+                   early_stop_ms_left=early_ms, changed_read_ms=read_ms,
+                   row_chunk=row_chunk, chunked_ms_left=chunked_ms)
     print(f"early-stop IRV: equal to the {cfg.irv_iterations} fixed rounds "
           f"bit for bit; rounds run: left {rounds[0]}, right {rounds[1]}; "
           f"left eye {early_ms:.3f} ms against {fixed_ms:.3f} ms fixed; one "
-          f"`changed` read on an idle device {read_ms:.3f} ms (host clock)",
-          flush=True)
+          f"`changed` read on an idle device {read_ms:.3f} ms (host clock); "
+          f"over {row_chunk}-row chunks: equal bit for bit, left eye "
+          f"{chunked_ms:.3f} ms", flush=True)
     return fixed_l[0], fixed_r[0]
 
 
@@ -585,6 +670,230 @@ def check_synth_kernels(chk, img_l, img_r, bl, br, cfg, unfused=True):
                lambda: dibr.warp_views_plain(*uargs),
                nbytes=2 * hw * 3 + 2 * hw * 4 + 2 * vab[0].numel() * 4,
                ops=2 * vab[0].numel() * 8)
+
+
+def check_band_digits(chk, img_l, img_r, arms, cfg):
+    """B4-B6 on the left eye at the rescale shifts of band_digits 2 and 1
+    (at usd=34: (0, 6, 6) and (7, 6, 6); the path's own are (0, 3, 6))."""
+    from stereo_to_multiview_tpu_torch.ops import band, costkern
+    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+
+    h, w = img_l.shape[:2]
+    nd, zd, usd = cfg.num_disp, cfg.zero_disp, cfg.usd
+    hw, hwd = h * w, h * w * nd
+    m = costkern.pair_margin(nd, zd)
+    pair = costkern.cost_pair(
+        img_l, img_r, census_transform_9x7(mux_average(img_l)),
+        census_transform_9x7(mux_average(img_r)),
+        costkern.device_cost_table(cfg.ad_coeff, cfg.census_coeff,
+                                   img_l.device), nd, zd)
+    cost_l = pair[:, m:m + w]
+    lr, ud = (arms[LEFT], arms[RIGHT]), (arms[UP], arms[DOWN])
+    for digits in (2, 1):
+        s1, s2, s3 = band.agg_rescale_shifts(usd, digits)
+        tag = f", band_digits={digits} shifts)"
+        a1 = band.h_pass_sum(cost_l, *lr, s1, usd)
+        chk.record("B4 h_pass_sum (pass 1" + tag, a1,
+                   band.h_pass_sum_plain(cost_l, *lr, s1, usd),
+                   lambda: band.h_pass_sum(cost_l, *lr, s1, usd),
+                   lambda: band.h_pass_sum_plain(cost_l, *lr, s1, usd),
+                   nbytes=hwd + 2 * hw * 4 + hwd * 4, ops=3 * hwd)
+        a2 = band.vv_pass(a1, *ud, s2, s3, usd)
+        chk.record("B5 vv_pass (passes 2+3" + tag, a2,
+                   band.vv_pass_plain(a1, *ud, s2, s3, usd),
+                   lambda: band.vv_pass(a1, *ud, s2, s3, usd),
+                   lambda: band.vv_pass_plain(a1, *ud, s2, s3, usd),
+                   nbytes=hwd * 4 + 2 * hw * 4 + hwd * 4, ops=2 * 4 * hwd)
+        del a1
+        disp = band.h_pass_wta(a2, *lr, zd, usd)
+        chk.record("B6 h_pass_wta (pass 4 + WTA" + tag, disp,
+                   band.h_pass_wta_plain(a2, *lr, zd, usd),
+                   lambda: band.h_pass_wta(a2, *lr, zd, usd),
+                   lambda: band.h_pass_wta_plain(a2, *lr, zd, usd),
+                   nbytes=hwd * 4 + 2 * hw * 4 + hw * 4, ops=3 * hwd)
+        print(f"  band_digits={digits}: shifts {(s1, s2, s3)}, pass-3 "
+              f"values up to {int(a2.max())}", flush=True)
+        del a2, disp
+
+
+def check_dm_kernels(chk, img_l, img_r, arms_l, arms_r, cfg, full=True):
+    """B16 and B18a-c on both eyes of a frame (or of a row chunk's
+    extent): the stacked u8 cost and the three passes; with `full`, also
+    the row-major pairs (u8 and float32) and pass 4 once more on a volume
+    of tied planes."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band, costkern
+    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
+    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+
+    h, w = img_l.shape[:2]
+    nd, zd, usd = cfg.num_disp, cfg.zero_disp, cfg.usd
+    hw, vol2 = h * w, 2 * h * w * nd          # elements of the (2D, H, W)
+    coeffs = (cfg.ad_coeff, cfg.census_coeff, nd, zd)
+    cen_l = census_transform_9x7(mux_average(img_l))
+    cen_r = census_transform_9x7(mux_average(img_r))
+    in_bytes = 2 * hw * 3 + 2 * hw * 8
+    cargs = (img_l, img_r, cen_l, cen_r, *coeffs)
+    cost2 = costkern.cost_dm(*cargs)
+    # per element: 3 abs-diffs, 2 xor + popcount, index, lookup
+    chk.record("B16 cost_dm (stacked u8)", cost2,
+               costkern.ci_adcensus_stacked_plain(*cargs),
+               lambda: costkern.cost_dm(*cargs),
+               lambda: costkern.ci_adcensus_stacked_plain(*cargs),
+               nbytes=in_bytes + 766 * 49 + vol2, ops=10 * vol2)
+    if full:
+
+        def pair_plain(quant):
+            v = costkern.ci_adcensus_stacked_plain(*cargs, quant)
+            return (v[:nd].permute(1, 2, 0).contiguous(),
+                    v[nd:].permute(1, 2, 0).contiguous())
+
+        # the entry point as a user calls it: census, kernel, and one
+        # torch copy per eye into (H, W, D)
+        for quant, label, size in ((True, "u8", 1), (False, "float32", 4)):
+            pargs = (img_l, img_r, *coeffs, quant)
+            got = costkern.ci_adcensus_kern(*pargs)
+            ref = pair_plain(quant)
+            chk.record(f"B16 ci_adcensus_kern (row-major pair {label})",
+                       got, ref, lambda: costkern.ci_adcensus_kern(*pargs),
+                       lambda: pair_plain(quant),
+                       nbytes=2 * hw * 3 + vol2 * size, ops=10 * vol2)
+            del got, ref
+
+    _, s2, s3 = band.agg_rescale_shifts(usd, 2)
+    arms = (arms_l, arms_r)
+    p1 = band.pass1_dm(cost2, *arms, usd)
+    chk.record("B18a pass1_dm", p1, band.pass1_dm_plain(cost2, *arms, usd),
+               lambda: band.pass1_dm(cost2, *arms, usd),
+               lambda: band.pass1_dm_plain(cost2, *arms, usd),
+               nbytes=vol2 + 4 * hw * 4 + vol2 * 2, ops=3 * vol2)
+    del cost2
+    vv = band.vv_dm(p1, *arms, s2, s3, usd)
+    chk.record("B18b vv_dm (passes 2+3)", vv,
+               band.vv_dm_plain(p1, *arms, s2, s3, usd),
+               lambda: band.vv_dm(p1, *arms, s2, s3, usd),
+               lambda: band.vv_dm_plain(p1, *arms, s2, s3, usd),
+               nbytes=vol2 * 2 + 4 * hw * 4 + vol2 * 2, ops=2 * 4 * vol2)
+    del p1
+    disp = band.pass4_wta_dm(vv, *arms, zd, usd)
+    chk.record("B18c pass4_wta_dm", disp,
+               band.pass4_wta_dm_plain(vv, *arms, zd, usd),
+               lambda: band.pass4_wta_dm(vv, *arms, zd, usd),
+               lambda: band.pass4_wta_dm_plain(vv, *arms, zd, usd),
+               nbytes=vol2 * 2 + 4 * hw * 4 + 2 * hw * 4, ops=3 * vol2)
+    if not full:
+        return
+    # ties: the volume cut to a few levels, and a block where every plane
+    # is equal (a flat region's aggregate), where the first minimum is d=0
+    tied = vv >> 11
+    y0, y1, x0, x1 = h // 4, h // 2, w // 4, 3 * w // 4
+    tied[:, y0:y1, x0:x1] = 7
+    del vv
+    tdisp = band.pass4_wta_dm(tied, *arms, zd, usd)
+    chk.record("B18c pass4_wta_dm (tied planes)", tdisp,
+               band.pass4_wta_dm_plain(tied, *arms, zd, usd),
+               lambda: band.pass4_wta_dm(tied, *arms, zd, usd),
+               lambda: band.pass4_wta_dm_plain(tied, *arms, zd, usd),
+               nbytes=vol2 * 2 + 4 * hw * 4 + 2 * hw * 4, ops=3 * vol2)
+    inner = tdisp[0][y0 + usd:y1 - usd, x0 + usd:x1 - usd]
+    levels = int(tied.max()) + 1
+    if not bool((inner == -zd).all()):
+        raise SmokeFailure("B18c: a block of equal planes must give the "
+                           "first disparity")
+    print(f"  B18c tied planes: {levels} levels; the block of equal planes "
+          f"gives d=0 at each of its {inner.numel()} inner pixels",
+          flush=True)
+
+
+def run_dm_core(name, img_l, img_r, arms_l, arms_r, cfg):
+    """The disparity-major core as a path: launch counts zeroed just
+    before one call of `band_stereo_core_dm` and read just after; the
+    result against the lane-major core at the same config (band_digits=2),
+    every pixel of both eyes; then both cores timed side by side."""
+    import torch
+    from stereo_to_multiview_tpu_torch import kernels
+    from stereo_to_multiview_tpu_torch.ops import band
+
+    args = (img_l, img_r, arms_l, arms_r, cfg)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    dm = band.band_stereo_core_dm(*args)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in kernels.wrappers().items()}
+    print(f"path {name}: launches "
+          f"{ {n: c for n, c in launches.items() if c} }", flush=True)
+    missing = [n for n in DM_WRAPPERS if launches[n] <= 0]
+    if missing:
+        raise SmokeFailure(f"path {name}: kernels not launched: {missing}")
+    stray = [n for n in LANE_CORE_WRAPPERS if launches[n] != 0]
+    if stray:
+        raise SmokeFailure(f"path {name}: lane-major kernels launched: "
+                           f"{stray}")
+    lane = band.band_stereo_core_chunked(*args)
+    for eye, a, b in (("left", dm[0], lane[0]), ("right", dm[1], lane[1])):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise SmokeFailure(
+                f"path {name}: {eye} eye differs from the lane-major core "
+                f"at band_digits={cfg.band_digits} at "
+                f"{int((a != b).sum())} pixels")
+        if float(a.std()) == 0.0:
+            raise SmokeFailure(f"path {name}: constant disparities")
+    res = dict(launches=launches)
+    for label, fn in (("dm", band.band_stereo_core_dm),
+                      ("lane_major", band.band_stereo_core_chunked)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        res[label + "_ms"] = time_ms(lambda: fn(*args), 3)
+        res[label + "_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                   - before) / 1e9
+    print(f"path {name}: equal to the lane-major core at band_digits="
+          f"{cfg.band_digits} in every pixel of both eyes (left std "
+          f"{float(dm[0].std()):.3f}); stereo core {res['dm_ms']:.3f} ms "
+          f"against {res['lane_major_ms']:.3f} ms lane-major (CUDA events, "
+          f"mean of 3); peak memory above the inputs "
+          f"{res['dm_peak_gb']:.2f} GB against "
+          f"{res['lane_major_peak_gb']:.2f} GB", flush=True)
+    return res
+
+
+def check_small_dm_core():
+    """Phase 4b for the disparity-major core: a 96x160 frame, usd=34,
+    D=32, whole and in 32-row chunks, on the card (kernels) against the
+    CPU (plain versions) and against the lane-major core: exact."""
+    import torch
+    from stereo_to_multiview_tpu_torch.config import PipelineConfig
+    from stereo_to_multiview_tpu_torch.models import pipeline
+    from stereo_to_multiview_tpu_torch.ops import band
+    from stereo_to_multiview_tpu_torch.ops.cross import cross_arms
+
+    cfg = PipelineConfig(num_rows=96, num_cols=160, num_rows_out=96,
+                         num_cols_out=160, num_disp=32, zero_disp=16,
+                         usd=34, lsd=17, band_digits=2)
+    sbs = torch.from_numpy(stereo_sbs(cfg.num_rows, cfg.num_cols))
+    for chunk in (0, 32):
+        c = cfg.replace(band_row_chunk=chunk)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            l, r = (t.contiguous().to(dev) for t in pipeline.demux_sbs(sbs))
+            arms = [cross_arms(t, c.ucd, c.lcd, c.usd, c.lsd) for t in (l, r)]
+            res[dev] = [d.cpu() for d in
+                        band.band_stereo_core_dm(l, r, *arms, c)]
+            if dev == "cuda":
+                res["lane"] = [d.cpu() for d in
+                               band.band_stereo_core_chunked(l, r, *arms, c)]
+        for eye in range(2):
+            if not (torch.equal(res["cuda"][eye], res["cpu"][eye])
+                    and torch.equal(res["cuda"][eye], res["lane"][eye])):
+                raise SmokeFailure(f"small frame dm core, band_row_chunk="
+                                   f"{chunk}: eye {eye} differs card vs CPU "
+                                   f"or dm vs lane-major")
+        if float(res["cuda"][0].std()) == 0.0:
+            raise SmokeFailure("small frame dm core: constant disparities")
+    print("small frame dm core 96x160 D=32 usd=34, band_row_chunk 0 and 32: "
+          "equal card vs CPU and dm vs lane-major", flush=True)
 
 
 def run_path(name, entry, sbs, cfg, n_frames: int):
@@ -735,7 +1044,45 @@ def small_configs():
     }
 
 
+def time_frames(root: str, n_frames: int) -> int:
+    """`--frames N [--package-root DIR]`: the three preset paths alone,
+    N timed frames each, on the package found under DIR (this checkout by
+    default).  To compare two commits on one card, unpack the other commit
+    into a directory and run this script once with each root, in turn."""
+    import torch
+    sys.path.insert(0, root)
+    from stereo_to_multiview_tpu_torch import config, kernels
+    from stereo_to_multiview_tpu_torch.models import pipeline
+
+    card = gpu_line()
+    kernels.build_kernels()
+    sbs = stereo_sbs(config.HD1080_D128.num_rows, config.HD1080_D128.num_cols)
+    for name, entry, cfg in (
+            (MAIN, pipeline.process_frame, config.HD1080_D128),
+            (HSLO4K, pipeline.process_frame, config.HD1080_D128_HSLO_4K),
+            (LOWRES, pipeline.process_frame_lowres, config.HD1080_LOWRES)):
+        try:
+            _, res = run_path(name, entry, sbs, cfg, n_frames)
+        except (SmokeFailure, RuntimeError, ValueError) as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(f"frame: {res['frame_ms']:.2f} ms per frame over {n_frames} "
+              f"frames at {name}, package under {root}, on {card}",
+              flush=True)
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--frames", type=int, default=0,
+                    help="time only the three preset paths, this many "
+                         "frames each, and print no result line")
+    ap.add_argument("--package-root", default=HERE,
+                    help="with --frames: the checkout whose package is "
+                         "timed (default: this one)")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -744,10 +1091,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.frames > 0:
+        return time_frames(os.path.abspath(args.package_root), args.frames)
     sys.path.insert(0, HERE)
     try:
         from stereo_to_multiview_tpu_torch import config, kernels
         from stereo_to_multiview_tpu_torch.models import pipeline
+        from stereo_to_multiview_tpu_torch.ops import band, cross
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -781,7 +1131,36 @@ def main() -> int:
         torch.cuda.empty_cache()
         bl, br = check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
-        del arms_l, arms_r, bl, br
+        del bl, br
+        torch.cuda.empty_cache()
+        check_band_digits(chk, img_l, img_r, arms_l, cfg)
+        torch.cuda.empty_cache()
+
+        # the disparity-major core: its kernels at 1080p and at the extent
+        # of a 540-row chunk, then the core as a path, whole-frame and
+        # chunked, against the lane-major core at band_digits=2
+        check_dm_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
+        torch.cuda.empty_cache()
+        chk.suffix = AT_CHUNK
+        ext = band.chunk_bounds(cfg.num_rows, 540, 2 * cfg.usd)[0]
+        check_dm_kernels(chk, img_l[:ext], img_r[:ext], arms_l[:, :ext],
+                         arms_r[:, :ext], cfg, full=False)
+        chk.suffix = AT_ODD
+        odd_l, odd_r = (t[:200, :1001].contiguous() for t in (img_l, img_r))
+        arm_args = (cfg.ucd, cfg.lcd, cfg.usd, cfg.lsd)
+        check_dm_kernels(chk, odd_l, odd_r,
+                         cross.cross_arms(odd_l, *arm_args),
+                         cross.cross_arms(odd_r, *arm_args), cfg, full=False)
+        chk.suffix = ""
+        del odd_l, odd_r
+        torch.cuda.empty_cache()
+        cfg2 = cfg.replace(band_digits=2)
+        paths = {
+            DM: run_dm_core(DM, img_l, img_r, arms_l, arms_r, cfg2),
+            DM_CHUNKED: run_dm_core(DM_CHUNKED, img_l, img_r, arms_l, arms_r,
+                                    cfg2.replace(band_row_chunk=540)),
+        }
+        del arms_l, arms_r
         torch.cuda.empty_cache()
 
         # the same kernels on what the third path gives them, staged as
@@ -808,18 +1187,67 @@ def main() -> int:
         del img_l, img_r, low_l, low_r, arms_l, arms_r, bl, br
         torch.cuda.empty_cache()
 
-        paths = {}
         for name, entry, pcfg in (
                 (MAIN, pipeline.process_frame, cfg),
                 (HSLO4K, pipeline.process_frame, config.HD1080_D128_HSLO_4K),
                 (LOWRES, pipeline.process_frame_lowres,
-                 config.HD1080_LOWRES)):
-            out, paths[name] = run_path(name, entry, sbs, pcfg, 3)
+                 config.HD1080_LOWRES),
+                (DIGITS2, pipeline.process_frame, cfg2),
+                (DIGITS1, pipeline.process_frame,
+                 cfg.replace(band_digits=1))):
+            out, paths[name] = run_path(name, entry, sbs, pcfg, 10)
             check_outputs(name, out, pcfg, pipeline.synth_disp_bounds(pcfg))
             del out
             torch.cuda.empty_cache()
+
+        # the 4K preset: a frame through process_frame, then the kernels
+        # at its chunk shapes (680 rows of the stereo core, 1152 of the
+        # IRV, 14 intermediate views at 2160x3840) on that frame
+        cfg4k = config.UHD4K_16V
+        sbs4k = stereo_sbs(cfg4k.num_rows, cfg4k.num_cols)
+        out, paths[UHD4K] = run_path(UHD4K, pipeline.process_frame, sbs4k,
+                                     cfg4k, 2)
+        check_outputs(UHD4K, out, cfg4k, pipeline.synth_disp_bounds(cfg4k))
+        img_l, img_r = (t.contiguous() for t in
+                        pipeline.demux_sbs(torch.from_numpy(sbs4k).to(dev)))
+        chk.suffix = AT_4K
+        core_rows = band.chunk_bounds(cfg4k.num_rows, cfg4k.band_row_chunk,
+                                      2 * cfg4k.usd)[0]
+        irv_rows = band.chunk_bounds(cfg4k.num_rows, cfg4k.irv_row_chunk,
+                                     cfg4k.usd)[0]
+        check_core_kernels(chk, img_l[:core_rows], img_r[:core_rows], cfg4k,
+                           hslo=False)
+        torch.cuda.empty_cache()
+        arm_args = (cfg4k.ucd, cfg4k.lcd, cfg4k.usd, cfg4k.lsd)
+        check_disp_kernels(
+            chk, img_l[:irv_rows], img_r[:irv_rows],
+            cross.cross_arms(img_l[:irv_rows], *arm_args),
+            cross.cross_arms(img_r[:irv_rows], *arm_args), cfg4k)
+        torch.cuda.empty_cache()
+        check_synth_kernels(chk, img_l, img_r, out[0], out[1], cfg4k,
+                            unfused=False)
+        chk.suffix = ""
+        del out
+        torch.cuda.empty_cache()
+        # the disparity-major core at 3840 columns: its kernels on one of
+        # the preset's 680-row chunks, then the core as a path
+        arms_l, arms_r = (cross.cross_arms(t, *arm_args)
+                          for t in (img_l, img_r))
+        chk.suffix = AT_4K
+        check_dm_kernels(chk, img_l[:core_rows], img_r[:core_rows],
+                         arms_l[:, :core_rows].contiguous(),
+                         arms_r[:, :core_rows].contiguous(), cfg4k,
+                         full=False)
+        chk.suffix = ""
+        torch.cuda.empty_cache()
+        paths[DM_4K] = run_dm_core(DM_4K, img_l, img_r, arms_l, arms_r,
+                                   cfg4k.replace(band_digits=2))
+        del img_l, img_r, arms_l, arms_r
+        torch.cuda.empty_cache()
+
         report["small_frames"] = {label: check_small_frame(label, scfg)
                                   for label, scfg in small_configs().items()}
+        check_small_dm_core()
     except (SmokeFailure, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -839,7 +1267,13 @@ def main() -> int:
     with open(os.path.join(HERE, "out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     for name, p in paths.items():
-        print(f"frame: {p['frame_ms']:.2f} ms per frame at {name} on {card}")
+        if "frame_ms" in p:
+            print(f"frame: {p['frame_ms']:.2f} ms per frame at {name} on "
+                  f"{card}")
+        else:
+            print(f"stereo core: {p['dm_ms']:.3f} ms disparity-major, "
+                  f"{p['lane_major_ms']:.3f} ms lane-major at {name} on "
+                  f"{card}")
     print(f"gpu: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

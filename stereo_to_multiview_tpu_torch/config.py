@@ -5,8 +5,8 @@ Every knob of the stereo -> multiview pipeline lives in one frozen
 dataclass.  The field names, defaults and `__post_init__` checks are the
 JAX package's, so a config can travel between the two packages as a plain
 dict (`config_from_dict(dataclasses.asdict(jax_cfg))`).  Fields that only
-the JAX package's engines read (`band_nsplit`, `xla_agg_qscale`,
-`irv_row_chunk`) are kept so that such a dict round-trips.
+the JAX package's engines read (`band_nsplit`, `xla_agg_qscale`) are kept so
+that such a dict round-trips.
 """
 
 from __future__ import annotations
@@ -67,14 +67,15 @@ class PipelineConfig:
                                  # engine (the port's only engine);
                                  # "xla" is not ported
     band_nsplit: int = 2         # JAX float band sums only
-    band_digits: int = 3         # aggregation precision (3 = int32
-                                 # inter-pass volumes, the ported path)
+    band_digits: int = 3         # aggregation precision: the rescale
+                                 # shifts keep each pass's input below
+                                 # (2^24-1)/(2*usd+1) (3), 2^15 (2) or
+                                 # 2^8 (1); exact integers at each
     band_qscale: float = 127.0   # cost quantization scale (127 = u8)
     band_lossy_wta: bool = False # pass-4 bf16 WTA dial (not ported)
     xla_agg_qscale: float = 0.0  # JAX XLA engine only
     band_row_chunk: int = 0      # stereo-core rows per chunk (0 = whole)
-    irv_row_chunk: int = 0       # IRV rows per chunk; the port's IRV is
-                                 # whole-frame and takes only 0
+    irv_row_chunk: int = 0       # IRV rows per chunk (0 = whole frame)
 
     # --- optional stages ---
     use_median: bool = False
@@ -155,3 +156,10 @@ HD1080_LOWRES = PipelineConfig(
     num_rows=1080, num_cols=1920, num_rows_out=1080, num_cols_out=1920,
     num_rows_disp=540, num_cols_disp=960, disp_scale=0.5, num_disp=64,
     zero_disp=32, num_views=8)
+
+# 4K stereo, 16 views: the stereo core and the IRV rounds stream over row
+# chunks (the JAX package's 4K preset, field for field).
+UHD4K_16V = PipelineConfig(
+    num_rows=2160, num_cols=3840, num_rows_out=2160, num_cols_out=3840,
+    num_disp=128, zero_disp=64, num_views=16,
+    band_row_chunk=540, irv_row_chunk=1080)

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = ("arms", "cost", "shear", "hpass", "vpass", "hslo", "dcc", "irv",
-           "bilateral", "bleed", "warp")
+           "bilateral", "bleed", "warp", "cost_dm", "band_dm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -51,6 +51,10 @@ _SIGS = {
     "stm_bleed_mask": [_P, _P, _I, _I, _I, _F, _P],
     "stm_warp_merge": [_P] * 10 + [_I] * 3 + [_P],
     "stm_warp_views": [_P] * 8 + [_I] * 3 + [_P],
+    "stm_cost_dm": [_P] * 8 + [_I] * 5 + [_P],
+    "stm_pass1_dm": [_P] * 6 + [_I] * 4 + [_P],
+    "stm_vv_dm": [_P] * 6 + [_I] * 6 + [_P],
+    "stm_pass4_wta_dm": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _libs: dict = {}

@@ -5,7 +5,8 @@ Stage order, with the hand-written CUDA kernel of each stage:
   demux_sbs -> cross arms (B1) -> stereo core (cost init B2/B3, H,V,V,H
   aggregation B4/B5, WTA B6; with use_hslo the pass-4 volume and the
   scanline optimisation + WTA, B13) -> dcc (B7) -> irv (B8/B9 per round,
-  stopping at the fixpoint) -> [median] -> bilateral (B10)
+  stopping at the fixpoint; over row chunks with cfg.irv_row_chunk)
+  -> [median] -> bilateral (B10)
   -> occlusion hits (B7) -> bleed + mask (B11) -> feather
   -> backward warps + merge of every intermediate view (B12, fused), or
      the warps alone (B14) with mask and merge after them (unfused: a
@@ -67,8 +68,6 @@ def check_ported(cfg: PipelineConfig):
     """Raise NotImplementedError for any knob that is not ported yet."""
     todo = [
         (cfg.engine == "xla", "engine='xla'", "queue A item 14"),
-        (cfg.irv_row_chunk != 0, "irv_row_chunk > 0", "queue A item 7"),
-        (cfg.band_digits != 3, "band_digits != 3", "queue A item 14"),
         (cfg.band_qscale != 127.0, "band_qscale != 127", "queue A item 14"),
         (cfg.band_lossy_wta, "band_lossy_wta", "queue A item 14"),
     ]
@@ -78,6 +77,8 @@ def check_ported(cfg: PipelineConfig):
                 f"{what} is not ported yet (ROADMAP {item})")
     if cfg.engine not in ("auto", "band", "xla"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
+    if cfg.band_digits not in (1, 2, 3):
+        raise ValueError("band_digits must be 1, 2 or 3")
 
 
 def raw_disparities(img_l, img_r, cfg: PipelineConfig,
@@ -96,7 +97,8 @@ def raw_disparities(img_l, img_r, cfg: PipelineConfig,
     with stage_scope("dr_irv", timer):
         irv = lambda d, o, a: dr_irv_early_stop(
             d, o, a, cfg.irv_thresh_s, cfg.irv_thresh_h, cfg.num_disp,
-            cfg.zero_disp, cfg.usd, cfg.irv_iterations)
+            cfg.zero_disp, cfg.usd, cfg.irv_iterations,
+            row_chunk=cfg.irv_row_chunk)
         disp_l, out_l = irv(disp_l, out_l, arms_l)
         disp_r, out_r = irv(disp_r, out_r, arms_r)
     return disp_l, disp_r, out_l, out_r

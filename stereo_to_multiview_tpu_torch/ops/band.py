@@ -1,13 +1,18 @@
 """The band engine's stereo core: quantized cost, four-pass cross
 aggregation (H, V, V, H) and first-min WTA, on kernels B2-B6; with
 cfg.use_hslo, the scanline optimisation (kernel B13) before the WTA.
+A second, complete core in the disparity-major (2D, H, W) layout runs on
+kernels B16 and B18a-c (`band_stereo_core_dm`).
 
 Every aggregate is an exact integer: the u8 cost q = rint(127 * cost) is
 summed over half-open windows [p - arm_neg, p + arm_pos) and rescaled
 after passes 1-3 by power-of-2 shifts (`agg_rescale_shifts`) that keep
 each pass's input below (2^24 - 1) / (2 * usd + 1).  The TPU kernels get
 these integers from bf16 digit dots on the MXU; here they are int32 sums,
-bit-identical, so row chunking changes nothing.
+bit-identical, so row chunking changes nothing.  cfg.band_digits picks
+the shifts (1, 2 or 3); the lane-major kernels keep int32 volumes at
+every setting, the disparity-major ones int16 (they always run at
+digits=2, as the JAX package's do).
 
 Wrappers take the plain version only for CPU tensors; on a CUDA tensor
 they launch the kernel or raise.  Arms are clamped to [0, max_arm] by
@@ -21,9 +26,10 @@ import math
 import torch
 
 from stereo_to_multiview_tpu_torch import kernels
+from stereo_to_multiview_tpu_torch.ops.chunks import chunk_bounds
 from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
 from stereo_to_multiview_tpu_torch.ops.costkern import (
-    cost_pair, device_cost_table, pair_margin, shear_right)
+    cost_dm, cost_pair, device_cost_table, pair_margin, shear_right)
 from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
 from stereo_to_multiview_tpu_torch.ops.hslokern import dc_hslo_wta
 from stereo_to_multiview_tpu_torch.ops.mux import mux_average
@@ -200,10 +206,12 @@ def band_aggregate_q(cost_q: torch.Tensor, arms: torch.Tensor, max_arm: int,
     disparities are returned; with zero_disp None, the (H, W, D) int32
     aggregated volume (exact integers at `agg_cost_scale` of the cost's
     unit)."""
-    if digits != 3 or qscale != QSCALE:
+    if digits not in (1, 2, 3):
+        raise ValueError("band_digits must be 1, 2 or 3")
+    if qscale != QSCALE:
         raise NotImplementedError(
-            "band_digits != 3 / band_qscale != 127 are ROADMAP queue A "
-            "item 14 (dials), not ported yet")
+            "band_qscale != 127 is ROADMAP queue A item 14 (dials), not "
+            "ported yet")
     _halo_for(max_arm)
     s1, s2, s3 = agg_rescale_shifts(max_arm, digits, qscale)
     a = h_pass_sum(cost_q, arms[LEFT], arms[RIGHT], s1, max_arm)
@@ -223,18 +231,6 @@ def agg_cost_scale(max_arm: int, digits: int = 3,
     return qscale / float(2 ** (s1 + s2 + s3))
 
 
-def _chunk_bounds(h: int, chunk: int, halo: int):
-    """Uniform-size extended slices [(start, lo_off)] covering [0, h) in
-    `chunk`-row steps: rows [start, start + ext) with start clamped to
-    the image; lo_off = where the chunk's first output row sits inside."""
-    ext = min(h, -(-(chunk + 2 * halo) // 8) * 8)
-    out = []
-    for c0 in range(0, h, chunk):
-        start = min(max(0, c0 - halo), h - ext)
-        out.append((start, c0 - start))
-    return ext, out
-
-
 def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
     """Cost init + 4-pass quantized aggregation + WTA for both eyes, over
     row chunks of cfg.band_row_chunk output rows (0 = whole frame).  Each
@@ -252,7 +248,7 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
         raise ValueError("band engine requires usd <= 64")
     nd, zd = cfg.num_disp, cfg.zero_disp
     chunk = cfg.band_row_chunk or h
-    ext, bounds = _chunk_bounds(h, chunk, 2 * usd)
+    ext, bounds = chunk_bounds(h, chunk, 2 * usd)
     margin = pair_margin(nd, zd)
     table = device_cost_table(cfg.ad_coeff, cfg.census_coeff, img_l.device)
     gray_l, gray_r = mux_average(img_l), mux_average(img_r)
@@ -283,6 +279,194 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
                 disp = band_aggregate_q(cost, arms[:, sl], usd, zd,
                                         cfg.band_digits, cfg.band_qscale)
             parts.append(disp[lo:lo + n_valid])
+    if len(parts_l) == 1:
+        return parts_l[0], parts_r[0]
+    return torch.cat(parts_l, dim=0), torch.cat(parts_r, dim=0)
+
+
+# ---- the disparity-major core: (2D, H, W), int16 between the passes -----
+#
+# Left eye on planes [0, D), right eye on [D, 2D); each eye's windows come
+# from its own arms.  The shifts are those of digits=2 whatever the config
+# says (the JAX package's `band_aggregate_q_dm` does the same), so pass 1
+# is not rescaled and every stored value stays below 2^15.
+
+def _span_dm(vol, arm_neg, arm_pos, axis: int, max_arm: int):
+    """int32 half-open window sums of one eye's (D, H, W) planes along
+    axis 1 (rows) or 2 (columns), arms (H, W) clamped to [0, max_arm]."""
+    n = vol.shape[axis]
+    cs = torch.cumsum(vol, dim=axis, dtype=torch.int32)
+    cs = torch.cat([torch.zeros_like(cs.narrow(axis, 0, 1)), cs], dim=axis)
+    pos = torch.arange(n, device=vol.device)
+    pos = pos[:, None] if axis == 1 else pos[None, :]
+    lo = (pos - arm_neg.clamp(0, max_arm)).clamp(min=0)
+    hi = (pos + arm_pos.clamp(0, max_arm)).clamp(max=n)
+    return (cs.gather(axis, hi.expand(vol.shape))
+            - cs.gather(axis, lo.expand(vol.shape)))
+
+
+def _eyes(vol, arms_l, arms_r):
+    """((D, H, W) planes, arms) of the left and the right eye."""
+    nd = vol.shape[0] // 2
+    return (vol[:nd], arms_l), (vol[nd:], arms_r)
+
+
+def pass1_dm_plain(vol, arms_l, arms_r, max_arm: int) -> torch.Tensor:
+    """Plain version of `pass1_dm`, an eye at a time."""
+    return torch.cat([
+        _span_dm(v, a[LEFT], a[RIGHT], 2, max_arm).to(torch.int16)
+        for v, a in _eyes(vol, arms_l, arms_r)])
+
+
+def vv_dm_plain(vol, arms_l, arms_r, s2: int, s3: int,
+                max_arm: int) -> torch.Tensor:
+    """Plain version of `vv_dm`, an eye at a time, int16 after each
+    rescale."""
+    out = []
+    for v, a in _eyes(vol, arms_l, arms_r):
+        for shift in (s2, s3):
+            v = _rescale(_span_dm(v, a[UP], a[DOWN], 1, max_arm),
+                         shift).to(torch.int16)
+        out.append(v)
+    return torch.cat(out)
+
+
+def pass4_wta_dm_plain(vol, arms_l, arms_r, zero_disp: int, max_arm: int):
+    """Plain version of `pass4_wta_dm`: the int32 sums of an eye, then
+    torch.argmin over d (the first minimum)."""
+    return tuple(
+        (torch.argmin(_span_dm(v, a[LEFT], a[RIGHT], 2, max_arm), dim=0)
+         - zero_disp).to(torch.float32)
+        for v, a in _eyes(vol, arms_l, arms_r))
+
+
+def _check_dm(what, vol, dtype, arms_l, arms_r, max_arm):
+    kernels.require(vol, "vol", dtype, 3, vol.device)
+    if vol.shape[0] % 2:
+        raise ValueError(f"{what}: the volume must hold both eyes, (2D, H, "
+                         f"W)")
+    for name, a in (("arms_l", arms_l), ("arms_r", arms_r)):
+        kernels.require(a, name, torch.int32, 3, vol.device,
+                        contiguous=False)     # a row chunk's slice
+        if a.shape != (4, *vol.shape[1:]):
+            raise ValueError(f"{what}: {name} {tuple(a.shape)} does not "
+                             f"match the volume's rows and columns")
+    _halo_for(max_arm)
+    return vol.shape[0] // 2, vol.shape[1], vol.shape[2]
+
+
+def _arm_planes(arms_l, arms_r, neg: int, pos: int):
+    """The four contiguous (H, W) arm planes of a pass, in the C entry
+    points' order."""
+    return [a.contiguous() for a in (arms_l[neg], arms_l[pos], arms_r[neg],
+                                     arms_r[pos])]
+
+
+@kernels.kernel_wrapper
+def pass1_dm(vol: torch.Tensor, arms_l: torch.Tensor, arms_r: torch.Tensor,
+             max_arm: int) -> torch.Tensor:
+    """Pass 1 of both eyes: sums of a (2D, H, W) u8 cost volume over
+    [x - LEFT, x + RIGHT) as (2D, H, W) int16, arms (4, H, W) int32 per
+    eye.  Kernel B18a (csrc/band_dm.cu)."""
+    if kernels.on_cpu(vol):
+        return pass1_dm_plain(vol, arms_l, arms_r, max_arm)
+    nd, h, w = _check_dm("pass1_dm", vol, torch.uint8, arms_l, arms_r,
+                         max_arm)
+    planes = _arm_planes(arms_l, arms_r, LEFT, RIGHT)
+    out = torch.empty(vol.shape, dtype=torch.int16, device=vol.device)
+    rc = kernels.lib("band_dm").stm_pass1_dm(
+        vol.data_ptr(), *(a.data_ptr() for a in planes), out.data_ptr(), h, w, nd, max_arm,
+        kernels.stream_of(out))
+    kernels.check_launch(rc, "pass1_dm")
+    pass1_dm.launches += 1
+    return out
+
+
+@kernels.kernel_wrapper
+def vv_dm(vol: torch.Tensor, arms_l: torch.Tensor, arms_r: torch.Tensor,
+          s2: int, s3: int, max_arm: int) -> torch.Tensor:
+    """Passes 2 and 3 of both eyes: two sums of a (2D, H, W) int16 volume
+    over [y - UP, y + DOWN), rescaled by s2 then s3, as int16.  Kernel
+    B18b (csrc/band_dm.cu), one launch."""
+    if kernels.on_cpu(vol):
+        return vv_dm_plain(vol, arms_l, arms_r, s2, s3, max_arm)
+    nd, h, w = _check_dm("vv_dm", vol, torch.int16, arms_l, arms_r, max_arm)
+    planes = _arm_planes(arms_l, arms_r, UP, DOWN)
+    out = torch.empty_like(vol)
+    rc = kernels.lib("band_dm").stm_vv_dm(
+        vol.data_ptr(), *(a.data_ptr() for a in planes), out.data_ptr(), h, w, nd, max_arm, s2, s3,
+        kernels.stream_of(out))
+    kernels.check_launch(rc, "vv_dm")
+    vv_dm.launches += 1
+    return out
+
+
+@kernels.kernel_wrapper
+def pass4_wta_dm(vol: torch.Tensor, arms_l: torch.Tensor,
+                 arms_r: torch.Tensor, zero_disp: int, max_arm: int):
+    """Pass 4 + WTA of both eyes: the horizontal sums of a (2D, H, W)
+    int16 volume, then each eye's first-min argmin over d; returns
+    (disp_l, disp_r) (H, W) float32, argmin - zero_disp.  Kernel B18c
+    (csrc/band_dm.cu)."""
+    if kernels.on_cpu(vol):
+        return pass4_wta_dm_plain(vol, arms_l, arms_r, zero_disp, max_arm)
+    nd, h, w = _check_dm("pass4_wta_dm", vol, torch.int16, arms_l, arms_r,
+                         max_arm)
+    planes = _arm_planes(arms_l, arms_r, LEFT, RIGHT)
+    disp_l = torch.empty((h, w), dtype=torch.float32, device=vol.device)
+    disp_r = torch.empty_like(disp_l)
+    rc = kernels.lib("band_dm").stm_pass4_wta_dm(
+        vol.data_ptr(), *(a.data_ptr() for a in planes), disp_l.data_ptr(), disp_r.data_ptr(), h, w,
+        nd, max_arm, zero_disp, kernels.stream_of(disp_l))
+    kernels.check_launch(rc, "pass4_wta_dm")
+    pass4_wta_dm.launches += 1
+    return disp_l, disp_r
+
+
+def band_aggregate_q_dm(cost2: torch.Tensor, arms_l: torch.Tensor,
+                        arms_r: torch.Tensor, *, num_disp: int,
+                        zero_disp: int, max_arm: int):
+    """Four-pass cross aggregation + first-min WTA of a (2D, H, W) u8
+    cost volume (`cost_dm`), arms (4, H, W) int32 per eye.  Returns
+    (disp_l, disp_r) (H, W) float32, equal to `band_aggregate_q` at
+    digits=2 on each eye's (H, W, D) volume."""
+    if cost2.shape[0] != 2 * num_disp:
+        raise ValueError("band_aggregate_q_dm: cost2 must be (2 * num_disp, "
+                         "H, W)")
+    _, s2, s3 = agg_rescale_shifts(max_arm, 2)
+    a = pass1_dm(cost2, arms_l, arms_r, max_arm)
+    a = vv_dm(a, arms_l, arms_r, s2, s3, max_arm)
+    return pass4_wta_dm(a, arms_l, arms_r, zero_disp, max_arm)
+
+
+def band_stereo_core_dm(img_l, img_r, arms_l, arms_r, cfg):
+    """The stereo core in the disparity-major layout: the stacked cost
+    (kernel B16) and `band_aggregate_q_dm` (B18a-c) over row chunks of
+    cfg.band_row_chunk output rows with a halo of 2*usd rows, the census
+    codes from the whole frame.  No (H, W, D) volume, pair volume or shear
+    exists.  It aggregates at digits=2 whatever cfg.band_digits says, and
+    equals `band_stereo_core_chunked` at band_digits=2; cfg.use_hslo is
+    not read.  Returns (disp_l, disp_r) float32 (H, W)."""
+    h = img_l.shape[0]
+    usd = cfg.usd
+    if usd > _HALO:
+        raise ValueError("band engine requires usd <= 64")
+    chunk = cfg.band_row_chunk or h
+    ext, bounds = chunk_bounds(h, chunk, 2 * usd)
+    cen_l = census_transform_9x7(mux_average(img_l))
+    cen_r = census_transform_9x7(mux_average(img_r))
+    parts_l, parts_r = [], []
+    for start, lo in bounds:
+        sl = slice(start, start + ext)
+        cost2 = cost_dm(img_l[sl], img_r[sl], cen_l[sl], cen_r[sl],
+                        cfg.ad_coeff, cfg.census_coeff, cfg.num_disp,
+                        cfg.zero_disp)
+        dl, dr = band_aggregate_q_dm(
+            cost2, arms_l[:, sl], arms_r[:, sl], num_disp=cfg.num_disp,
+            zero_disp=cfg.zero_disp, max_arm=usd)
+        n_valid = min(chunk, h - (start + lo))
+        parts_l.append(dl[lo:lo + n_valid])
+        parts_r.append(dr[lo:lo + n_valid])
     if len(parts_l) == 1:
         return parts_l[0], parts_r[0]
     return torch.cat(parts_l, dim=0), torch.cat(parts_r, dim=0)

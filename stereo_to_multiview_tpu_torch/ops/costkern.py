@@ -1,5 +1,5 @@
-"""AD-census cost init, quantized to u8: kernels B2 (pair volume) and B3
-(right-eye shear), with their plain PyTorch versions.
+"""AD-census cost init: kernels B2 (pair volume), B3 (right-eye shear)
+and B16 (both eyes, disparity-major), with their plain PyTorch versions.
 
 cost_l(x, d) = C(L(x), R(clamp(x + d - zd)))      (left eye)
 cost_r(x, d) = C(L(clamp(x - (d - zd))), R(x))    (right eye)
@@ -11,7 +11,16 @@ per-d shear P[:, x - (d - zd) + M, d].  C is looked up in the quantized
 cost table (`cost_table`), so the kernel and the plain version agree by
 construction.
 
-Layout: (H, W, D) with D innermost, the layout the aggregation reads.
+Layout: (H, W, D) with D innermost, the layout the lane-major
+aggregation reads.
+
+B16 (`cost_dm`) computes both eyes directly, every other-eye read clamped
+to the row, into ONE disparity-major (2D, H, W) volume: the left eye on
+planes [0, D), the right eye on [D, 2D); u8 costs from the same table, or
+float32 costs as the sum of the table's two float32 terms.
+`ci_adcensus_kern_stacked` and `ci_adcensus_kern` are the JAX package's
+entry points on it.
+
 The wrappers take the plain version only for CPU tensors; on a CUDA
 tensor they launch the kernel or raise.
 """
@@ -23,25 +32,37 @@ import functools
 import torch
 
 from stereo_to_multiview_tpu_torch import kernels
-from stereo_to_multiview_tpu_torch.ops.cost import hamming48
-from stereo_to_multiview_tpu_torch.ops.mux import f32
+from stereo_to_multiview_tpu_torch.ops.cost import (
+    census_transform_9x7, hamming48)
+from stereo_to_multiview_tpu_torch.ops.mux import f32, mux_average
 
 F32 = torch.float32
 AD_VALUES = 766      # 3 channels x |0..255|
 HAM_VALUES = 49      # 48 census bits
 
 
-def cost_table(ad_coeff: float, census_coeff: float,
-               qscale: float = 127.0) -> torch.Tensor:
-    """(766 * 49,) u8 table of the quantized AD-census cost, index
-    AD * 49 + H:  rint(qscale * ((1 - e^{-(AD * 0.33333333333) / l_ad})
-    + (1 - e^{-H / l_c}))), in float32 with the TPU kernel's op order
-    (stereo_to_multiview_tpu/ops/costkern.py:309-313).  Built on the CPU
-    and uploaded by the caller, so every device uses the same table."""
+def cost_terms(ad_coeff: float, census_coeff: float):
+    """The two float32 terms of the AD-census cost over their integer
+    domains: (766,) 1 - e^{-(AD * 0.33333333333) / l_ad} and (49,)
+    1 - e^{-H / l_c}, with the TPU kernel's op order
+    (stereo_to_multiview_tpu/ops/costkern.py:107-108).  The cost is their
+    float32 sum.  Built on the CPU, so every device uses the same
+    values (exp differs in the last ulp between devices)."""
     ad = torch.arange(AD_VALUES, dtype=F32)
     ham = torch.arange(HAM_VALUES, dtype=F32)
     a = 1.0 - torch.exp(-(ad * f32(0.33333333333)) * f32(1.0 / ad_coeff))
     c = 1.0 - torch.exp(-ham * f32(1.0 / census_coeff))
+    return a, c
+
+
+def cost_table(ad_coeff: float, census_coeff: float,
+               qscale: float = 127.0) -> torch.Tensor:
+    """(766 * 49,) u8 table of the quantized AD-census cost, index
+    AD * 49 + H:  rint(qscale * (a[AD] + c[H])) of `cost_terms`, in
+    float32 with the TPU kernel's op order
+    (stereo_to_multiview_tpu/ops/costkern.py:309-313).  Built on the CPU
+    and uploaded by the caller, so every device uses the same table."""
+    a, c = cost_terms(ad_coeff, census_coeff)
     q = torch.round((a[:, None] + c[None, :]) * f32(qscale))
     return q.to(torch.int32).to(torch.uint8).reshape(-1)
 
@@ -53,6 +74,14 @@ def device_cost_table(ad_coeff: float, census_coeff: float,
     and device: a copy from host memory waits for the device's queue, so
     a frame must not repeat it."""
     return cost_table(ad_coeff, census_coeff).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def device_cost_terms(ad_coeff: float, census_coeff: float,
+                      device: torch.device):
+    """`cost_terms` on `device`, uploaded once per coefficients and
+    device."""
+    return tuple(t.to(device) for t in cost_terms(ad_coeff, census_coeff))
 
 
 def pair_margin(num_disp: int, zero_disp: int) -> int:
@@ -158,3 +187,117 @@ def shear_right(pair: torch.Tensor, zero_disp: int) -> torch.Tensor:
     kernels.check_launch(rc, "shear_right")
     shear_right.launches += 1
     return out
+
+
+# ---- B16: both eyes, disparity-major ------------------------------------
+
+MAX_REACH = 128      # |d - zero_disp| the disparity-major kernel can reach
+
+
+def ci_adcensus_stacked_plain(img_l, img_r, cen_l, cen_r, ad_coeff: float,
+                              census_coeff: float, num_disp: int,
+                              zero_disp: int,
+                              quant: bool = True) -> torch.Tensor:
+    """Plain version of `cost_dm`: one disparity plane of each eye at a
+    time, the cost as the float32 sum of the two `cost_terms` and, with
+    `quant`, rint(cost * 127) as u8 (no table)."""
+    h, w = img_l.shape[:2]
+    dev = img_l.device
+    a, c = device_cost_terms(ad_coeff, census_coeff, dev)
+    xs = torch.arange(w, device=dev)
+    lv, rv = img_l.to(torch.int32), img_r.to(torch.int32)
+    out = torch.empty((2 * num_disp, h, w), device=dev,
+                      dtype=torch.uint8 if quant else F32)
+
+    def emit(own, own_cen, oth, oth_cen, xo, plane):
+        ad = (own - oth[:, xo]).abs().sum(dim=-1)
+        cost = a[ad] + c[hamming48(own_cen, oth_cen[:, xo])]
+        if quant:
+            cost = torch.round(cost * f32(127.0)).to(torch.int32)
+        out[plane] = cost.to(out.dtype)
+
+    for d in range(num_disp):
+        k = d - zero_disp
+        emit(lv, cen_l, rv, cen_r, (xs + k).clamp(0, w - 1), d)
+        emit(rv, cen_r, lv, cen_l, (xs - k).clamp(0, w - 1), num_disp + d)
+    return out
+
+
+@kernels.kernel_wrapper
+def cost_dm(img_l: torch.Tensor, img_r: torch.Tensor, cen_l: torch.Tensor,
+            cen_r: torch.Tensor, ad_coeff: float, census_coeff: float,
+            num_disp: int, zero_disp: int,
+            quant: bool = True) -> torch.Tensor:
+    """(2D, H, W) disparity-major AD-census cost of two (H, W, 3) u8
+    images and their (H, W, 2) int32 census codes: plane d < D is the
+    left eye's C(L(x), R(clamp(x + d - zd))), plane D + d the right eye's
+    C(L(clamp(x - (d - zd))), R(x)).  u8 rint(127 * cost) with `quant`
+    (the values of `cost_pair` + `shear_right`), else float32.  Kernel
+    B16 (csrc/cost_dm.cu)."""
+    if num_disp > MAX_REACH or zero_disp > MAX_REACH:
+        raise ValueError("ci_adcensus_kern supports num_disp/zero_disp "
+                         "<= 128")
+    if kernels.on_cpu(img_l):
+        return ci_adcensus_stacked_plain(img_l, img_r, cen_l, cen_r,
+                                         ad_coeff, census_coeff, num_disp,
+                                         zero_disp, quant)
+    dev = img_l.device
+    h, w = img_l.shape[:2]
+    for name, t, dt in (("img_l", img_l, torch.uint8),
+                        ("img_r", img_r, torch.uint8),
+                        ("cen_l", cen_l, torch.int32),
+                        ("cen_r", cen_r, torch.int32)):
+        kernels.require(t, name, dt, 3, dev, contiguous=False)
+    if (img_r.shape != img_l.shape or img_l.shape[2] != 3
+            or cen_l.shape != (h, w, 2) or cen_r.shape != (h, w, 2)):
+        raise ValueError("cost_dm: inconsistent input shapes")
+    if not 0 <= zero_disp <= num_disp:
+        raise ValueError("cost_dm: need 0 <= zero_disp <= num_disp")
+    lpk, rpk = pack_bgr(img_l), pack_bgr(img_r)
+    cl, cr = cen_l.contiguous(), cen_r.contiguous()
+    if quant:
+        tabs = (device_cost_table(ad_coeff, census_coeff, dev).data_ptr(),
+                None, None)
+    else:
+        a, c = device_cost_terms(ad_coeff, census_coeff, dev)
+        tabs = (None, a.data_ptr(), c.data_ptr())
+    out = torch.empty((2 * num_disp, h, w), device=dev,
+                      dtype=torch.uint8 if quant else F32)
+    rc = kernels.lib("cost_dm").stm_cost_dm(
+        lpk.data_ptr(), rpk.data_ptr(), cl.data_ptr(), cr.data_ptr(), *tabs,
+        out.data_ptr(), h, w, num_disp, zero_disp, int(quant),
+        kernels.stream_of(out))
+    kernels.check_launch(rc, "cost_dm")
+    cost_dm.launches += 1
+    return out
+
+
+def ci_adcensus_kern_stacked(img_l: torch.Tensor, img_r: torch.Tensor,
+                             ad_coeff: float, census_coeff: float,
+                             num_disp: int, zero_disp: int,
+                             quant: bool = True) -> torch.Tensor:
+    """(H, W, 3) u8 pair -> ONE (2D, H, W) disparity-major cost volume
+    (left eye on planes [0, D), right on [D, 2D)), the layout
+    `band_aggregate_q_dm` reads; u8 with `quant`, else float32."""
+    return cost_dm(img_l, img_r, census_transform_9x7(mux_average(img_l)),
+                   census_transform_9x7(mux_average(img_r)), ad_coeff,
+                   census_coeff, num_disp, zero_disp, quant)
+
+
+def ci_adcensus_kern(img_l: torch.Tensor, img_r: torch.Tensor,
+                     ad_coeff: float, census_coeff: float, num_disp: int,
+                     zero_disp: int, quant: bool = False,
+                     shift_extract: bool = False):
+    """(H, W, 3) u8 pair -> ((H, W, D), (H, W, D)) cost volumes: float32,
+    or u8 rint(127 * cost) with `quant`.  The kernel's disparity-major
+    planes are relaid to D-innermost by one torch copy per eye (the JAX
+    package's `moveaxis`).  `shift_extract` (the right eye as per-plane
+    shifts of the left one) is kernel B17, not ported yet."""
+    if shift_extract:
+        raise NotImplementedError(
+            "ci_adcensus_kern(shift_extract=True) needs kernel B17 "
+            "(costkern._shear_kernel), not ported yet (ROADMAP queue B)")
+    vol = ci_adcensus_kern_stacked(img_l, img_r, ad_coeff, census_coeff,
+                                   num_disp, zero_disp, quant)
+    return (vol[:num_disp].permute(1, 2, 0).contiguous(),
+            vol[num_disp:].permute(1, 2, 0).contiguous())

@@ -17,7 +17,9 @@ fixed `iterations` rounds; `dr_irv_early_stop`, the pipeline's, stops at
 the first round that changes no label (every later round would be the
 identity) and hands each round the dilated frontier of the previous
 round's changes as its `need`, which is exact: a vote can only change
-when a pixel inside its cross region did.
+when a pixel inside its cross region did.  With a row chunk each round
+streams over chunks of rows with a halo of `usd` rows
+(`irv_round_chunked`), bit-equal to the whole-frame round.
 
 The wrappers take the plain version only for CPU tensors; on a CUDA
 tensor they launch the kernel or raise.  Arms are clamped to [0, usd] by
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from stereo_to_multiview_tpu_torch import kernels
+from stereo_to_multiview_tpu_torch.ops.chunks import chunk_bounds
 from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
 from stereo_to_multiview_tpu_torch.ops.mux import f32
 
@@ -210,23 +213,57 @@ def dilate_frontier(changed: torch.Tensor, usd: int,
     return full[:h, :w] > 0
 
 
+def irv_round_chunked(disp, outliers, arms, thresh_s: int, thresh_h: float,
+                      num_disp: int, zero_disp: int, usd: int, need=None,
+                      row_chunk: int = 0):
+    """`irv_round` over chunks of `row_chunk` rows (0: the whole frame at
+    once), which bounds the span volume.  A vote reads the rows within
+    `usd` of its own, so each chunk runs with a halo of `usd` rows of the
+    round's input state and keeps its own rows: bit-equal to the
+    whole-frame round."""
+    h = disp.shape[0]
+    ext, bounds = chunk_bounds(h, row_chunk or h, usd)
+    if len(bounds) == 1:
+        return irv_round(disp, outliers, arms, thresh_s, thresh_h, num_disp,
+                         zero_disp, usd, need)
+    parts = []
+    for start, lo in bounds:
+        sl = slice(start, start + ext)
+        d, o = irv_round(disp[sl], outliers[sl], arms[:, sl], thresh_s,
+                         thresh_h, num_disp, zero_disp, usd,
+                         None if need is None else need[sl])
+        n_valid = min(row_chunk, h - (start + lo))
+        parts.append((d[lo:lo + n_valid], o[lo:lo + n_valid]))
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
 def dr_irv_early_stop(disp: torch.Tensor, outliers: torch.Tensor,
                       arms: torch.Tensor, thresh_s: int, thresh_h: float,
                       num_disp: int, zero_disp: int, usd: int,
-                      iterations: int, rounds_run: list | None = None):
+                      iterations: int, rounds_run: list | None = None,
+                      row_chunk: int = 0):
     """`dr_irv` with the band engine's round loop: stop after the first
     round that changes no label (a vote only turns an outlier reliable,
     so every later round is the identity), and give each round after the
     first the dilated frontier of the previous round's changes as its
     `need`.  Bit-equal to `dr_irv`.  Reading whether a label changed
     costs one device-to-host copy per round.  `rounds_run`, if given,
-    gets the number of rounds appended."""
+    gets the number of rounds appended.  With `row_chunk` every round
+    streams over row chunks (`irv_round_chunked`); the frontier and the
+    stop stay frame-wide."""
     need = None
     done = 0
     while done < iterations:
         before = outliers
-        disp, outliers = irv_round(disp, outliers, arms, thresh_s, thresh_h,
-                                   num_disp, zero_disp, usd, need)
+        if row_chunk:
+            disp, outliers = irv_round_chunked(
+                disp, outliers, arms, thresh_s, thresh_h, num_disp,
+                zero_disp, usd, need, row_chunk)
+        else:
+            disp, outliers = irv_round(disp, outliers, arms, thresh_s,
+                                       thresh_h, num_disp, zero_disp, usd,
+                                       need)
         done += 1
         if done == iterations:
             break

@@ -110,8 +110,8 @@ def test_process_frame_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(engine="xla"), dict(band_digits=2), dict(band_qscale=255.0),
-    dict(band_lossy_wta=True), dict(irv_row_chunk=4)])
+    dict(engine="xla"), dict(band_qscale=255.0),
+    dict(band_lossy_wta=True)])
 def test_unported_knobs_raise(knob):
     """A knob the port lacks raises, naming its ROADMAP item."""
     base = dict(num_rows=8, num_cols=16, num_rows_out=8, num_cols_out=16,

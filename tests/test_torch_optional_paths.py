@@ -156,8 +156,8 @@ def test_row_chunks_stay_exact_with_hslo(sbs):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(engine="xla"), dict(band_digits=2), dict(band_qscale=255.0),
-    dict(band_lossy_wta=True), dict(irv_row_chunk=8)])
+    dict(engine="xla"), dict(band_qscale=255.0),
+    dict(band_lossy_wta=True)])
 def test_check_ported_still_refuses(knob):
     cfg = tconfig.PipelineConfig(**{**dict(usd=2, lsd=1), **knob})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -167,7 +167,8 @@ def test_check_ported_still_refuses(knob):
 @pytest.mark.parametrize("knob", [
     dict(use_hslo=True), dict(use_median=True), dict(bleed_radius=3),
     dict(num_rows_disp=4, num_cols_disp=8), dict(num_cols_out=32),
-    dict(num_views=2)])
+    dict(num_views=2), dict(band_digits=1), dict(band_digits=2),
+    dict(irv_row_chunk=8), dict(band_row_chunk=8, irv_row_chunk=16)])
 def test_check_ported_accepts_the_optional_stages(knob):
     tpipe.check_ported(tconfig.PipelineConfig(**knob))
 
