@@ -14,7 +14,14 @@
    the same function.  Also holds the early-stop IRV against the fixed
    rounds and the row-chunked IRV against the whole-frame one, bit for
    bit, and the lane-major window passes at the band_digits 2 and 1
-   shifts.
+   shifts.  The entry points beside process_frame run on the 1080p
+   frame's own stages, each as a path with its launch counts checked:
+   `dr_irv_band_lr` (B15, 5 fixed rounds) equal to the fixed-round
+   `dr_irv` (B8/B9); `dibr_warp_views_kern` (B19) equal to
+   `dibr_warp_pair_kern` (B20) view by view and to B14; and
+   `ci_adcensus_kern(shift_extract=True)` (B16's one-eye modes, B17)
+   equal to shift_extract=False, u8 and float32.  The forward warp
+   (`dibr_dfm`, plain torch) is timed at 1080p and held card vs CPU.
 3. Drives the paths on SBS frames built from tests/data/bud_{2,3}.bmp:
    `process_frame` at HD1080_D128 (the main path: fused synthesis), at
    HD1080_D128_HSLO_4K (scanline optimisation, median, unfused synthesis,
@@ -158,15 +165,61 @@ for _suffix, _path in ((AT_CHUNK, DM_CHUNKED), (AT_ODD, DM), (AT_4K, DM_4K)):
         for name, (wrapper, source, replaces, path) in DM_KERNELS.items()
         if name in ("B16 cost_dm (stacked u8)", "B18a pass1_dm",
                     "B18b vv_dm (passes 2+3)", "B18c pass4_wta_dm")})
+# the entry points the JAX package's tests and scripts drive beside
+# process_frame: B15 under dr_irv_band_lr, B16's one-eye modes and B17
+# under ci_adcensus_kern(shift_extract=True), B19/B20 under the row-major
+# bounded warps
+IRV_BAND = "dr_irv_band_lr HD1080_D128"
+SHIFT_X = "ci_adcensus_kern shift_extract HD1080_D128"
+SHIFT_X_F32 = SHIFT_X + " float32"
+WARP_RM = "dibr_warp_views_kern HD1080_D128"
+# band_span_sum_h/_v called directly on a float volume of one eye, as the
+# JAX package's tests and scripts call them: one path for each nsplit
+SPAN_FLOAT = {n: f"band_span_sum float nsplit={n} HD1080_D128"
+              for n in (3, 2)}
+SPAN_KERNELS = {
+    f"B15 band_span_sum_{a} ({what})": (
+        f"band_span_sum_{a}", _SRC + "span.cu", _TPU + "band.py:150", path)
+    for what, path in (("stacked one-hot, nsplit=1, inclusive", IRV_BAND),
+                       ("float, nsplit=3", SPAN_FLOAT[3]),
+                       ("float, nsplit=2", SPAN_FLOAT[2])) for a in "hv"}
+SHIFT_KERNELS = {
+    "B16 cost_dm (left eye u8)": ("cost_dm", _SRC + "cost_dm.cu",
+                                  _TPU + "costkern.py:57", SHIFT_X),
+    "B16 cost_dm (right-eye strip u8)": ("cost_dm", _SRC + "cost_dm.cu",
+                                         _TPU + "costkern.py:57", SHIFT_X),
+    "B16 cost_dm (left eye float32)": ("cost_dm", _SRC + "cost_dm.cu",
+                                       _TPU + "costkern.py:57", SHIFT_X_F32),
+    "B17 shear_right_dm (u8)": ("shear_right_dm", _SRC + "shear_dm.cu",
+                                _TPU + "costkern.py:147", SHIFT_X),
+    "B17 shear_right_dm (float32)": ("shear_right_dm", _SRC + "shear_dm.cu",
+                                     _TPU + "costkern.py:147", SHIFT_X_F32),
+}
+KERNELS.update(SPAN_KERNELS)
+KERNELS.update(SHIFT_KERNELS)
+for _name in ("B15 band_span_sum_h (float, nsplit=3)",
+              "B15 band_span_sum_v (float, nsplit=3)", *SHIFT_KERNELS):
+    KERNELS[_name + AT_ODD] = KERNELS[_name]
+KERNELS.update({
+    "B19 dibr_warp_views_kern": ("dibr_warp_views_kern", _SRC + "warp.cu",
+                                 _TPU + "warpkern.py:94", WARP_RM),
+    "B19 dibr_warp_views_kern (disparities outside [-64, 64])": (
+        "dibr_warp_views_kern", _SRC + "warp.cu", _TPU + "warpkern.py:94",
+        WARP_RM),
+    "B20 dibr_warp_pair_kern": ("dibr_warp_pair_kern", _SRC + "warp.cu",
+                                _TPU + "warpkern.py:66", WARP_RM),
+})
 # the wrappers each path must not launch (its route replaces them); every
 # other wrapper must launch at least once on it
 DM_WRAPPERS = {"cost_dm", "pass1_dm", "vv_dm", "pass4_wta_dm"}
 LANE_CORE_WRAPPERS = {"cost_pair", "shear_right", "h_pass_sum", "vv_pass",
                       "h_pass_wta"}
+SIDE_WRAPPERS = {"band_span_sum_h", "band_span_sum_v", "shear_right_dm",
+                 "dibr_warp_views_kern", "dibr_warp_pair_kern"}
 NOT_ON_PATH = {
-    MAIN: {"dc_hslo_wta", "warp_views"} | DM_WRAPPERS,
-    HSLO4K: {"h_pass_wta", "warp_merge_views"} | DM_WRAPPERS,
-    LOWRES: {"dc_hslo_wta", "warp_views"} | DM_WRAPPERS,
+    MAIN: {"dc_hslo_wta", "warp_views"} | DM_WRAPPERS | SIDE_WRAPPERS,
+    HSLO4K: {"h_pass_wta", "warp_merge_views"} | DM_WRAPPERS | SIDE_WRAPPERS,
+    LOWRES: {"dc_hslo_wta", "warp_views"} | DM_WRAPPERS | SIDE_WRAPPERS,
 }
 for _path in (DIGITS2, DIGITS1, UHD4K):
     NOT_ON_PATH[_path] = NOT_ON_PATH[MAIN]
@@ -260,6 +313,7 @@ class KernelChecks:
         self.results = {}
         self.irv = {}
         self.suffix = ""    # appended to every recorded name
+        self.raw = None     # (disp_l, disp_r, labels) of check_disp_kernels
 
     def record(self, name, got, ref, kern, plain, nbytes, ops, library=None,
                plain_once=False):
@@ -608,6 +662,7 @@ def check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg):
     dl, dr = band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg)
 
     labels = dcc.dr_dcc(dl, dr, cfg.dcc_thresh)
+    chk.raw = (dl, dr, labels)
     chk.record("B7 dr_dcc (labels)", labels,
                dcc.dr_dcc_plain(dl, dr, cfg.dcc_thresh),
                lambda: dcc.dr_dcc(dl, dr, cfg.dcc_thresh),
@@ -813,24 +868,15 @@ def run_dm_core(name, img_l, img_r, arms_l, arms_r, cfg):
     result against the lane-major core at the same config (band_digits=2),
     every pixel of both eyes; then both cores timed side by side."""
     import torch
-    from stereo_to_multiview_tpu_torch import kernels
     from stereo_to_multiview_tpu_torch.ops import band
 
     args = (img_l, img_r, arms_l, arms_r, cfg)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    reset_counts()
     dm = band.band_stereo_core_dm(*args)
-    torch.cuda.synchronize()
-    launches = {n: fn.launches for n, fn in kernels.wrappers().items()}
-    print(f"path {name}: launches "
-          f"{ {n: c for n, c in launches.items() if c} }", flush=True)
+    launches = read_counts(name, {}, zero=LANE_CORE_WRAPPERS)
     missing = [n for n in DM_WRAPPERS if launches[n] <= 0]
     if missing:
         raise SmokeFailure(f"path {name}: kernels not launched: {missing}")
-    stray = [n for n in LANE_CORE_WRAPPERS if launches[n] != 0]
-    if stray:
-        raise SmokeFailure(f"path {name}: lane-major kernels launched: "
-                           f"{stray}")
     lane = band.band_stereo_core_chunked(*args)
     for eye, a, b in (("left", dm[0], lane[0]), ("right", dm[1], lane[1])):
         if a.shape != b.shape or not torch.equal(a, b):
@@ -894,6 +940,390 @@ def check_small_dm_core():
             raise SmokeFailure("small frame dm core: constant disparities")
     print("small frame dm core 96x160 D=32 usd=34, band_row_chunk 0 and 32: "
           "equal card vs CPU and dm vs lane-major", flush=True)
+
+
+def reset_counts():
+    import torch
+    from stereo_to_multiview_tpu_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+
+
+def read_counts(name, want, zero=()):
+    """The launch counts since `reset_counts`; each wrapper in `want` must
+    have launched exactly that often, each in `zero` never."""
+    import torch
+    from stereo_to_multiview_tpu_torch import kernels
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in kernels.wrappers().items()}
+    print(f"path {name}: launches "
+          f"{ {n: c for n, c in launches.items() if c} }", flush=True)
+    for n, c in want.items():
+        if launches[n] != c:
+            raise SmokeFailure(f"path {name}: {n} launched {launches[n]} "
+                               f"times, expected {c}")
+    stray = [n for n in zero if launches[n] != 0]
+    if stray:
+        raise SmokeFailure(f"path {name}: kernels launched that the path "
+                           f"replaces: {stray}")
+    return launches
+
+
+def window_adds(arm_neg, arm_pos, axis: int, inclusive: bool, max_arm: int):
+    """Elements a span sum adds for each d: the clamped window lengths of
+    this run's arms, summed over the plane."""
+    import torch
+    n = arm_neg.shape[axis]
+    pos = torch.arange(n, device=arm_neg.device)
+    pos = pos[:, None] if axis == 0 else pos[None, :]
+    lo = (pos - arm_neg.clamp(0, max_arm)).clamp(min=0)
+    hi = (pos + arm_pos.clamp(0, max_arm) + int(inclusive)).clamp(max=n)
+    return float((hi - lo).clamp(min=0).sum())
+
+
+def record_span(chk, name, vol, arm_neg, arm_pos, axis, inclusive, nsplit,
+                max_arm):
+    """One B15 entry: the kernel against its plain version on `vol`."""
+    from stereo_to_multiview_tpu_torch.ops import band
+    fn = band.band_span_sum_v if axis == 0 else band.band_span_sum_h
+    args = (vol, arm_neg, arm_pos, inclusive, nsplit, max_arm)
+    plain = (vol, arm_neg, arm_pos, axis, inclusive, nsplit, max_arm)
+    got = fn(*args)
+    # bytes: the volume in and out, two arm planes; operations: one add a
+    # window element and d, and the bf16 split of each element
+    adds = vol.shape[2] * window_adds(arm_neg, arm_pos, axis, inclusive,
+                                      max_arm)
+    chk.record(name, got, band.span_sum_float_plain(*plain),
+               lambda: fn(*args), lambda: band.span_sum_float_plain(*plain),
+               nbytes=2 * vol.numel() * 4 + 2 * arm_neg.numel() * 4,
+               ops=adds + (4 * nsplit - 2) * vol.numel())
+    return got
+
+
+def check_irv_band(chk, dl, dr, labels, arms_l, arms_r, cfg):
+    """B15 on the stacked one-hot of the frame's raw disparities and
+    labels (the volumes of `dr_irv_band_lr`'s first round) and on float
+    volumes of one eye, the latter also as the paths `SPAN_FLOAT`: one
+    call each of `band_span_sum_h` and `_v`; then `dr_irv_band_lr` as a
+    path: 5 fixed rounds, which must equal the fixed-round `dr_irv`
+    (B8/B9) in every disparity and label of both eyes.  Returns the
+    paths' results by name."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band, irv
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+
+    nd, zd, usd = cfg.num_disp, cfg.zero_disp, cfg.usd
+    arms = torch.cat([arms_l, arms_r], dim=1)
+    onehot = band.irv_onehot(torch.cat([dl, dr]),
+                             torch.cat([labels[0], labels[1]]), nd, zd)
+    lr = (arms[LEFT].contiguous(), arms[RIGHT].contiguous())
+    ud = (arms[UP].clamp(max=usd).contiguous(), arms[DOWN].contiguous())
+    tag = "stacked one-hot, nsplit=1, inclusive"
+    row = record_span(chk, f"B15 band_span_sum_h ({tag})", onehot, *lr, 1,
+                      True, 1, usd)
+    del onehot
+    record_span(chk, f"B15 band_span_sum_v ({tag})", row, *ud, 0, True, 1,
+                usd)
+    del row
+    torch.cuda.empty_cache()
+
+    # float volumes of one eye in [0, 1), half-open windows
+    gen = torch.Generator(device=dl.device).manual_seed(15)
+    vol = torch.rand((*dl.shape, nd), generator=gen, device=dl.device)
+    lr_l = (arms_l[LEFT].contiguous(), arms_l[RIGHT].contiguous())
+    ud_l = (arms_l[UP].contiguous(), arms_l[DOWN].contiguous())
+    paths = {}
+    for nsplit in (3, 2):
+        tag = f"float, nsplit={nsplit}"
+        record_span(chk, f"B15 band_span_sum_h ({tag})", vol, *lr_l, 1,
+                    False, nsplit, usd)
+        record_span(chk, f"B15 band_span_sum_v ({tag})", vol, *ud_l, 0,
+                    False, nsplit, usd)
+
+        def spans():
+            return (band.band_span_sum_h(vol, *lr_l, False, nsplit, usd),
+                    band.band_span_sum_v(vol, *ud_l, False, nsplit, usd))
+        reset_counts()
+        spans()
+        launches = read_counts(SPAN_FLOAT[nsplit], {"band_span_sum_h": 1,
+                                                    "band_span_sum_v": 1})
+        paths[SPAN_FLOAT[nsplit]] = dict(launches=launches,
+                                         span_ms=time_ms(spans, 3))
+    # rows of 1001 * 128 floats: no block starts on a 128-column boundary
+    chk.suffix = AT_ODD
+    odd = vol[:200, :1001].contiguous()
+    crop = [a[:200, :1001].contiguous() for a in (*lr_l, *ud_l)]
+    record_span(chk, "B15 band_span_sum_h (float, nsplit=3)", odd, *crop[:2],
+                1, False, 3, usd)
+    record_span(chk, "B15 band_span_sum_v (float, nsplit=3)", odd, *crop[2:],
+                0, False, 3, usd)
+    chk.suffix = ""
+    del vol, odd
+    torch.cuda.empty_cache()
+
+    rounds = cfg.irv_iterations
+    args = (dl, labels[0], dr, labels[1], arms_l, arms_r, cfg.irv_thresh_s,
+            cfg.irv_thresh_h, nd, zd, usd, rounds)
+    reset_counts()
+    got = band.dr_irv_band_lr(*args)
+    launches = read_counts(
+        IRV_BAND, {"band_span_sum_h": rounds, "band_span_sum_v": rounds},
+        zero=("irv_rowspan", "irv_vote"))
+    fixed_args = (cfg.irv_thresh_s, cfg.irv_thresh_h, nd, zd, usd, rounds)
+    changed = 0
+    for eye, (d, o, a), (gd, go) in (
+            ("left", (dl, labels[0], arms_l), got[0]),
+            ("right", (dr, labels[1], arms_r), got[1])):
+        fd, fo = irv.dr_irv(d, o, a, *fixed_args)
+        if not (torch.equal(gd, fd) and torch.equal(go, fo)):
+            raise SmokeFailure(
+                f"path {IRV_BAND}: {eye} eye differs from the fixed-round "
+                f"dr_irv at {int((gd != fd).sum())} disparities and "
+                f"{int((go != fo).sum())} labels")
+        changed += int((go != o).sum())
+    if changed == 0:
+        raise SmokeFailure(f"path {IRV_BAND}: the rounds changed no label")
+    res = dict(launches=launches, rounds=rounds, labels_changed=changed)
+    for label, fn in (
+            ("band_ms", lambda: band.dr_irv_band_lr(*args)),
+            ("dr_irv_ms", lambda: (irv.dr_irv(dl, labels[0], arms_l,
+                                              *fixed_args),
+                                   irv.dr_irv(dr, labels[1], arms_r,
+                                              *fixed_args)))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        res[label] = time_ms(fn, 3)
+        res[label.replace("_ms", "_peak_gb")] = (
+            torch.cuda.max_memory_allocated() - before) / 1e9
+    print(f"path {IRV_BAND}: {rounds} fixed rounds equal to dr_irv (B8/B9) "
+          f"in every disparity and label of both eyes ({changed} labels "
+          f"changed); {res['band_ms']:.3f} ms against {res['dr_irv_ms']:.3f} "
+          f"ms for dr_irv on both eyes (CUDA events, mean of 3); peak memory "
+          f"above the inputs {res['band_peak_gb']:.2f} GB against "
+          f"{res['dr_irv_peak_gb']:.2f} GB", flush=True)
+    paths[IRV_BAND] = res
+    return paths
+
+
+def check_shift_extract(chk, img_l, img_r, cfg):
+    """B16's left-eye and right-strip modes and B17 (u8 and float32) on a
+    frame's pair."""
+    import torch
+    import torch.nn.functional as F
+    from stereo_to_multiview_tpu_torch.ops import costkern
+    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
+    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+
+    h, w = img_l.shape[:2]
+    nd, zd = cfg.num_disp, cfg.zero_disp
+    hw, vol = h * w, h * w * nd
+    m = costkern.pair_margin(nd, zd)
+    cargs = (img_l, img_r, census_transform_9x7(mux_average(img_l)),
+             census_transform_9x7(mux_average(img_r)), cfg.ad_coeff,
+             cfg.census_coeff, nd, zd)
+    in_bytes = 2 * hw * 3 + 2 * hw * 8
+    x = torch.arange(w, device=img_l.device)[None, None, :]
+    d = torch.arange(nd, device=img_l.device)[:, None, None]
+    idx = (x + m - (d - zd)).expand(nd, h, w)
+    for quant, label, size in ((True, "u8", 1), (False, "float32", 4)):
+        kw = dict(quant=quant, eyes="l")
+        left = costkern.cost_dm(*cargs, **kw)
+        chk.record(f"B16 cost_dm (left eye {label})", left,
+                   costkern.ci_adcensus_stacked_plain(*cargs, **kw),
+                   lambda: costkern.cost_dm(*cargs, **kw),
+                   lambda: costkern.ci_adcensus_stacked_plain(*cargs, **kw),
+                   nbytes=in_bytes + vol * size, ops=5 * vol)
+        if quant:
+            x0, x1 = w - m, w
+            kw = dict(quant=True, eyes="r", cols=(x0, x1))
+            strip = costkern.cost_dm(*cargs, **kw)
+            # the strip reads R's pixels and census over its own columns
+            # and L's over the columns x - (d - zd) reaches, d in [0, D)
+            l_cols = min(w, x1 + zd) - max(0, x0 - (nd - 1 - zd))
+            chk.record("B16 cost_dm (right-eye strip u8)", strip,
+                       costkern.ci_adcensus_stacked_plain(*cargs, **kw),
+                       lambda: costkern.cost_dm(*cargs, **kw),
+                       lambda: costkern.ci_adcensus_stacked_plain(*cargs,
+                                                                  **kw),
+                       nbytes=h * (x1 - x0 + l_cols) * (3 + 8)
+                       + strip.numel(), ops=5 * strip.numel())
+            del strip
+        sheared = costkern.shear_right_dm(left, zd)
+        # the library call: one gather from a zero-padded copy (made
+        # beforehand) computes the same function
+        padded = F.pad(left, (m, m))
+        if not torch.equal(torch.gather(padded, 2, idx), sheared):
+            raise SmokeFailure("B17: the library gather disagrees")
+        chk.record(f"B17 shear_right_dm ({label})", sheared,
+                   costkern.shear_right_dm_plain(left, zd),
+                   lambda: costkern.shear_right_dm(left, zd),
+                   lambda: costkern.shear_right_dm_plain(left, zd),
+                   nbytes=2 * vol * size, ops=0,
+                   library=lambda: torch.gather(padded, 2, idx))
+        del left, sheared, padded
+        torch.cuda.empty_cache()
+
+
+def run_shift_extract(img_l, img_r, cfg):
+    """`ci_adcensus_kern(shift_extract=True)` as a path, u8 and float32:
+    B16 three times (the left eye, two border strips) and B17 once, equal
+    to shift_extract=False in every element of both eyes; both timed."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import costkern
+
+    res = {}
+    for quant, name in ((True, SHIFT_X), (False, SHIFT_X_F32)):
+        args = (img_l, img_r, cfg.ad_coeff, cfg.census_coeff, cfg.num_disp,
+                cfg.zero_disp, quant)
+        reset_counts()
+        got = costkern.ci_adcensus_kern(*args, shift_extract=True)
+        launches = read_counts(name, {"cost_dm": 3, "shear_right_dm": 1})
+        ref = costkern.ci_adcensus_kern(*args)
+        for eye, a, b in (("left", got[0], ref[0]), ("right", got[1],
+                                                     ref[1])):
+            if not torch.equal(a, b):
+                raise SmokeFailure(f"path {name}: {eye} eye differs from "
+                                   f"shift_extract=False at "
+                                   f"{int((a != b).sum())} elements")
+        del got, ref
+        r = res[name] = dict(launches=launches)
+        for label, se in (("shift_extract_ms", True), ("direct_ms", False)):
+            torch.cuda.empty_cache()
+            r[label] = time_ms(lambda: costkern.ci_adcensus_kern(
+                *args, shift_extract=se), 3)
+        print(f"path {name}: equal to shift_extract=False in both eyes; "
+              f"{r['shift_extract_ms']:.3f} ms against {r['direct_ms']:.3f} "
+              f"ms direct (whole entry: census, kernels, one copy an eye; "
+              f"CUDA events, mean of 3)", flush=True)
+    return res
+
+
+def check_warp_rowmajor(chk, img_l, img_r, bl, br, cfg):
+    """B19 and B20 on a frame's final disparities and the views of the
+    configuration, B19 once more on disparities pushed outside the range;
+    then the row-major warps as a path: B19 once and B20 per view, equal
+    view by view and equal to the unfused warps (B14) on these in-range
+    disparities.  Returns the path's results."""
+    import torch
+    from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
+    from stereo_to_multiview_tpu_torch.ops import dibr, warpkern
+
+    hw = img_l.shape[0] * img_l.shape[1]
+    nd, zd = cfg.num_disp, cfg.zero_disp
+    shifts = _synth_shifts(cfg.num_views)
+    nv = len(shifts)
+    in_bytes = 2 * hw * 3 + 2 * hw * 4
+    outside = "B19 dibr_warp_views_kern (disparities outside [-64, 64])"
+    for name, dl, dr in (("B19 dibr_warp_views_kern", bl, br),
+                         (outside, bl * 3, br * 3)):
+        args = (img_l, img_r, dl, dr, shifts, nd, zd)
+        got = warpkern.dibr_warp_views_kern(*args)
+        chk.record(name, got, warpkern.warp_views_bounded_plain(*args),
+                   lambda: warpkern.dibr_warp_views_kern(*args),
+                   lambda: warpkern.warp_views_bounded_plain(*args),
+                   nbytes=in_bytes + 2 * got[0].numel() * 4,
+                   ops=2 * got[0].numel() * 8)
+        zeros = float((got[0] == 0).float().mean())
+        print(f"  {name}: {zeros:.4f} of the left-image warps' subpixels "
+              f"are 0", flush=True)
+        if name == outside:
+            # the bounds must act: the unbounded B14 reads a true sample
+            # where B19 gives 0, and agrees with B19 everywhere else
+            b14 = dibr.warp_views(*args[:5])
+            for i, eye in enumerate(("left", "right")):
+                cut = (got[i] == 0) & (b14[i] != 0)
+                share = float(cut.float().mean())
+                print(f"  {name}: {share:.4f} of the {eye}-image warps' "
+                      f"subpixels are 0 by the bounds alone", flush=True)
+                if share < 0.01:
+                    raise SmokeFailure(f"{name}: the bounds zero only "
+                                       f"{share:.4f} of the {eye}-image "
+                                       f"warps' subpixels")
+                if not torch.equal(got[i][~cut], b14[i][~cut]):
+                    raise SmokeFailure(f"{name}: B19 differs from B14 "
+                                       f"inside the bounds")
+            del b14, cut
+        del got
+    s = shifts[nv // 2]
+    pargs = (img_l, img_r, bl, br, s, nd, zd)
+    pair = warpkern.dibr_warp_pair_kern(*pargs)
+    va, vb = warpkern.warp_views_bounded_plain(img_l, img_r, bl, br, (s,),
+                                               nd, zd)
+    chk.record("B20 dibr_warp_pair_kern", pair, (va[0], vb[0]),
+               lambda: warpkern.dibr_warp_pair_kern(*pargs),
+               lambda: warpkern.warp_views_bounded_plain(
+                   img_l, img_r, bl, br, (s,), nd, zd),
+               nbytes=in_bytes + 2 * pair[0].numel() * 4,
+               ops=2 * pair[0].numel() * 8)
+    del pair, va, vb
+
+    args = (img_l, img_r, bl, br, shifts, nd, zd)
+    reset_counts()
+    views = warpkern.dibr_warp_views_kern(*args)
+    pairs = [warpkern.dibr_warp_pair_kern(img_l, img_r, bl, br, s, nd, zd)
+             for s in shifts]
+    launches = read_counts(WARP_RM, {"dibr_warp_views_kern": 1,
+                                     "dibr_warp_pair_kern": nv},
+                           zero=("warp_views",))
+    for v, (a, b) in enumerate(pairs):
+        if not (torch.equal(views[0][v], a) and torch.equal(views[1][v], b)):
+            raise SmokeFailure(f"path {WARP_RM}: B19 and B20 differ at view "
+                               f"{v}")
+    b14 = dibr.warp_views(img_l, img_r, bl, br, shifts)
+    for i in range(2):
+        if not torch.equal(views[i], b14[i]):
+            raise SmokeFailure(
+                f"path {WARP_RM}: B19 differs from B14 on in-range "
+                f"disparities at {int((views[i] != b14[i]).sum())} subpixels")
+    del views, pairs, b14
+    res = dict(launches=launches,
+               views_ms=time_ms(lambda: warpkern.dibr_warp_views_kern(*args),
+                                10),
+               pairs_ms=time_ms(lambda: [warpkern.dibr_warp_pair_kern(
+                   img_l, img_r, bl, br, s, nd, zd) for s in shifts], 10))
+    print(f"path {WARP_RM}: B19 equal to B20 view by view and to B14 on the "
+          f"frame's disparities; all {nv} views {res['views_ms']:.4f} ms in "
+          f"one call, {res['pairs_ms']:.4f} ms as {nv} pair calls",
+          flush=True)
+    return res
+
+
+def check_forward_warp(img_l, img_r, bl, br, cfg):
+    """`dibr_dfm` (plain torch on every device) at 1080p on the card,
+    timed; on a 96x160 crop the card's result must equal the CPU's, the
+    bounded forward warp's too."""
+    import torch
+    from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
+    from stereo_to_multiview_tpu_torch.ops import dibr
+
+    occl = dibr.dibr_occl(bl, br)
+    masks = [dibr.dibr_bleed_mask(o, cfg.bleed_radius) for o in occl]
+    s = _synth_shifts(cfg.num_views)[2]
+    args = (img_l, img_r, bl, br, *masks, s)
+    view = dibr.dibr_dfm(*args)
+    if view.shape != img_l.shape or view.dtype != torch.uint8:
+        raise SmokeFailure(f"dibr_dfm: {tuple(view.shape)} {view.dtype}")
+    if float(view.float().std()) < 10.0:
+        raise SmokeFailure("dibr_dfm: degenerate view")
+    ms = time_ms(lambda: dibr.dibr_dfm(*args), 3)
+    crop = [t[:96, :160].contiguous() for t in args[:6]]
+    for what, fn in (
+            ("dibr_dfm", lambda ts: dibr.dibr_dfm(*ts, s)),
+            ("dibr_forward_warp (bounded)", lambda ts: dibr.dibr_forward_warp(
+                ts[0], ts[2], s, cfg.num_disp, cfg.zero_disp))):
+        card = fn(crop).cpu()
+        host = fn([t.cpu() for t in crop])
+        if not torch.equal(card, host):
+            raise SmokeFailure(f"{what}: card and CPU differ on a 96x160 "
+                               f"crop at {int((card != host).sum())} "
+                               f"subpixels")
+    unhit = float((view == 0).all(dim=2).float().mean())
+    print(f"forward warp: dibr_dfm at {tuple(img_l.shape[:2])} "
+          f"{ms:.3f} ms (plain torch, CUDA events, mean of 3); {unhit:.4f} "
+          f"of the pixels are 0; card equal to CPU on a 96x160 crop",
+          flush=True)
+    return dict(dfm_ms=ms, unhit_share=unhit)
 
 
 def run_path(name, entry, sbs, cfg, n_frames: int):
@@ -1127,11 +1557,25 @@ def main() -> int:
         img_l, img_r = (t.contiguous() for t in
                         pipeline.demux_sbs(torch.from_numpy(sbs).to(dev)))
         chk = KernelChecks(reps=10)
+        paths = {}
         arms_l, arms_r = check_core_kernels(chk, img_l, img_r, cfg)
         torch.cuda.empty_cache()
         bl, br = check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
+        # the entry points beside process_frame, on this frame's stages:
+        # B15 and dr_irv_band_lr on its raw disparities and labels, the
+        # row-major warps (B19, B20) and the forward warp on its final
+        # disparities, B16's one-eye modes and B17 on its pair
+        raw, chk.raw = chk.raw, None
+        paths.update(check_irv_band(chk, *raw, arms_l, arms_r, cfg))
+        del raw
+        torch.cuda.empty_cache()
+        paths[WARP_RM] = check_warp_rowmajor(chk, img_l, img_r, bl, br, cfg)
+        report["forward_warp"] = check_forward_warp(img_l, img_r, bl, br, cfg)
         del bl, br
+        torch.cuda.empty_cache()
+        check_shift_extract(chk, img_l, img_r, cfg)
+        paths.update(run_shift_extract(img_l, img_r, cfg))
         torch.cuda.empty_cache()
         check_band_digits(chk, img_l, img_r, arms_l, cfg)
         torch.cuda.empty_cache()
@@ -1151,15 +1595,15 @@ def main() -> int:
         check_dm_kernels(chk, odd_l, odd_r,
                          cross.cross_arms(odd_l, *arm_args),
                          cross.cross_arms(odd_r, *arm_args), cfg, full=False)
+        check_shift_extract(chk, odd_l, odd_r, cfg)
         chk.suffix = ""
         del odd_l, odd_r
         torch.cuda.empty_cache()
         cfg2 = cfg.replace(band_digits=2)
-        paths = {
-            DM: run_dm_core(DM, img_l, img_r, arms_l, arms_r, cfg2),
-            DM_CHUNKED: run_dm_core(DM_CHUNKED, img_l, img_r, arms_l, arms_r,
-                                    cfg2.replace(band_row_chunk=540)),
-        }
+        paths[DM] = run_dm_core(DM, img_l, img_r, arms_l, arms_r, cfg2)
+        paths[DM_CHUNKED] = run_dm_core(DM_CHUNKED, img_l, img_r, arms_l,
+                                        arms_r,
+                                        cfg2.replace(band_row_chunk=540))
         del arms_l, arms_r
         torch.cuda.empty_cache()
 
@@ -1270,9 +1714,23 @@ def main() -> int:
         if "frame_ms" in p:
             print(f"frame: {p['frame_ms']:.2f} ms per frame at {name} on "
                   f"{card}")
-        else:
+        elif "dm_ms" in p:
             print(f"stereo core: {p['dm_ms']:.3f} ms disparity-major, "
                   f"{p['lane_major_ms']:.3f} ms lane-major at {name} on "
+                  f"{card}")
+        elif "band_ms" in p:
+            print(f"IRV: {p['band_ms']:.3f} ms dr_irv_band_lr, "
+                  f"{p['dr_irv_ms']:.3f} ms dr_irv, {p['rounds']} fixed "
+                  f"rounds both eyes, at {name} on {card}")
+        elif "span_ms" in p:
+            print(f"span sums: {p['span_ms']:.3f} ms band_span_sum_h + _v "
+                  f"at {name} on {card}")
+        elif "shift_extract_ms" in p:
+            print(f"cost: {p['shift_extract_ms']:.3f} ms shift_extract, "
+                  f"{p['direct_ms']:.3f} ms direct at {name} on {card}")
+        else:
+            print(f"warps: {p['views_ms']:.4f} ms all views, "
+                  f"{p['pairs_ms']:.4f} ms per-view pairs at {name} on "
                   f"{card}")
     print(f"gpu: {card}")
     print(json.dumps({"kernels": rows}))

@@ -1,5 +1,6 @@
 // B12: every intermediate view, warped from both eyes, masked and merged.
 // B14: the same two warps of every view, floored, without mask and merge.
+// B19/B20: B14's warps bounded to each view's static offset range.
 //
 // B12 replaces the TPU kernel stereo_to_multiview_tpu/ops/warpkern.py
 // `_warp_merge_views_xm_kernel` (reached via
@@ -183,5 +184,89 @@ STM_API int stm_warp_views(const void* img_l, const void* img_r,
   warp_views_kernel<<<grid, WARP_TX, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
       (const float*)disp_r, s, (float*)va, (float*)vb, H, W);
+  return (int)cudaGetLastError();
+}
+
+// B19 replaces the TPU kernel stereo_to_multiview_tpu/ops/warpkern.py
+// `_warp_views_kernel` (reached via `dibr_warp_views_kern`) and B20, the
+// same entry with one view, `_warp_kernel` (via `dibr_warp_pair_kern`).
+// Those kernels walk a static range of sample offsets [lo, hi] a view,
+// lo/hi = floor/ceil of the disparity range [-zd, D - zd] times the shift,
+// and select the one matching floor(c) - x: a pixel whose offset lies
+// outside its view's range selects nothing and comes out 0.  So here:
+// B14's value where lo <= floor(c) - x <= hi, else 0 (+0.0: the u8 sample
+// times 0).  Same bound and design as B14 (one thread per view and pixel,
+// the shared `make_lerp` / `lerp_u8`), the range test added.
+
+struct WarpBounds {
+  int lo_l[WARP_MAX_VIEWS], hi_l[WARP_MAX_VIEWS];
+  int lo_r[WARP_MAX_VIEWS], hi_r[WARP_MAX_VIEWS];
+};
+
+__device__ __forceinline__ bool in_range(const Lerp& l, int x, int lo,
+                                         int hi) {
+  const int k = l.i0 - x;
+  return k >= lo && k <= hi;
+}
+
+__global__ void __launch_bounds__(WARP_TX)
+warp_views_bounded_kernel(const uint8_t* __restrict__ img_l,
+                          const uint8_t* __restrict__ img_r,
+                          const float* __restrict__ disp_l,
+                          const float* __restrict__ disp_r,
+                          WarpShifts shifts, WarpBounds b,
+                          float* __restrict__ va, float* __restrict__ vb,
+                          int H, int W) {
+  const int x = blockIdx.x * WARP_TX + threadIdx.x;
+  const int y = blockIdx.y;
+  const int v = blockIdx.z;
+  if (x >= W) return;
+  const size_t i = (size_t)y * W + x;
+  const Lerp from_l = make_lerp(x, disp_r[i], shifts.l[v], 1.0f, W);
+  const Lerp from_r = make_lerp(x, disp_l[i], shifts.r[v], 1.0f, W);
+  const bool keep_l = in_range(from_l, x, b.lo_l[v], b.hi_l[v]);
+  const bool keep_r = in_range(from_r, x, b.lo_r[v], b.hi_r[v]);
+  const uint8_t* row_l = img_l + (size_t)y * W * 3;
+  const uint8_t* row_r = img_r + (size_t)y * W * 3;
+  const size_t o = (((size_t)v * H + y) * W + x) * 3;
+  // The samples are read whatever the range test says, as B14 reads them,
+  // and a 0/1 factor masks them: reading them only where kept measured
+  // 1.65x B14's time.
+  const float m_l = keep_l ? 1.0f : 0.0f;
+  const float m_r = keep_r ? 1.0f : 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    va[o + ch] = __fmul_rn((float)lerp_u8(row_l, from_l, ch), m_l);
+    vb[o + ch] = __fmul_rn((float)lerp_u8(row_r, from_r, ch), m_r);
+  }
+}
+
+// As stm_warp_views, plus bounds_l, bounds_r: host arrays of nv (lo, hi)
+// int pairs, the offset range of each view's two warps.
+STM_API int stm_warp_views_bounded(const void* img_l, const void* img_r,
+                                   const void* disp_l, const void* disp_r,
+                                   const float* shifts_l,
+                                   const float* shifts_r,
+                                   const int* bounds_l, const int* bounds_r,
+                                   void* va, void* vb, int H, int W, int nv,
+                                   void* stream) {
+  if (H <= 0 || W <= 0 || nv <= 0 || nv > WARP_MAX_VIEWS ||
+      shifts_l == nullptr || shifts_r == nullptr || bounds_l == nullptr ||
+      bounds_r == nullptr)
+    return (int)cudaErrorInvalidValue;
+  WarpShifts s;
+  WarpBounds b;
+  for (int v = 0; v < nv; ++v) {
+    s.l[v] = shifts_l[v];
+    s.r[v] = shifts_r[v];
+    b.lo_l[v] = bounds_l[2 * v];
+    b.hi_l[v] = bounds_l[2 * v + 1];
+    b.lo_r[v] = bounds_r[2 * v];
+    b.hi_r[v] = bounds_r[2 * v + 1];
+  }
+  dim3 grid((W + WARP_TX - 1) / WARP_TX, H, nv);
+  warp_views_bounded_kernel<<<grid, WARP_TX, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
+      (const float*)disp_r, s, b, (float*)va, (float*)vb, H, W);
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = ("arms", "cost", "shear", "hpass", "vpass", "hslo", "dcc", "irv",
-           "bilateral", "bleed", "warp", "cost_dm", "band_dm")
+           "bilateral", "bleed", "warp", "cost_dm", "band_dm", "span",
+           "shear_dm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -51,7 +52,10 @@ _SIGS = {
     "stm_bleed_mask": [_P, _P, _I, _I, _I, _F, _P],
     "stm_warp_merge": [_P] * 10 + [_I] * 3 + [_P],
     "stm_warp_views": [_P] * 8 + [_I] * 3 + [_P],
-    "stm_cost_dm": [_P] * 8 + [_I] * 5 + [_P],
+    "stm_warp_views_bounded": [_P] * 10 + [_I] * 3 + [_P],
+    "stm_cost_dm": [_P] * 8 + [_I] * 8 + [_P],
+    "stm_shear_dm": [_P, _P] + [_I] * 5 + [_P],
+    "stm_span_sum": [_P] * 4 + [_I] * 7 + [_P],
     "stm_pass1_dm": [_P] * 6 + [_I] * 4 + [_P],
     "stm_vv_dm": [_P] * 6 + [_I] * 6 + [_P],
     "stm_pass4_wta_dm": [_P] * 7 + [_I] * 5 + [_P],
@@ -140,6 +144,12 @@ def host_f32(values):
     constants into its kernel's arguments (it must outlive the call)."""
     values = [float(v) for v in values]
     return (ctypes.c_float * len(values))(*values)
+
+
+def host_i32(values):
+    """A host int32 array, as `host_f32`."""
+    values = [int(v) for v in values]
+    return (ctypes.c_int * len(values))(*values)
 
 
 def on_cpu(t: torch.Tensor) -> bool:

@@ -22,6 +22,7 @@ kernel and plain version alike (cross arms never exceed usd).
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 
@@ -32,7 +33,8 @@ from stereo_to_multiview_tpu_torch.ops.costkern import (
     cost_dm, cost_pair, device_cost_table, pair_margin, shear_right)
 from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
 from stereo_to_multiview_tpu_torch.ops.hslokern import dc_hslo_wta
-from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+from stereo_to_multiview_tpu_torch.ops.irv import vote_rule
+from stereo_to_multiview_tpu_torch.ops.mux import f32, mux_average
 
 QSCALE = 127.0
 _HALO = 64
@@ -51,12 +53,12 @@ def _qmax(qscale: float) -> int:
     return int(round(2.0 * qscale))
 
 
-def agg_rescale_shifts(max_arm: int, digits: int = 3,
+def agg_rescale_shifts(max_arm: int, digits: int = 2,
                        qscale: float = QSCALE):
     """Power-of-2 rescale shifts (s1, s2, s3) applied after passes 1, 2
-    and 3.  digits=3: inputs bounded by (2^24 - 1) / wmax; digits=2:
-    below 2^15; digits=1: below 2^8.  At usd=34, qscale=127, digits=3
-    they are (0, 3, 6)."""
+    and 3.  digits=3: inputs bounded by (2^24 - 1) / wmax; digits=2 (the
+    default, as the JAX package's): below 2^15; digits=1: below 2^8.  At
+    usd=34, qscale=127 they are (0, 6, 6), (0, 3, 6) at digits=3."""
     wmax = 2 * max_arm + 1
     if digits >= 3:
         bound = float((1 << 24) - 1) / wmax
@@ -198,7 +200,7 @@ def h_pass_wta(vol: torch.Tensor, arm_neg: torch.Tensor,
 
 
 def band_aggregate_q(cost_q: torch.Tensor, arms: torch.Tensor, max_arm: int,
-                     zero_disp: int | None = None, digits: int = 3,
+                     zero_disp: int | None = None, digits: int = 2,
                      qscale: float = QSCALE) -> torch.Tensor:
     """Four-pass cross aggregation (H, V, V, H) of an (H, W, D) u8
     quantized cost volume with arms (4, H, W) int32.  With zero_disp the
@@ -221,7 +223,7 @@ def band_aggregate_q(cost_q: torch.Tensor, arms: torch.Tensor, max_arm: int,
     return h_pass_wta(a, arms[LEFT], arms[RIGHT], zero_disp, max_arm)
 
 
-def agg_cost_scale(max_arm: int, digits: int = 3,
+def agg_cost_scale(max_arm: int, digits: int = 2,
                    qscale: float = QSCALE) -> float:
     """Cost-unit scale of the quantized aggregate: `band_aggregate_q`'s
     volume is about the float aggregate * qscale / 2^(s1+s2+s3).  Terms
@@ -229,6 +231,42 @@ def agg_cost_scale(max_arm: int, digits: int = 3,
     multiplied by it to keep their strength."""
     s1, s2, s3 = agg_rescale_shifts(max_arm, digits, qscale)
     return qscale / float(2 ** (s1 + s2 + s3))
+
+
+def quantize_cost(cost: torch.Tensor, qscale: float = QSCALE) -> torch.Tensor:
+    """A float32 cost volume (values in [0, 2]) -> rint(cost * qscale) as
+    u8, the quantized engine's one lossy step (the JAX package stores the
+    same integers as bf16).  qscale above 127 is the band_qscale dial."""
+    if qscale > 127.5:
+        raise NotImplementedError(
+            "band_qscale != 127 is ROADMAP queue A item 14 (dials), not "
+            "ported yet")
+    return torch.round(cost.to(torch.float32) * f32(qscale)).to(torch.uint8)
+
+
+def cross_aggregate_band(cost_hwd: torch.Tensor, arms: torch.Tensor,
+                         nsplit: int = 2, max_arm: int = _HALO):
+    """Quantized four-pass cross aggregation of an (H, W, D) float32 cost
+    volume: `quantize_cost`, then `band_aggregate_q` at its defaults
+    (digits=2); returns the (H, W, D) int32 aggregated volume.  `nsplit`
+    is deprecated and ignored, as in the JAX package: a value other than 2
+    warns."""
+    if nsplit != 2:
+        warnings.warn(
+            "cross_aggregate_band(nsplit=...) is deprecated and ignored: "
+            "the aggregation is exact quantized-integer; output scale is "
+            "QSCALE / 2^(s2+s3)", DeprecationWarning, stacklevel=2)
+    return band_aggregate_q(quantize_cost(cost_hwd), arms, max_arm)
+
+
+def cross_aggregate_band_lr(cost_l, cost_r, arms_l, arms_r, nsplit: int = 2):
+    """`cross_aggregate_band` of both eyes stacked along H (arms stop at
+    their own image's border, so no window crosses the eye boundary);
+    returns (agg_l, agg_r)."""
+    h = cost_l.shape[0]
+    a = cross_aggregate_band(torch.cat([cost_l, cost_r]),
+                             torch.cat([arms_l, arms_r], dim=1), nsplit)
+    return a[:h], a[h:]
 
 
 def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
@@ -470,3 +508,137 @@ def band_stereo_core_dm(img_l, img_r, arms_l, arms_r, cfg):
     if len(parts_l) == 1:
         return parts_l[0], parts_r[0]
     return torch.cat(parts_l, dim=0), torch.cat(parts_r, dim=0)
+
+
+# ---- B15: window sums of a float volume, in bf16 terms --------------------
+
+def split_bf16_terms(vol: torch.Tensor, nsplit: int) -> torch.Tensor:
+    """The float32 recombination of each element's `nsplit` successive
+    bf16 remainders: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+    mid), summed (hi + mid) + lo (round to nearest even, each add rounded
+    on its own).  nsplit=1 rounds the volume to bf16."""
+    r = vol.to(torch.float32)
+    part = r.to(torch.bfloat16).to(torch.float32)
+    t = part
+    for _ in range(nsplit - 1):
+        r = r - part
+        part = r.to(torch.bfloat16).to(torch.float32)
+        t = t + part
+    return t
+
+
+def span_sum_float_plain(vol: torch.Tensor, arm_neg: torch.Tensor,
+                         arm_pos: torch.Tensor, axis: int, inclusive: bool,
+                         nsplit: int, max_arm: int) -> torch.Tensor:
+    """Plain version of `band_span_sum_h` (axis 1) and `band_span_sum_v`
+    (axis 0): the `split_bf16_terms` volume summed over each window in
+    float32, one shifted plane per offset in ascending order (positions
+    outside the window or the axis add +0.0, which changes no sum)."""
+    t = split_bf16_terms(vol, nsplit)
+    n = t.shape[axis]
+    an = arm_neg.clamp(0, max_arm)[:, :, None]
+    ap = arm_pos.clamp(0, max_arm)[:, :, None] + int(inclusive)
+    pad = [0, 0] * (3 - axis)
+    pad[-2:] = [max_arm, max_arm + 1]
+    tp = torch.nn.functional.pad(t, pad)
+    acc = torch.zeros_like(t)
+    for k in range(-max_arm, max_arm + int(inclusive)):
+        keep = (k >= -an) & (k < ap)
+        acc = acc + torch.where(keep, tp.narrow(axis, max_arm + k, n), 0.0)
+    return acc
+
+
+def _span_sum(fn, vol, arm_neg, arm_pos, axis, inclusive, nsplit, max_arm):
+    """`band_span_sum_h` (axis 1) or `_v` (axis 0), `fn` the wrapper whose
+    launches count."""
+    _halo_for(max_arm)
+    if nsplit not in (1, 2, 3):
+        raise ValueError("nsplit must be 1, 2 or 3")
+    if kernels.on_cpu(vol):
+        return span_sum_float_plain(vol, arm_neg, arm_pos, axis, inclusive,
+                                    nsplit, max_arm)
+    kernels.require(vol, "vol", torch.float32, 3, vol.device)
+    _check_arms(vol, (arm_neg, arm_pos), ("arm_neg", "arm_pos"))
+    h, w, nd = vol.shape
+    out = torch.empty_like(vol)
+    rc = kernels.lib("span").stm_span_sum(
+        vol.data_ptr(), arm_neg.data_ptr(), arm_pos.data_ptr(),
+        out.data_ptr(), h, w, nd, axis, max_arm, int(inclusive), nsplit,
+        kernels.stream_of(out))
+    kernels.check_launch(rc, fn.__name__)
+    fn.launches += 1
+    return out
+
+
+@kernels.kernel_wrapper
+def band_span_sum_h(vol: torch.Tensor, arm_neg: torch.Tensor,
+                    arm_pos: torch.Tensor, inclusive: bool = False,
+                    nsplit: int = 2, max_arm: int = _HALO) -> torch.Tensor:
+    """Window sum along axis 1 of an (H, W, D) float32 volume over [x -
+    arm_neg, x + arm_pos) (`inclusive` closes the right end), ends clamped
+    into the row, arms (H, W) int32 clamped to [0, max_arm <= 64]; each
+    element counts as its `nsplit` bf16 terms (1: exact for small-integer
+    volumes).  Kernel B15 (csrc/span.cu)."""
+    return _span_sum(band_span_sum_h, vol, arm_neg, arm_pos, 1, inclusive,
+                     nsplit, max_arm)
+
+
+@kernels.kernel_wrapper
+def band_span_sum_v(vol: torch.Tensor, arm_neg: torch.Tensor,
+                    arm_pos: torch.Tensor, inclusive: bool = False,
+                    nsplit: int = 2, max_arm: int = _HALO) -> torch.Tensor:
+    """`band_span_sum_h` along axis 0 (windows [y - arm_neg, y +
+    arm_pos)), natively on the (H, W, D) volume.  Kernel B15
+    (csrc/span.cu)."""
+    return _span_sum(band_span_sum_v, vol, arm_neg, arm_pos, 0, inclusive,
+                     nsplit, max_arm)
+
+
+def irv_onehot(disp: torch.Tensor, outliers: torch.Tensor, num_disp: int,
+               zero_disp: int) -> torch.Tensor:
+    """(H, W, num_disp) float32 one-hot of each reliable pixel's truncated
+    disp + zero_disp: the volume whose window sums are the IRV histogram."""
+    bins = torch.arange(num_disp, dtype=torch.int32, device=disp.device)
+    dint = disp.to(torch.int32)                     # trunc toward zero
+    return ((outliers == 0)[:, :, None]
+            & (dint[:, :, None] + zero_disp == bins)).to(torch.float32)
+
+
+def dr_irv_band(disp: torch.Tensor, outliers: torch.Tensor,
+                arms: torch.Tensor, thresh_s: int, thresh_h: float,
+                num_disp: int, zero_disp: int, usd: int, iterations: int):
+    """Iterative region voting with the histogram as two span sums of the
+    float32 one-hot volume (B15, inclusive, nsplit=1: exact counts): a row
+    pass over [x - LEFT, x + RIGHT], a column pass over [y - min(UP, usd),
+    y + DOWN]; the first-max vote of `irv.vote_rule`.  `iterations` fixed
+    rounds, no early stop.  Equals `irv.dr_irv`."""
+    if usd > _HALO:
+        raise ValueError("dr_irv_band requires usd <= 64 (256-wide kernel "
+                         "windows); use ops.irv.dr_irv for larger arms")
+    up = arms[UP].clamp(max=usd).contiguous()
+    down, left, right = (arms[i].contiguous() for i in (DOWN, LEFT, RIGHT))
+    for _ in range(iterations):
+        onehot = irv_onehot(disp, outliers, num_disp, zero_disp)
+        row = band_span_sum_h(onehot, left, right, True, 1, usd)
+        del onehot
+        hist = band_span_sum_v(row, up, down, True, 1, usd)
+        del row
+        total = hist.sum(dim=2).to(torch.int32)
+        disp, outliers = vote_rule(hist, total, disp, outliers, thresh_s,
+                                   thresh_h, zero_disp)
+        del hist
+    return disp, outliers
+
+
+def dr_irv_band_lr(disp_l, outl_l, disp_r, outl_r, arms_l, arms_r,
+                   thresh_s: int, thresh_h: float, num_disp: int,
+                   zero_disp: int, usd: int, iterations: int):
+    """`dr_irv_band` of both eyes stacked along H (arms stop at their own
+    image's border, so no window crosses the eye boundary); returns
+    ((disp_l, outl_l), (disp_r, outl_r))."""
+    h = disp_l.shape[0]
+    d, o = dr_irv_band(torch.cat([disp_l, disp_r]),
+                       torch.cat([outl_l, outl_r]),
+                       torch.cat([arms_l, arms_r], dim=1), thresh_s,
+                       thresh_h, num_disp, zero_disp, usd, iterations)
+    return (d[:h], o[:h]), (d[h:], o[h:])

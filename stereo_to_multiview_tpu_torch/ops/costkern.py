@@ -1,5 +1,6 @@
-"""AD-census cost init: kernels B2 (pair volume), B3 (right-eye shear)
-and B16 (both eyes, disparity-major), with their plain PyTorch versions.
+"""AD-census cost init: kernels B2 (pair volume), B3 (right-eye shear),
+B16 (both eyes, disparity-major) and B17 (its right eye as per-plane
+shifts of the left), with their plain PyTorch versions.
 
 cost_l(x, d) = C(L(x), R(clamp(x + d - zd)))      (left eye)
 cost_r(x, d) = C(L(clamp(x - (d - zd))), R(x))    (right eye)
@@ -17,9 +18,11 @@ aggregation reads.
 B16 (`cost_dm`) computes both eyes directly, every other-eye read clamped
 to the row, into ONE disparity-major (2D, H, W) volume: the left eye on
 planes [0, D), the right eye on [D, 2D); u8 costs from the same table, or
-float32 costs as the sum of the table's two float32 terms.
-`ci_adcensus_kern_stacked` and `ci_adcensus_kern` are the JAX package's
-entry points on it.
+float32 costs as the sum of the table's two float32 terms.  Its other
+modes give one eye's (D, H, W) planes, the right eye's over a column
+range.  `ci_adcensus_kern_stacked` and `ci_adcensus_kern` are the JAX
+package's entry points on it; with shift_extract=True the latter takes
+the right eye from the left by per-plane shifts (B17, `shear_right_dm`).
 
 The wrappers take the plain version only for CPU tensors; on a CUDA
 tensor they launch the kernel or raise.
@@ -194,53 +197,77 @@ def shear_right(pair: torch.Tensor, zero_disp: int) -> torch.Tensor:
 MAX_REACH = 128      # |d - zero_disp| the disparity-major kernel can reach
 
 
+EYES = {"lr": 0, "l": 1, "r": 2}   # the C entry point's eyes argument
+
+
+def _columns(eyes: str, cols, w: int):
+    """The output columns [x0, x1) of a `cost_dm` mode: every column
+    unless the right eye alone is asked for a range."""
+    if eyes not in EYES:
+        raise ValueError(f"cost_dm: eyes must be 'lr', 'l' or 'r', not "
+                         f"{eyes!r}")
+    x0, x1 = (0, w) if cols is None else cols
+    if cols is not None and eyes != "r":
+        raise ValueError("cost_dm: a column range is for eyes='r' only")
+    if not 0 <= x0 < x1 <= w:
+        raise ValueError(f"cost_dm: columns [{x0}, {x1}) are not inside "
+                         f"[0, {w})")
+    return x0, x1
+
+
 def ci_adcensus_stacked_plain(img_l, img_r, cen_l, cen_r, ad_coeff: float,
                               census_coeff: float, num_disp: int,
-                              zero_disp: int,
-                              quant: bool = True) -> torch.Tensor:
+                              zero_disp: int, quant: bool = True,
+                              eyes: str = "lr", cols=None) -> torch.Tensor:
     """Plain version of `cost_dm`: one disparity plane of each eye at a
     time, the cost as the float32 sum of the two `cost_terms` and, with
     `quant`, rint(cost * 127) as u8 (no table)."""
     h, w = img_l.shape[:2]
+    x0, x1 = _columns(eyes, cols, w)
     dev = img_l.device
     a, c = device_cost_terms(ad_coeff, census_coeff, dev)
-    xs = torch.arange(w, device=dev)
+    xs = torch.arange(x0, x1, device=dev)
     lv, rv = img_l.to(torch.int32), img_r.to(torch.int32)
-    out = torch.empty((2 * num_disp, h, w), device=dev,
-                      dtype=torch.uint8 if quant else F32)
+    out = torch.empty(((2 if eyes == "lr" else 1) * num_disp, h, x1 - x0),
+                      device=dev, dtype=torch.uint8 if quant else F32)
 
     def emit(own, own_cen, oth, oth_cen, xo, plane):
-        ad = (own - oth[:, xo]).abs().sum(dim=-1)
-        cost = a[ad] + c[hamming48(own_cen, oth_cen[:, xo])]
+        ad = (own[:, x0:x1] - oth[:, xo]).abs().sum(dim=-1)
+        cost = a[ad] + c[hamming48(own_cen[:, x0:x1], oth_cen[:, xo])]
         if quant:
             cost = torch.round(cost * f32(127.0)).to(torch.int32)
         out[plane] = cost.to(out.dtype)
 
+    right = num_disp if eyes == "lr" else 0
     for d in range(num_disp):
         k = d - zero_disp
-        emit(lv, cen_l, rv, cen_r, (xs + k).clamp(0, w - 1), d)
-        emit(rv, cen_r, lv, cen_l, (xs - k).clamp(0, w - 1), num_disp + d)
+        if eyes != "r":
+            emit(lv, cen_l, rv, cen_r, (xs + k).clamp(0, w - 1), d)
+        if eyes != "l":
+            emit(rv, cen_r, lv, cen_l, (xs - k).clamp(0, w - 1), right + d)
     return out
 
 
 @kernels.kernel_wrapper
 def cost_dm(img_l: torch.Tensor, img_r: torch.Tensor, cen_l: torch.Tensor,
             cen_r: torch.Tensor, ad_coeff: float, census_coeff: float,
-            num_disp: int, zero_disp: int,
-            quant: bool = True) -> torch.Tensor:
+            num_disp: int, zero_disp: int, quant: bool = True,
+            eyes: str = "lr", cols=None) -> torch.Tensor:
     """(2D, H, W) disparity-major AD-census cost of two (H, W, 3) u8
     images and their (H, W, 2) int32 census codes: plane d < D is the
     left eye's C(L(x), R(clamp(x + d - zd))), plane D + d the right eye's
     C(L(clamp(x - (d - zd))), R(x)).  u8 rint(127 * cost) with `quant`
-    (the values of `cost_pair` + `shear_right`), else float32.  Kernel
-    B16 (csrc/cost_dm.cu)."""
+    (the values of `cost_pair` + `shear_right`), else float32.  eyes="l"
+    gives the left eye's (D, H, W) planes alone, eyes="r" the right eye's,
+    over the columns cols=(x0, x1) if given: (D, H, x1 - x0).  Kernel B16
+    (csrc/cost_dm.cu)."""
     if num_disp > MAX_REACH or zero_disp > MAX_REACH:
         raise ValueError("ci_adcensus_kern supports num_disp/zero_disp "
                          "<= 128")
     if kernels.on_cpu(img_l):
         return ci_adcensus_stacked_plain(img_l, img_r, cen_l, cen_r,
                                          ad_coeff, census_coeff, num_disp,
-                                         zero_disp, quant)
+                                         zero_disp, quant, eyes, cols)
     dev = img_l.device
     h, w = img_l.shape[:2]
     for name, t, dt in (("img_l", img_l, torch.uint8),
@@ -253,6 +280,7 @@ def cost_dm(img_l: torch.Tensor, img_r: torch.Tensor, cen_l: torch.Tensor,
         raise ValueError("cost_dm: inconsistent input shapes")
     if not 0 <= zero_disp <= num_disp:
         raise ValueError("cost_dm: need 0 <= zero_disp <= num_disp")
+    x0, x1 = _columns(eyes, cols, w)
     lpk, rpk = pack_bgr(img_l), pack_bgr(img_r)
     cl, cr = cen_l.contiguous(), cen_r.contiguous()
     if quant:
@@ -261,12 +289,12 @@ def cost_dm(img_l: torch.Tensor, img_r: torch.Tensor, cen_l: torch.Tensor,
     else:
         a, c = device_cost_terms(ad_coeff, census_coeff, dev)
         tabs = (None, a.data_ptr(), c.data_ptr())
-    out = torch.empty((2 * num_disp, h, w), device=dev,
-                      dtype=torch.uint8 if quant else F32)
+    out = torch.empty(((2 if eyes == "lr" else 1) * num_disp, h, x1 - x0),
+                      device=dev, dtype=torch.uint8 if quant else F32)
     rc = kernels.lib("cost_dm").stm_cost_dm(
         lpk.data_ptr(), rpk.data_ptr(), cl.data_ptr(), cr.data_ptr(), *tabs,
-        out.data_ptr(), h, w, num_disp, zero_disp, int(quant),
-        kernels.stream_of(out))
+        out.data_ptr(), h, w, num_disp, zero_disp, int(quant), EYES[eyes],
+        x0, x1, kernels.stream_of(out))
     kernels.check_launch(rc, "cost_dm")
     cost_dm.launches += 1
     return out
@@ -284,6 +312,49 @@ def ci_adcensus_kern_stacked(img_l: torch.Tensor, img_r: torch.Tensor,
                    census_coeff, num_disp, zero_disp, quant)
 
 
+def shear_right_dm_plain(vol: torch.Tensor, zero_disp: int) -> torch.Tensor:
+    """Plain version of `shear_right_dm`: one slice copy per plane."""
+    nd, _, w = vol.shape
+    out = torch.zeros_like(vol)
+    for d in range(nd):
+        s = d - zero_disp
+        if s >= 0:
+            out[d, :, s:] = vol[d, :, :w - s]
+        else:
+            out[d, :, :w + s] = vol[d, :, -s:]
+    return out
+
+
+@kernels.kernel_wrapper
+def shear_right_dm(vol: torch.Tensor, zero_disp: int) -> torch.Tensor:
+    """The right eye's (D, H, W) cost planes, but for their border columns,
+    from the left eye's: out[d, y, x] = vol[d, y, x - (d - zd)] where that
+    column lies in [0, W), else 0; u8 or float32.  Kernel B17
+    (csrc/shear_dm.cu)."""
+    if kernels.on_cpu(vol):
+        return shear_right_dm_plain(vol, zero_disp)
+    if vol.dtype not in (torch.uint8, F32):
+        raise TypeError(f"shear_right_dm: dtype {vol.dtype}, expected uint8 "
+                        f"or float32")
+    kernels.require(vol, "vol", vol.dtype, 3, vol.device)
+    nd, h, w = vol.shape
+    if not 0 <= zero_disp <= nd:
+        raise ValueError("shear_right_dm: need 0 <= zero_disp <= D")
+    out = torch.empty_like(vol)
+    rc = kernels.lib("shear_dm").stm_shear_dm(
+        vol.data_ptr(), out.data_ptr(), h, w, nd, zero_disp,
+        vol.element_size(), kernels.stream_of(out))
+    kernels.check_launch(rc, "shear_right_dm")
+    shear_right_dm.launches += 1
+    return out
+
+
+def shift_extract_applies(w: int, num_disp: int, zero_disp: int) -> bool:
+    """The JAX package's condition for the shift extraction: at least 384
+    columns and a reach max(zd, D - zd) of at most 64."""
+    return w >= 384 and pair_margin(num_disp, zero_disp) <= 64
+
+
 def ci_adcensus_kern(img_l: torch.Tensor, img_r: torch.Tensor,
                      ad_coeff: float, census_coeff: float, num_disp: int,
                      zero_disp: int, quant: bool = False,
@@ -291,13 +362,28 @@ def ci_adcensus_kern(img_l: torch.Tensor, img_r: torch.Tensor,
     """(H, W, 3) u8 pair -> ((H, W, D), (H, W, D)) cost volumes: float32,
     or u8 rint(127 * cost) with `quant`.  The kernel's disparity-major
     planes are relaid to D-innermost by one torch copy per eye (the JAX
-    package's `moveaxis`).  `shift_extract` (the right eye as per-plane
-    shifts of the left one) is kernel B17, not ported yet."""
-    if shift_extract:
-        raise NotImplementedError(
-            "ci_adcensus_kern(shift_extract=True) needs kernel B17 "
-            "(costkern._shear_kernel), not ported yet (ROADMAP queue B)")
-    vol = ci_adcensus_kern_stacked(img_l, img_r, ad_coeff, census_coeff,
-                                   num_disp, zero_disp, quant)
-    return (vol[:num_disp].permute(1, 2, 0).contiguous(),
-            vol[num_disp:].permute(1, 2, 0).contiguous())
+    package's `moveaxis`).
+
+    `shift_extract`, where `shift_extract_applies` (else the direct path,
+    silently, as in the JAX package): B16 computes the left eye alone, B17
+    shears it into the right eye, and B16's right-eye mode recomputes the
+    border strips [0, M) and [W - M, W), M = max(zd, D - zd), where the
+    shifted column leaves the image.  Equal to the direct path."""
+    if not (shift_extract
+            and shift_extract_applies(img_l.shape[1], num_disp, zero_disp)):
+        vol = ci_adcensus_kern_stacked(img_l, img_r, ad_coeff, census_coeff,
+                                       num_disp, zero_disp, quant)
+        return (vol[:num_disp].permute(1, 2, 0).contiguous(),
+                vol[num_disp:].permute(1, 2, 0).contiguous())
+    w = img_l.shape[1]
+    cen_l = census_transform_9x7(mux_average(img_l))
+    cen_r = census_transform_9x7(mux_average(img_r))
+    args = (img_l, img_r, cen_l, cen_r, ad_coeff, census_coeff, num_disp,
+            zero_disp, quant)
+    vol_l = cost_dm(*args, eyes="l")
+    vol_r = shear_right_dm(vol_l, zero_disp)
+    m = pair_margin(num_disp, zero_disp)
+    for x0, x1 in ((0, m), (w - m, w)):
+        vol_r[:, :, x0:x1] = cost_dm(*args, eyes="r", cols=(x0, x1))
+    return (vol_l.permute(1, 2, 0).contiguous(),
+            vol_r.permute(1, 2, 0).contiguous())

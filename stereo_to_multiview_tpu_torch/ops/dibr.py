@@ -2,13 +2,16 @@
 mask feather, and the backward (gather) warp, either merged into the
 views in one kernel (B12, the fused synthesis) or as the float warp
 volumes of every view (B14, the unfused synthesis), with the kernels'
-plain PyTorch versions.
+plain PyTorch versions; and the forward (scatter) warp, plain PyTorch on
+every device as in the JAX package.
 
 The wrappers take the plain version only for CPU tensors; on a CUDA
 tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -217,3 +220,47 @@ def warp_views(img_l, img_r, disp_l, disp_r, shifts):
     kernels.check_launch(rc, "warp_views")
     warp_views.launches += 1
     return va, vb
+
+
+def offset_range(dmin: int, dmax: int, shift: float):
+    """(lo, hi): floor and ceil of disp * shift over disp in [dmin, dmax],
+    in float64 as the JAX package's warps bound their static loops."""
+    c = (dmin * float(shift), dmax * float(shift))
+    return int(math.floor(min(c))), int(math.ceil(max(c)))
+
+
+def dibr_forward_warp(img_in: torch.Tensor, disp: torch.Tensor, shift: float,
+                      num_disp: int | None = None,
+                      zero_disp: int | None = None) -> torch.Tensor:
+    """Forward scatter warp out[clamp(x + trunc(disp * shift))] = in[x],
+    (H, W, C) of img_in's dtype.  Where several sources hit one target the
+    largest source x wins; unhit targets are 0; a source whose target
+    offset (target - x, after the clamp) lies outside the `offset_range`
+    of the disparity range [-zero_disp, num_disp - zero_disp] (without
+    one, [-(W - 1), W - 1]) writes nothing.  One amax scatter of source
+    indices and one gather: exact and deterministic."""
+    h, w, c = img_in.shape
+    if num_disp is None or zero_disp is None:
+        lo, hi = offset_range(-(w - 1), w - 1, shift)
+    else:
+        lo, hi = offset_range(-zero_disp, num_disp - zero_disp, shift)
+    off = (disp.to(F32) * f32(shift)).to(torch.int32)     # trunc toward 0
+    pos = torch.arange(w, device=img_in.device)
+    tgt = (pos + off).clamp(0, w - 1).to(torch.int64)
+    k = tgt - pos
+    src = torch.where((k >= lo) & (k <= hi), pos, -1)
+    won = torch.full((h, w), -1, dtype=torch.int64, device=img_in.device)
+    won = won.scatter_reduce(1, tgt, src, "amax")
+    out = torch.gather(img_in, 1, won.clamp(min=0)[:, :, None].expand(h, w, c))
+    return torch.where((won >= 0)[:, :, None], out, 0)
+
+
+def dibr_dfm(img_l, img_r, disp_l, disp_r, mask_l, mask_r, shift: float):
+    """Forward-mapped intermediate view at fraction `shift`: img_l
+    forward-warped by shift * disp_l and img_r by (shift - 1) * disp_r,
+    merged with the inverted right mask feathered (radius 10, sigma 15).
+    `mask_l` is not read, as in the JAX package."""
+    view_from_l = dibr_forward_warp(img_l, disp_l, shift)
+    view_from_r = dibr_forward_warp(img_r, disp_r, shift - 1.0)
+    m = dibr_feather_mask(mask_r, 10, 15.0)
+    return mux_merge_ab(view_from_l, view_from_r, m)

@@ -78,7 +78,15 @@ def irv_vote_plain(cnt, disp, outliers, up, down, thresh_s: int,
     then argmax and the vote rule, applied at need pixels only."""
     span = span_sum_inclusive(cnt.to(torch.int32), up.clamp(0, usd),
                               down.clamp(0, usd), axis=0)
-    hist, total = span[:, :, :-1], span[:, :, -1]
+    return vote_rule(span[:, :, :-1], span[:, :, -1], disp, outliers,
+                     thresh_s, thresh_h, zero_disp, need)
+
+
+def vote_rule(hist, total, disp, outliers, thresh_s: int, thresh_h: float,
+              zero_disp: int, need=None):
+    """(disp, outliers) after the vote of each pixel's (H, W, B) histogram
+    (integer counts, any dtype) with its (H, W) int total of reliable
+    pixels: the first-max bin, applied at need pixels only if given."""
     dint = disp.to(torch.int32)                     # trunc toward zero
     max_bin = hist.amax(dim=2)
     winner = torch.argmax(hist, dim=2).to(torch.int32)   # first max

@@ -99,9 +99,19 @@ def test_stacked_cost_equals_the_lane_major_volumes(stereo_pair):
 
 
 def test_ci_adcensus_kern_shift_extract_raises():
+    """shift_extract=True is ported (kernel B17): it raises only where the
+    direct path does, for a disparity reach beyond 128 columns, and runs
+    where its condition holds (tests/test_torch_shift_extract.py holds its
+    values)."""
     img = torch.zeros((8, 16, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="B17"):
-        tck.ci_adcensus_kern(img, img, 10.0, 30.0, 4, 2, shift_extract=True)
+    with pytest.raises(ValueError, match="128"):
+        tck.ci_adcensus_kern(img, img, 10.0, 30.0, 160, 80,
+                             shift_extract=True)
+    wide = torch.zeros((8, 400, 3), dtype=torch.uint8)
+    assert tck.shift_extract_applies(400, 4, 2)
+    a, b = tck.ci_adcensus_kern(wide, wide, 10.0, 30.0, 4, 2, quant=True,
+                                shift_extract=True)
+    assert a.shape == b.shape == (8, 400, 4) and a.dtype == torch.uint8
 
 
 def test_cost_dm_rejects_wide_disparity_ranges():

@@ -135,15 +135,17 @@ def test_band_aggregate_q_volume_matches_jax(fixture):
                            jnp.asarray(arms), usd, digits=3, interpret=True,
                            final_out_t=True)
     ref = np.swapaxes(np.asarray(ref), 0, 1)
-    got = tband.band_aggregate_q(_t(cost), _t(arms), usd, None).numpy()
+    got = tband.band_aggregate_q(_t(cost), _t(arms), usd, None,
+                                 digits=3).numpy()
     assert got.dtype == np.int32 and got.shape == (h, w, d)
     np.testing.assert_array_equal(got, ref)
     if fixture == "large":
         assert got.max() > 32767
     # the fused WTA is the first-min argmin of this volume
-    wta = tband.band_aggregate_q(_t(cost), _t(arms), usd, 5).numpy()
+    wta = tband.band_aggregate_q(_t(cost), _t(arms), usd, 5,
+                                 digits=3).numpy()
     np.testing.assert_array_equal(wta, np.argmin(got, axis=2) - 5.0)
-    assert tband.agg_cost_scale(usd) == agg_cost_scale(usd, 3)
+    assert tband.agg_cost_scale(usd, 3) == agg_cost_scale(usd, 3)
 
 
 def _warp_inputs(stereo_pair, integral):

@@ -1,0 +1,140 @@
+"""`ci_adcensus_kern(shift_extract=True)`: kernel B16's one-eye modes
+and kernel B17's plain version (`shear_right_dm`) against the JAX
+package's shift extraction (Pallas, interpret mode on the CPU) and
+against the port's direct path.  The D=128 case sits in
+`test_torch_shift_extract_d128.py`, a file of its own for the runner.
+
+On the CPU every wrapper takes its plain version, which chip_smoke.py
+holds bit-equal to the CUDA kernel on the card.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from stereo_to_multiview_tpu.ops import costkern as jck
+
+from stereo_to_multiview_tpu_torch.ops import costkern as tck
+from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
+from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+
+torch.set_num_threads(1)
+
+
+def _pair(seed, h, w):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+            rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+
+
+def _cost_args(left, right, nd, zd):
+    l, r = torch.from_numpy(left), torch.from_numpy(right)
+    return (l, r, census_transform_9x7(mux_average(l)),
+            census_transform_9x7(mux_average(r)), 10.0, 30.0, nd, zd)
+
+
+@pytest.mark.parametrize("quant", [True, False])
+def test_cost_dm_one_eye_modes_are_the_stacked_planes(quant):
+    """eyes="l" is the stacked volume's first D planes, eyes="r" over
+    [x0, x1) its last D planes at those columns."""
+    left, right = _pair(50, 6, 90)
+    nd, zd = 16, 10
+    args = _cost_args(left, right, nd, zd)
+    both = tck.cost_dm(*args, quant)
+    assert torch.equal(tck.cost_dm(*args, quant, eyes="l"), both[:nd])
+    for cols in ((0, 10), (37, 90), (0, 90)):
+        strip = tck.cost_dm(*args, quant, eyes="r", cols=cols)
+        assert torch.equal(strip, both[nd:, :, cols[0]:cols[1]])
+
+
+def test_cost_dm_refuses_bad_modes():
+    left, right = _pair(51, 4, 20)
+    args = _cost_args(left, right, 8, 4)
+    with pytest.raises(ValueError, match="eyes"):
+        tck.cost_dm(*args, eyes="both")
+    with pytest.raises(ValueError, match="eyes='r' only"):
+        tck.cost_dm(*args, eyes="l", cols=(0, 4))
+    with pytest.raises(ValueError, match="not inside"):
+        tck.cost_dm(*args, eyes="r", cols=(5, 21))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("zd", [0, 5, 12])
+def test_shear_right_dm_plain(dtype, zd):
+    """out[d, y, x] = vol[d, y, x - (d - zd)] inside the row, else 0."""
+    rng = np.random.default_rng(52)
+    nd, h, w = 12, 3, 30
+    vol = torch.from_numpy(rng.integers(1, 250, (nd, h, w))).to(dtype)
+    got = tck.shear_right_dm(vol, zd)
+    want = torch.zeros_like(vol)
+    for d in range(nd):
+        for x in range(w):
+            xs = x - (d - zd)
+            if 0 <= xs < w:
+                want[d, :, x] = vol[d, :, xs]
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("quant", [True, False])
+def test_shift_extract_matches_jax_and_the_direct_path(quant):
+    """(16, 448, 24, 12), as the JAX package's own test: the condition
+    holds (448 >= 384 columns, reach 12 <= 64), so the left eye, the shear
+    and two 12-column border strips.  Equal to the port's direct path in
+    every element; to JAX's shift extraction exactly in u8 and within the
+    float32 exp rounding of the two packages otherwise."""
+    h, w, nd, zd = 16, 448, 24, 12
+    left, right = _pair(53, h, w)
+    assert tck.shift_extract_applies(w, nd, zd)
+    l, r = torch.from_numpy(left), torch.from_numpy(right)
+    got = tck.ci_adcensus_kern(l, r, 10.0, 30.0, nd, zd, quant=quant,
+                               shift_extract=True)
+    direct = tck.ci_adcensus_kern(l, r, 10.0, 30.0, nd, zd, quant=quant)
+    ref = jck.ci_adcensus_kern(jnp.asarray(left), jnp.asarray(right), 10.0,
+                               30.0, nd, zd, quant=quant, interpret=True,
+                               shift_extract=True)
+    for g, dct, rf in zip(got, direct, ref):
+        assert g.shape == (h, w, nd)
+        assert g.dtype == (torch.uint8 if quant else torch.float32)
+        assert torch.equal(g, dct)
+        rf = np.asarray(rf).astype(np.float32)
+        if quant:
+            np.testing.assert_array_equal(g.numpy().astype(np.float32), rf)
+        else:
+            np.testing.assert_allclose(g.numpy(), rf, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("h, w, nd, zd", [(8, 200, 16, 8), (6, 400, 80, 8)])
+def test_shift_extract_below_the_condition_takes_the_direct_path(
+        monkeypatch, h, w, nd, zd):
+    """Under 384 columns, or a reach max(zd, D - zd) above 64, the JAX
+    package computes both eyes directly, silently; so does the port: B17
+    is never called, and the result is the direct one."""
+    left, right = _pair(54, h, w)
+    assert not tck.shift_extract_applies(w, nd, zd)
+
+    def no_shear(*args, **kwargs):
+        raise AssertionError("the shear ran below the condition")
+
+    monkeypatch.setattr(tck, "shear_right_dm", no_shear)
+    l, r = torch.from_numpy(left), torch.from_numpy(right)
+    got = tck.ci_adcensus_kern(l, r, 10.0, 30.0, nd, zd, quant=True,
+                               shift_extract=True)
+    direct = tck.ci_adcensus_kern(l, r, 10.0, 30.0, nd, zd, quant=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, direct))
+
+
+@pytest.mark.parametrize("wrapper", ["cost_dm_left", "shear_right_dm"])
+def test_shift_extract_wrappers_reject_other_devices(wrapper):
+    """A wrapper takes the plain version only for a CPU tensor; any other
+    device launches the kernel or raises, never a silent fallback."""
+    def m(*shape, dtype=torch.uint8):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    calls = {
+        "cost_dm_left": lambda: tck.cost_dm(
+            m(4, 8, 3), m(4, 8, 3), m(4, 8, 2, dtype=torch.int32),
+            m(4, 8, 2, dtype=torch.int32), 10.0, 30.0, 8, 4, eyes="l"),
+        "shear_right_dm": lambda: tck.shear_right_dm(m(8, 4, 8), 4),
+    }
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        calls[wrapper]()

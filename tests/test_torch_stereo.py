@@ -99,7 +99,7 @@ def test_agg_rescale_shifts(usd):
         assert (tband.agg_rescale_shifts(usd, digits)
                 == jband.agg_rescale_shifts(usd, digits))
     assert tband._halo_for(usd) == jband._halo_for(usd)
-    assert tband.agg_rescale_shifts(34) == (0, 3, 6)
+    assert tband.agg_rescale_shifts(34, 3) == (0, 3, 6)
 
 
 def _arms(rng, h, w, usd, border_limited):
@@ -148,7 +148,7 @@ def test_vv_pass_matches_band_pass_vv(agg_case, border_limited):
     # sum below 2^24, where the JAX kernel's float32 digit dots are exact
     vol = rng.integers(0, 254 * (2 * usd + 1) + 1, (h, w, nd)).astype(
         np.int32)
-    _, s2, s3 = tband.agg_rescale_shifts(usd)
+    _, s2, s3 = tband.agg_rescale_shifts(usd, 3)
     ref = jband._band_pass_vv(
         jnp.swapaxes(jnp.asarray(vol), 0, 1), jnp.asarray(arms[UP].T),
         jnp.asarray(arms[DOWN].T), s2=s2, s3=s3, digits=3,
@@ -179,7 +179,7 @@ def test_band_aggregate_q_matches(agg_case):
     arms = _arms(rng, *cost.shape[:2], usd, True)
     ref = jband.band_aggregate_q(jnp.asarray(cost), jnp.asarray(arms), usd,
                                  zero_disp=8, digits=3, interpret=True)
-    got = tband.band_aggregate_q(_t(cost), _t(arms), usd, 8)
+    got = tband.band_aggregate_q(_t(cost), _t(arms), usd, 8, digits=3)
     np.testing.assert_array_equal(_np(ref), _np(got))
 
 
