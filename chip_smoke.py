@@ -14,7 +14,9 @@
    the same function.  Also holds the early-stop IRV against the fixed
    rounds and the row-chunked IRV against the whole-frame one, bit for
    bit, and the lane-major window passes at the band_digits 2 and 1
-   shifts.  The entry points beside process_frame run on the 1080p
+   shifts, and the streamed B5 and B9 where their streams meet the
+   frame's edges (37 rows, fewer than a ring holds; reach 0).  The entry
+   points beside process_frame run on the 1080p
    frame's own stages, each as a path with its launch counts checked:
    `dr_irv_band_lr` (B15, 5 fixed rounds) equal to the fixed-round
    `dr_irv` (B8/B9); `dibr_warp_views_kern` (B19) equal to
@@ -42,8 +44,12 @@
    the CPU.
 
 `python3 chip_smoke.py --frames N [--package-root DIR]` instead times only
-the three preset paths, N frames each, on the package under DIR: the way
-to compare two commits' frame times within one call.
+the four preset paths (HD1080_D128, HSLO_4K, LOWRES, UHD4K_16V), N frames
+each, on the package under DIR: the way to compare two commits' frame
+and stage times within one call.  `--stream-checks [--package-root DIR]`
+only holds the streamed kernels B5 and B9 (and the kernels that feed
+them) against their plain versions, on the package under DIR: the way to
+show that a deliberately broken copy of either fails.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
 a `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -136,6 +142,14 @@ for _digits, _path in ((2, DIGITS2), (1, DIGITS1)):
         _w, _s, _r, _ = KERNELS[_name]
         KERNELS[f"{_name[:-1]}, band_digits={_digits} shifts)"] = (
             _w, _s, _r, _path)
+# the streamed vertical passes and vote where the streams meet the
+# frame's edges: fewer rows than a ring holds, and reach 0
+AT_SHORT = " (37x1001, H < 2*usd + 2)"
+AT_REACH0 = " (200x1001, reach 0)"
+for _suffix in (AT_SHORT, AT_REACH0):
+    for _name in ("B5 vv_pass (passes 2+3)", "B9 irv_vote",
+                  "B9 irv_vote (need)"):
+        KERNELS[_name + _suffix] = KERNELS[_name]
 # the disparity-major core, whole-frame and at a 540-row chunk's extent
 AT_CHUNK = " (680-row chunk)"
 DM_KERNELS = {
@@ -226,13 +240,14 @@ for _path in (DIGITS2, DIGITS1, UHD4K):
 # `h_pass_sum` counts two entry points of hpass.cu: pass 1 (u8, both eyes)
 # on every path, and pass 4 without the WTA (int32, both eyes) where the
 # scanline optimisation runs.  The exact count shows that both launched.
+# `vv_pass` launches its kernel once a call: once an eye and row chunk.
 EXACT_LAUNCHES = {
-    MAIN: {"h_pass_sum": 2},
-    HSLO4K: {"h_pass_sum": 4},
-    LOWRES: {"h_pass_sum": 2},
-    DIGITS2: {"h_pass_sum": 2},
-    DIGITS1: {"h_pass_sum": 2},
-    UHD4K: {"h_pass_sum": 8},       # 4 row chunks x 2 eyes
+    MAIN: {"h_pass_sum": 2, "vv_pass": 2},
+    HSLO4K: {"h_pass_sum": 4, "vv_pass": 2},
+    LOWRES: {"h_pass_sum": 2, "vv_pass": 2},
+    DIGITS2: {"h_pass_sum": 2, "vv_pass": 2},
+    DIGITS1: {"h_pass_sum": 2, "vv_pass": 2},
+    UHD4K: {"h_pass_sum": 8, "vv_pass": 8},     # 4 row chunks x 2 eyes
 }
 
 
@@ -312,6 +327,7 @@ class KernelChecks:
         self.reps = reps
         self.results = {}
         self.irv = {}
+        self.irv_shares = {}
         self.suffix = ""    # appended to every recorded name
         self.raw = None     # (disp_l, disp_r, labels) of check_disp_kernels
 
@@ -495,9 +511,9 @@ def check_core_kernels(chk, img_l, img_r, cfg, hslo=True):
 
 
 def vote_cells(need, outliers):
-    """(ceil(H / IRV_TILE), W) bool: the vote blocks (IRV_TILE rows of
-    one column) that hold an outlier at a need pixel; the gated B9
-    evaluates these and passes every other block through."""
+    """(ceil(H / IRV_TILE), W) bool: the vote tiles (IRV_TILE rows of
+    one column) that hold an outlier at a need pixel; the gated B9 streams
+    only spans within reach of these, and the gated B8 computes them."""
     import torch.nn.functional as F
     from stereo_to_multiview_tpu_torch.ops.irv import TILE as IRV_TILE
     h, w = need.shape
@@ -508,8 +524,8 @@ def vote_cells(need, outliers):
 
 
 def rowspan_live(need, outliers, usd: int):
-    """(H, W) bool: the row spans the gated B8 computes.  A vote block of
-    `vote_cells` reads its rows plus `usd` either way; a row-span block
+    """(H, W) bool: the row spans the gated B8 computes.  A vote tile of
+    `vote_cells` may read its rows plus `usd` either way; a row-span block
     (one row, IRV_TILE columns) is computed iff one of its columns is so
     read.  The smoke holds this mirror of the kernels' gating from both
     sides: the live spans must equal the plain version's, and a vote fed
@@ -529,6 +545,82 @@ def rowspan_live(need, outliers, usd: int):
     blocks = F.pad(read, (0, nx * IRV_TILE - w)).reshape(
         h, nx, IRV_TILE).any(dim=2)
     return blocks.repeat_interleave(IRV_TILE, dim=1)[:, :w]
+
+
+def vote_span_rows(need, outliers, up, down, usd: int):
+    """(H, W) bool: the span rows that the votes of a gated round read, at
+    pixel grain: for each outlier at a need pixel, the rows [y - UP, y +
+    DOWN] (arms clamped to [0, usd], clipped to the frame) of its own
+    column.  The bounds of the gated B8 and B9 count these spans, a
+    yardstick that does not move with the kernels' tiles and halos."""
+    import torch
+    h, w = need.shape
+    voter = (need.to(bool) & (outliers != 0)).to(torch.int32)
+    ys = torch.arange(h, device=need.device)[:, None]
+    lo = (ys - up.clamp(0, usd)).clamp(min=0).to(torch.int64)
+    hi = (ys + down.clamp(0, usd) + 1).clamp(max=h).to(torch.int64)
+    edges = torch.zeros((h + 1, w), dtype=torch.int32, device=need.device)
+    edges.scatter_add_(0, lo, voter)
+    edges.scatter_add_(0, hi, -voter)
+    return torch.cumsum(edges, dim=0)[:h] > 0
+
+
+def record_full_vote(chk, cnt, d, o, ud, vote, usd: int):
+    """B9 without `need` (every outlier votes); its bound counts the spans
+    within reach of an outlier (`vote_span_rows`), the planes and the
+    outputs."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import irv
+    hw = d.numel()
+    read = float(vote_span_rows(torch.ones_like(o, dtype=torch.bool), o,
+                                *ud, usd).float().mean())
+    chk.record("B9 irv_vote", irv.irv_vote(cnt, d, o, *ud, *vote),
+               irv.irv_vote_plain(cnt, d, o, *ud, *vote),
+               lambda: irv.irv_vote(cnt, d, o, *ud, *vote),
+               lambda: irv.irv_vote_plain(cnt, d, o, *ud, *vote),
+               nbytes=read * cnt.numel() + hw * (4 + 1 + 8) + hw * (4 + 1),
+               ops=4 * read * cnt.numel())
+
+
+def record_gated_irv(chk, d1, o1, need, arms, cfg, usd, b8=True):
+    """The gated B8 (if `b8`) and B9 of one round under `need`, B9 fed 255
+    in every span the gated B8 skips; their bounds count the spans the
+    votes read (`vote_span_rows`).  Returns (live share of the row spans,
+    share of the vote tiles, share of the spans the votes read)."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import irv
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+
+    h, w = d1.shape
+    hw, nd, zd = h * w, cfg.num_disp, cfg.zero_disp
+    lr, ud = (arms[LEFT], arms[RIGHT]), (arms[UP], arms[DOWN])
+    vote = (cfg.irv_thresh_s, cfg.irv_thresh_h, zd, usd)
+    live = rowspan_live(need, o1, usd)[:, :, None]
+    live_share = float(live.float().mean())
+    cell_share = float(vote_cells(need, o1).float().mean())
+    read_share = float(vote_span_rows(need, o1, *ud, usd).float().mean())
+    n_cnt = hw * (nd + 1)
+    cnt_n = irv.irv_rowspan(d1, o1, *lr, nd, zd, usd, need)
+    cnt_p = irv.irv_rowspan_plain(d1, o1, *lr, nd, zd, usd)
+    if b8:
+        chk.record("B8 irv_rowspan (need)", torch.where(live, cnt_n, 0),
+                   torch.where(live, cnt_p, 0),
+                   lambda: irv.irv_rowspan(d1, o1, *lr, nd, zd, usd, need),
+                   lambda: irv.irv_rowspan_plain(d1, o1, *lr, nd, zd, usd),
+                   nbytes=hw * (4 + 1 + 8 + 1) + read_share * n_cnt,
+                   ops=4 * read_share * n_cnt)
+    # the skipped spans are undefined: give the gated vote 255 (a count no
+    # span reaches) in each, so that reading one would show
+    cnt_n = torch.where(live, cnt_n, 255)
+    chk.record("B9 irv_vote (need)",
+               irv.irv_vote(cnt_n, d1, o1, *ud, *vote, need),
+               irv.irv_vote_plain(cnt_p, d1, o1, *ud, *vote, need),
+               lambda: irv.irv_vote(cnt_n, d1, o1, *ud, *vote, need),
+               lambda: irv.irv_vote_plain(cnt_p, d1, o1, *ud, *vote, need),
+               nbytes=(read_share * n_cnt + hw * (4 + 1 + 8 + 1)
+                       + hw * (4 + 1)),
+               ops=4 * read_share * n_cnt)
+    return live_share, cell_share, read_share
 
 
 def check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg):
@@ -551,12 +643,7 @@ def check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg):
                nbytes=hw * (4 + 1 + 8) + cnt.numel(), ops=4 * cnt.numel())
 
     vote = (cfg.irv_thresh_s, cfg.irv_thresh_h, zd, usd)
-    chk.record("B9 irv_vote", irv.irv_vote(cnt, dl, ol, *ud, *vote),
-               irv.irv_vote_plain(cnt, dl, ol, *ud, *vote),
-               lambda: irv.irv_vote(cnt, dl, ol, *ud, *vote),
-               lambda: irv.irv_vote_plain(cnt, dl, ol, *ud, *vote),
-               nbytes=cnt.numel() + hw * (4 + 1 + 8) + hw * (4 + 1),
-               ops=4 * cnt.numel())
+    record_full_vote(chk, cnt, dl, ol, ud, vote, usd)
 
     # round 2 under the real frontier of round 1's changes
     d1, o1 = irv.irv_vote(cnt, dl, ol, *ud, *vote)
@@ -575,33 +662,20 @@ def check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg):
               flush=True)
     need = irv.dilate_frontier(changed, usd)
     del changed
-    live = rowspan_live(need, o1, usd)[:, :, None]
-    live_share = float(live.float().mean())
-    cell_share = float(vote_cells(need, o1).float().mean())
+    live_share, cell_share, read_share = record_gated_irv(
+        chk, d1, o1, need, arms_l, cfg, usd)
+    # the tile-and-halo count that the bounds of PRs 2-4 used
+    tile_share = cell_share * (1 + 2 * usd / irv.TILE)
     print(f"  IRV round 2: need covers {float(need.float().mean()):.4f} of "
-          f"the pixels, {cell_share:.4f} of the vote blocks and "
-          f"{live_share:.4f} of the row spans are live", flush=True)
-    n_cnt = hw * (nd + 1)
-    cnt_n = irv.irv_rowspan(d1, o1, *lr, nd, zd, usd, need)
-    cnt_p = irv.irv_rowspan_plain(d1, o1, *lr, nd, zd, usd)
-    chk.record("B8 irv_rowspan (need)", torch.where(live, cnt_n, 0),
-               torch.where(live, cnt_p, 0),
-               lambda: irv.irv_rowspan(d1, o1, *lr, nd, zd, usd, need),
-               lambda: irv.irv_rowspan_plain(d1, o1, *lr, nd, zd, usd),
-               nbytes=hw * (4 + 1 + 8 + 1) + live_share * n_cnt,
-               ops=4 * live_share * n_cnt)
-    # the skipped spans are undefined: give the gated vote 255 (a count no
-    # span reaches) in each, so that reading one would show
-    cnt_n = torch.where(live, cnt_n, 255)
-    chk.record("B9 irv_vote (need)",
-               irv.irv_vote(cnt_n, d1, o1, *ud, *vote, need),
-               irv.irv_vote_plain(cnt_p, d1, o1, *ud, *vote, need),
-               lambda: irv.irv_vote(cnt_n, d1, o1, *ud, *vote, need),
-               lambda: irv.irv_vote_plain(cnt_p, d1, o1, *ud, *vote, need),
-               nbytes=(cell_share * (1 + 2 * usd / irv.TILE) * n_cnt
-                       + hw * (4 + 1 + 8 + 1) + hw * (4 + 1)),
-               ops=4 * cell_share * n_cnt)
-    del cnt_n, cnt_p, live, need, d1, o1
+          f"the pixels, {cell_share:.4f} of the vote tiles and "
+          f"{live_share:.4f} of the row spans are live; the votes read "
+          f"{read_share:.4f} of the spans (tile count with halo "
+          f"{tile_share:.4f})", flush=True)
+    chk.irv_shares[chk.suffix.strip() or MAIN] = dict(
+        need=float(need.float().mean()), live_rowspans=live_share,
+        vote_tiles=cell_share, votes_read=read_share,
+        tile_halo_count=tile_share)
+    del need, d1, o1
 
     # the pipeline's early-stop IRV against the fixed rounds
     irv_args = (cfg.irv_thresh_s, cfg.irv_thresh_h, nd, zd, usd,
@@ -647,6 +721,53 @@ def check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg):
           f"over {row_chunk}-row chunks: equal bit for bit, left eye "
           f"{chunked_ms:.3f} ms", flush=True)
     return fixed_l[0], fixed_r[0]
+
+
+def check_vstream_edges(chk, dl, ol, arms, cfg):
+    """B5 and B9 (full and gated) where their column streams meet the
+    frame's edges: on a 37-row crop of the frame's middle rows (fewer rows
+    than a ring of 2 * usd + 2: the rings prime against windows clipped at
+    both ends, and the arms reach past the crop) and on a 200-row crop at
+    reach 0 (no lag, empty B5 windows).  B5 takes a pass-1-sized random
+    volume, B9 the crop's raw disparities, labels and arms."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band, irv
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+
+    nd, zd = cfg.num_disp, cfg.zero_disp
+    s2, s3 = band.agg_rescale_shifts(cfg.usd)[1:]
+    gen = torch.Generator(device=dl.device).manual_seed(5)
+    y0 = dl.shape[0] // 2
+    for suffix, rows, usd in ((AT_SHORT, 37, cfg.usd), (AT_REACH0, 200, 0)):
+        chk.suffix = suffix
+        rs, cs = slice(y0, y0 + rows), slice(0, 1001)
+        d, o = dl[rs, cs].contiguous(), ol[rs, cs].contiguous()
+        a = arms[:, rs, cs].contiguous()
+        h, w = d.shape
+        hw, hwd = h * w, h * w * nd
+        vol = torch.randint(0, 17_600, (h, w, nd), generator=gen,
+                            device=dl.device, dtype=torch.int32)
+        ud = (a[UP], a[DOWN])
+        chk.record("B5 vv_pass (passes 2+3)",
+                   band.vv_pass(vol, *ud, s2, s3, usd),
+                   band.vv_pass_plain(vol, *ud, s2, s3, usd),
+                   lambda: band.vv_pass(vol, *ud, s2, s3, usd),
+                   lambda: band.vv_pass_plain(vol, *ud, s2, s3, usd),
+                   nbytes=hwd * 4 + 2 * hw * 4 + hwd * 4, ops=2 * 4 * hwd)
+        del vol
+        cnt = irv.irv_rowspan(d, o, a[LEFT], a[RIGHT], nd, zd, usd)
+        vote = (cfg.irv_thresh_s, cfg.irv_thresh_h, zd, usd)
+        record_full_vote(chk, cnt, d, o, ud, vote, usd)
+        del cnt
+        # a frontier around a sparse subset of the crop's outliers
+        ys = torch.arange(h, device=d.device)[:, None]
+        xs = torch.arange(w, device=d.device)[None, :]
+        need = irv.dilate_frontier((o != 0) & (ys % 11 == 0)
+                                   & (xs % 53 == 0), usd)
+        shares = record_gated_irv(chk, d, o, need, a, cfg, usd, b8=False)
+        print(f"  {suffix.strip()}: the gated vote reads {shares[2]:.4f} "
+              f"of the spans", flush=True)
+    chk.suffix = ""
 
 
 def check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg):
@@ -1326,9 +1447,11 @@ def check_forward_warp(img_l, img_r, bl, br, cfg):
     return dict(dfm_ms=ms, unhit_share=unhit)
 
 
-def run_path(name, entry, sbs, cfg, n_frames: int):
+def run_path(name, entry, sbs, cfg, n_frames: int, exact: bool = True):
     """Phase 3, one path: `entry(sbs, cfg)` once with the launch counts
-    zeroed just before and read just after, then n_frames timed frames."""
+    zeroed just before and read just after, then n_frames timed frames.
+    `exact` holds the counts of EXACT_LAUNCHES too (off only when timing
+    another checkout's package, whose wrappers may count otherwise)."""
     import torch
     from stereo_to_multiview_tpu_torch import kernels
     from stereo_to_multiview_tpu_torch.utils.profiling import StageTimer
@@ -1352,7 +1475,7 @@ def run_path(name, entry, sbs, cfg, n_frames: int):
     if stray:
         raise SmokeFailure(f"path {name}: kernels launched that the path "
                            f"replaces: {stray}")
-    for n, want in EXACT_LAUNCHES[name].items():
+    for n, want in EXACT_LAUNCHES[name].items() if exact else ():
         if launches[n] != want:
             raise SmokeFailure(f"path {name}: {n} launched {launches[n]} "
                                f"times, expected {want}")
@@ -1475,7 +1598,7 @@ def small_configs():
 
 
 def time_frames(root: str, n_frames: int) -> int:
-    """`--frames N [--package-root DIR]`: the three preset paths alone,
+    """`--frames N [--package-root DIR]`: the four preset paths alone,
     N timed frames each, on the package found under DIR (this checkout by
     default).  To compare two commits on one card, unpack the other commit
     into a directory and run this script once with each root, in turn."""
@@ -1487,12 +1610,17 @@ def time_frames(root: str, n_frames: int) -> int:
     card = gpu_line()
     kernels.build_kernels()
     sbs = stereo_sbs(config.HD1080_D128.num_rows, config.HD1080_D128.num_cols)
-    for name, entry, cfg in (
-            (MAIN, pipeline.process_frame, config.HD1080_D128),
-            (HSLO4K, pipeline.process_frame, config.HD1080_D128_HSLO_4K),
-            (LOWRES, pipeline.process_frame_lowres, config.HD1080_LOWRES)):
+    sbs4k = stereo_sbs(config.UHD4K_16V.num_rows, config.UHD4K_16V.num_cols)
+    for name, entry, cfg, frame in (
+            (MAIN, pipeline.process_frame, config.HD1080_D128, sbs),
+            (HSLO4K, pipeline.process_frame, config.HD1080_D128_HSLO_4K,
+             sbs),
+            (LOWRES, pipeline.process_frame_lowres, config.HD1080_LOWRES,
+             sbs),
+            (UHD4K, pipeline.process_frame, config.UHD4K_16V, sbs4k)):
         try:
-            _, res = run_path(name, entry, sbs, cfg, n_frames)
+            _, res = run_path(name, entry, frame, cfg, n_frames,
+                              exact=os.path.samefile(root, HERE))
         except (SmokeFailure, RuntimeError, ValueError) as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -1503,15 +1631,46 @@ def time_frames(root: str, n_frames: int) -> int:
     return 0
 
 
+def stream_checks(root: str) -> int:
+    """`--stream-checks [--package-root DIR]`: only the checks that hold
+    B5 and B9 against their plain versions (the stereo core's and the IRV
+    kernels at 1080p, then the edge frames), on the package under DIR.
+    Exit 1 if one fails: a deliberately broken copy of a kernel must."""
+    import torch
+    sys.path.insert(0, root)
+    from stereo_to_multiview_tpu_torch import config, kernels
+    from stereo_to_multiview_tpu_torch.models import pipeline
+
+    print(f"gpu: {gpu_line()}", flush=True)
+    kernels.build_kernels()
+    cfg = config.HD1080_D128
+    sbs = torch.from_numpy(stereo_sbs(cfg.num_rows, cfg.num_cols))
+    img_l, img_r = (t.contiguous() for t in
+                    pipeline.demux_sbs(sbs.to(torch.device("cuda"))))
+    chk = KernelChecks(reps=5)
+    try:
+        arms_l, arms_r = check_core_kernels(chk, img_l, img_r, cfg,
+                                            hslo=False)
+        check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
+        check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
+    except (SmokeFailure, RuntimeError, ValueError) as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=0,
                     help="time only the three preset paths, this many "
                          "frames each, and print no result line")
+    ap.add_argument("--stream-checks", action="store_true",
+                    help="only hold B5 and B9 against their plain versions "
+                         "and print no result line")
     ap.add_argument("--package-root", default=HERE,
-                    help="with --frames: the checkout whose package is "
-                         "timed (default: this one)")
+                    help="with --frames or --stream-checks: the checkout "
+                         "whose package runs (default: this one)")
     args = ap.parse_args()
     try:
         import torch
@@ -1523,6 +1682,8 @@ def main() -> int:
         return 2
     if args.frames > 0:
         return time_frames(os.path.abspath(args.package_root), args.frames)
+    if args.stream_checks:
+        return stream_checks(os.path.abspath(args.package_root))
     sys.path.insert(0, HERE)
     try:
         from stereo_to_multiview_tpu_torch import config, kernels
@@ -1561,6 +1722,7 @@ def main() -> int:
         arms_l, arms_r = check_core_kernels(chk, img_l, img_r, cfg)
         torch.cuda.empty_cache()
         bl, br = check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
+        check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
         # the entry points beside process_frame, on this frame's stages:
         # B15 and dr_irv_band_lr on its raw disparities and labels, the
@@ -1628,6 +1790,7 @@ def main() -> int:
         chk.suffix = ""
         kres = chk.results
         report["irv_early_stop"] = chk.irv
+        report["irv_need_shares"] = chk.irv_shares
         del img_l, img_r, low_l, low_r, arms_l, arms_r, bl, br
         torch.cuda.empty_cache()
 

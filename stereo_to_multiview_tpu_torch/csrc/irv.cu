@@ -18,28 +18,54 @@
 //
 // Bound on the H100: memory.  B8 writes and B9 reads the (H, W, B + 1)
 // u8 span volume, 267 MB per eye and round at 1080p/D=128 (~80 us each);
-// the planes around it are 8 MB.  Design: the window-prefix scheme of the
-// aggregation (window.cuh) with one thread per channel.  B8 stages the
+// the planes around it are 8 MB.  B8 uses the window-prefix scheme of the
+// aggregation (window.cuh) with one thread per channel: it stages the
 // row's bin keys for the tile plus the arm reach in shared memory, each
 // thread builds the prefix counts of its channel from them (the one-hot
-// volume never exists), and each output is one difference.  B9 runs down
-// one image column per block: prefix counts of each channel over the
-// tile's rows plus the reach, the window difference, then the block's
-// first-max reduction (warp max + ballot, then warps in order) and the
-// vote in the epilogue, so the histogram never reaches device memory.
-// Both stage their tile's window bounds (from the arms) in shared memory
-// first, so the per-position loop waits on no device-memory load; B9
-// keeps 16-bit prefixes so that more blocks fit on an SM.
+// volume never exists), and each output is one difference.
 //
-// `need` gating (the TPU kernels' flag-gated DMA, irvkern.py `wflags` /
-// `vflags`): with a `need` plane, only outliers at need pixels vote; every
-// other pixel keeps its disparity and label.  A B9 block (one column, 64
-// rows) with no such pixel copies its inputs through and reads no spans.
-// B8 first marks those live (64-row tile, column) cells in a small u8 map
-// (`irv_live_kernel`), and a B8 block (one row, 64 columns) whose row no
-// live cell of its columns can read (the cell's rows plus the vote reach)
+// B9 streams the span volume down the columns.  A warp owns one column of
+// a 256-row segment (2 adjacent columns a block, no barrier); per row it
+// reads the pixel's B + 1 contiguous bytes as aligned 32-bit words (a
+// funnel shift realigns them: B + 1 = 129 is odd), lane l taking bins
+// 4l .. 4l + 3 (and 4l + 128 .. above B = 128), and the total's byte in
+// one broadcast load.  The running prefixes of a lane's 4 bins are two
+// u32 words of packed u16 halves in a ring in shared memory (u16
+// differences are exact: a window's sum is at most (2 * reach + 1)^2 =
+// 4761 at usd = 34, below 2^16 for reach <= 127, so carries between the
+// halves cancel); the total's prefix is one u32 a slot.  Rows go in
+// batches of 8: the next batch's span words and planes (lane k loads row
+// k's) are loaded before the current one is summed, and no loaded value
+// is used before its batch comes up.  A batch first pushes its 8 rows
+// into the ring (independent rows: instruction-level parallelism), then
+// takes the votes of its rows that vote (an outlier, at a need pixel
+// under `need`), each reach rows behind its newest span row: the ring
+// holds 2 * reach + 2 + 8 rows.  Each lane takes the maximum of its keys
+// count << 16 | (0xFFFF - bin), one __reduce_max_sync gives the warp's
+// (the largest key is the first maximum), and lane 0 writes the pixel if
+// the vote accepts.  The kernel that maps the runs (below) copies disp
+// and labels to the outputs (coalesced), so the vote writes only the
+// pixels that accept.  Row
+// segments keep the grid at several waves (whole-column streams would
+// give 1920 warps of serial work, 1.2 waves of the card's resident
+// warps), at the cost of priming each segment's rings over reach rows.
+// 78 rows x (32 x 8 + 4) bytes = 20 KB of rings a warp at usd = 34: 5
+// blocks, 10 warps an SM.
+//
+// Runs and `need` gating (the TPU kernels' flag-gated DMA, irvkern.py
+// `wflags` / `vflags`): with a `need` plane, only outliers at need pixels
+// vote; every other pixel keeps its disparity and label.  One live map
+// (`irv_live_kernel`, coalesced along x) gives, for each (64-row tile,
+// column), the first and last row of a voting pixel (every outlier votes
+// without `need`).  A B9 warp streams only the rows from a tile's first
+// to its last voting row, with reach rows either side, continuing into
+// the next live tile and restarting its rings where the two tiles' voters
+// lie more than 2 * reach rows apart (a prefix difference does not depend
+// on where the prefix started): it reads only spans of the live cells'
+// reach.  With `need`, a B8 block (one row, 64 columns) whose row no live
+// cell of its columns can read (the cell's rows plus the vote reach)
 // writes nothing: those spans stay undefined and are never read.  Without
-// `need` both kernels do the full round.
+// `need` B8 writes every span.
 
 #include "stm_common.cuh"
 
@@ -53,28 +79,71 @@ __device__ __forceinline__ int irv_key(float d, uint8_t outl, int B, int zd) {
   return (b >= 0 && b < B) ? (int)b : B;
 }
 
-// live[t][x] = 1 iff column x has an outlier at a need pixel in rows
-// [t * IRV_TILE, (t + 1) * IRV_TILE): the cells whose votes B9 evaluates.
-__global__ void irv_live_kernel(const uint8_t* __restrict__ need,
-                                const uint8_t* __restrict__ outl,
-                                uint8_t* __restrict__ live, int H, int W) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+#define IRV_ROWS_X 64             // columns of a live-map block
+#define IRV_ROWS_Q 4              // row quarters of a tile, a thread each
+
+// The live map: live[t][x] = 0 if column x has no voting pixel (an
+// outlier, at a need pixel when `need` is given) in the tile's rows
+// [t * IRV_TILE, (t + 1) * IRV_TILE), else (last + 1) << 8 | (first + 1)
+// with the first and last voting rows' offsets in the tile.  B8 gates its
+// blocks on it, B9 takes its runs from it.  With disp_out, it also copies
+// disp and outl to the vote's outputs (coalesced), where the vote then
+// writes only the pixels that accept.  A thread takes a quarter of a
+// tile's rows in one column.
+__global__ void __launch_bounds__(IRV_ROWS_X * IRV_ROWS_Q)
+irv_live_kernel(const uint8_t* __restrict__ need,
+                const uint8_t* __restrict__ outl,
+                const float* __restrict__ disp, uint16_t* __restrict__ live,
+                float* __restrict__ disp_out, uint8_t* __restrict__ outl_out,
+                int H, int W) {
+  __shared__ int first_q[IRV_ROWS_Q][IRV_ROWS_X];
+  __shared__ int last_q[IRV_ROWS_Q][IRV_ROWS_X];
+  const int cx = threadIdx.x % IRV_ROWS_X, q = threadIdx.x / IRV_ROWS_X;
+  const int x = blockIdx.x * IRV_ROWS_X + cx;
   const int t = blockIdx.y;
-  if (x >= W) return;
-  const int r1 = min((t + 1) * IRV_TILE, H);
-  uint8_t any = 0;
-  for (int r = t * IRV_TILE; r < r1; ++r) {
-    const size_t i = (size_t)r * W + x;
-    any |= (need[i] != 0) & (outl[i] != 0);
+  constexpr int QR = IRV_TILE / IRV_ROWS_Q;
+  const int r0 = t * IRV_TILE + q * QR, n = max(min(QR, H - r0), 0);
+  int first = IRV_TILE + 1, last = 0;     // offsets in the tile, + 1
+  if (x < W) {
+#pragma unroll 8
+    for (int r = 0; r < n; ++r) {
+      const size_t i = (size_t)(r0 + r) * W + x;
+      const uint8_t o = outl[i];
+      if (disp_out != nullptr) {
+        disp_out[i] = disp[i];
+        outl_out[i] = o;
+      }
+      const bool v = (o != 0) & (need == nullptr || need[i] != 0);
+      first = v ? min(first, q * QR + r + 1) : first;
+      last = v ? q * QR + r + 1 : last;
+    }
   }
-  live[(size_t)t * W + x] = any;
+  first_q[q][cx] = first;
+  last_q[q][cx] = last;
+  __syncthreads();
+  if (q != 0 || x >= W) return;
+  for (int k = 1; k < IRV_ROWS_Q; ++k) {
+    first = min(first, first_q[k][cx]);
+    last = max(last, last_q[k][cx]);
+  }
+  live[(size_t)t * W + x] = (uint16_t)(last == 0 ? 0 : last << 8 | first);
+}
+
+static inline void irv_live(const void* need, const void* outl,
+                            const void* disp, void* live, void* disp_out,
+                            void* outl_out, int H, int W,
+                            cudaStream_t stream) {
+  dim3 grid((W + IRV_ROWS_X - 1) / IRV_ROWS_X, (H + IRV_TILE - 1) / IRV_TILE);
+  irv_live_kernel<<<grid, IRV_ROWS_X * IRV_ROWS_Q, 0, stream>>>(
+      (const uint8_t*)need, (const uint8_t*)outl, (const float*)disp,
+      (uint16_t*)live, (float*)disp_out, (uint8_t*)outl_out, H, W);
 }
 
 __global__ void irv_rowspan_kernel(const float* __restrict__ disp,
                                    const uint8_t* __restrict__ outl,
                                    const int* __restrict__ left,
                                    const int* __restrict__ right,
-                                   const uint8_t* __restrict__ live,
+                                   const uint16_t* __restrict__ live,
                                    uint8_t* __restrict__ cnt, int H, int W,
                                    int B, int zd, int reach) {
   extern __shared__ int smem[];
@@ -90,7 +159,7 @@ __global__ void irv_rowspan_kernel(const float* __restrict__ disp,
     const int t1 = min((y + reach) / IRV_TILE, nt - 1);
     int any = 0;
     for (int i = threadIdx.x; i < (t1 - t0 + 1) * (p1 - p0); i += blockDim.x)
-      any |= live[(size_t)(t0 + i / (p1 - p0)) * W + p0 + i % (p1 - p0)];
+      any |= live[(size_t)(t0 + i / (p1 - p0)) * W + p0 + i % (p1 - p0)] != 0;
     if (!__syncthreads_or(any)) return;
   }
   const int lo = max(p0 - reach, 0);
@@ -124,111 +193,11 @@ __global__ void irv_rowspan_kernel(const float* __restrict__ disp,
                                        pre[win_a[p - p0] * C + c]);
 }
 
-__global__ void irv_vote_kernel(const uint8_t* __restrict__ cnt,
-                                const float* __restrict__ disp,
-                                const uint8_t* __restrict__ outl,
-                                const int* __restrict__ up,
-                                const int* __restrict__ down,
-                                const uint8_t* __restrict__ need,
-                                float* __restrict__ disp_out,
-                                uint8_t* __restrict__ outl_out, int H, int W,
-                                int B, int zd, int reach, int thresh_s,
-                                float thresh_h) {
-  extern __shared__ int smem[];
-  const int C = B + 1;
-  const int x = blockIdx.x;
-  const int p0 = blockIdx.y * IRV_TILE;
-  const int p1 = min(p0 + IRV_TILE, H);
-  if (need != nullptr) {
-    int any = 0;
-    for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
-      const size_t i = (size_t)p * W + x;
-      any |= (need[i] != 0) & (outl[i] != 0);
-    }
-    if (!__syncthreads_or(any)) {       // no vote to evaluate: pass through
-      for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
-        const size_t i = (size_t)p * W + x;
-        disp_out[i] = disp[i];
-        outl_out[i] = outl[i];
-      }
-      return;
-    }
-  }
-  const int lo = max(p0 - reach, 0);
-  const int hi = min(p1 + reach, H);
-  const int nw = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  int* wmax = smem;                                   // IRV_TILE * nw
-  int* warg = wmax + IRV_TILE * nw;                   // IRV_TILE * nw
-  int* tot = warg + IRV_TILE * nw;                    // IRV_TILE
-  int* win_a = tot + IRV_TILE;                        // IRV_TILE window
-  int* win_b = win_a + IRV_TILE;                      // ends (prefix rows)
-  uint16_t* pre = reinterpret_cast<uint16_t*>(win_b + IRV_TILE);
-  for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
-    const size_t i = (size_t)p * W + x;
-    const int au = min(max(up[i], 0), reach);
-    const int ad = min(max(down[i], 0), reach);
-    win_a[p - p0] = max(p - au, 0) - lo;
-    win_b[p - p0] = min(p + ad + 1, H) - lo;
-  }
-
-  // Prefix counts mod 2^16: a window's sum is at most (2 * reach + 1)^2
-  // (row counts <= 2 * reach + 1 over <= 2 * reach + 1 rows; 4761 at
-  // usd = 34), below 2^16 for reach <= 127, so the wrapped difference is
-  // exact.
-  const int c = threadIdx.x;
-  if (c < C) {
-    uint16_t acc = 0;
-    pre[c] = 0;
-#pragma unroll 8
-    for (int q = lo; q < hi; ++q) {
-      acc += cnt[((size_t)q * W + x) * C + c];
-      pre[(q - lo + 1) * C + c] = acc;                // read back only by c
-    }
-  }
-  __syncthreads();
-  for (int p = p0; p < p1; ++p) {
-    const int v = c < C ? (uint16_t)(pre[win_b[p - p0] * C + c] -
-                                     pre[win_a[p - p0] * C + c])
-                        : 0;
-    if (c == B) tot[p - p0] = v;
-    const int key = c < B ? v : -1;
-    const int m = __reduce_max_sync(0xFFFFFFFFu, key);
-    const unsigned hit = __ballot_sync(0xFFFFFFFFu, key == m);
-    if ((threadIdx.x & 31) == 0) {
-      wmax[(p - p0) * nw + warp] = m;
-      warg[(p - p0) * nw + warp] = (warp << 5) + __ffs(hit) - 1;
-    }
-  }
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < p1 - p0; t += blockDim.x) {
-    int best = wmax[t * nw];
-    int arg = warg[t * nw];
-    for (int w = 1; w < nw; ++w) {
-      if (wmax[t * nw + w] > best) {          // strict: the first maximum wins
-        best = wmax[t * nw + w];
-        arg = warg[t * nw + w];
-      }
-    }
-    const size_t i = (size_t)(p0 + t) * W + x;
-    const float d = disp[i];
-    const uint8_t o = outl[i];
-    const int total = tot[t];
-    const int max_d = best > 0 ? arg - zd : (int)d;
-    const float ratio = __fdiv_rn((float)(max_d + zd), (float)max(total, 1));
-    const bool accept = o != 0 && (need == nullptr || need[i] != 0) &&
-                        total > thresh_s && ratio > thresh_h;
-    disp_out[i] = accept ? (float)max_d : d;
-    outl_out[i] = accept ? 0 : o;
-  }
-}
-
 static inline int irv_threads(int C) { return (C + 31) / 32 * 32; }
 
 // disp (H, W) f32, outl (H, W) u8, left/right (H, W) i32; cnt (H, W, B + 1)
 // u8.  Arms clamp to [0, reach], reach <= 127.  need (H, W) u8 or null;
-// with need, live is a (ceil(H / 64), W) u8 scratch and the spans no
+// with need, live is a (ceil(H / 64), W) u16 scratch and the spans no
 // needed vote reads are left unwritten.
 STM_API int stm_irv_rowspan(const void* disp, const void* outl,
                             const void* left, const void* right,
@@ -245,42 +214,304 @@ STM_API int stm_irv_rowspan(const void* disp, const void* outl,
   if (err != cudaSuccess) return (int)err;
   if (need != nullptr) {
     if (live == nullptr) return (int)cudaErrorInvalidValue;
-    dim3 lgrid((W + 127) / 128, (H + IRV_TILE - 1) / IRV_TILE);
-    irv_live_kernel<<<lgrid, 128, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)need, (const uint8_t*)outl, (uint8_t*)live, H, W);
+    irv_live(need, outl, disp, live, nullptr, nullptr, H, W,
+             (cudaStream_t)stream);
   }
   dim3 grid((W + IRV_TILE - 1) / IRV_TILE, H);
   irv_rowspan_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const float*)disp, (const uint8_t*)outl, (const int*)left,
-      (const int*)right, need != nullptr ? (const uint8_t*)live : nullptr,
+      (const int*)right, need != nullptr ? (const uint16_t*)live : nullptr,
       (uint8_t*)cnt, H, W, B, zd, reach);
   return (int)cudaGetLastError();
 }
 
-// cnt (H, W, B + 1) u8 from stm_irv_rowspan (called with the same need);
-// disp/outl the round's input; up/down (H, W) i32; need (H, W) u8 or null;
-// disp_out (H, W) f32, outl_out (H, W) u8.
+// ---- B9: the vote ------------------------------------------------------
+
+#define IRV_SEG (4 * IRV_TILE)   // rows of a vote block's segment
+#define IRV_VOTE_WARPS 2         // columns (one warp each) of a vote block
+#define IRV_SMEM_MAX (227 * 1024)
+
+// Rows of a batch for GJ word groups a lane (<= 32: lane k loads row k's
+// planes); the raw words of two batches live in registers.
+template <int GJ>
+struct IrvStep {
+  static constexpr int value = GJ <= 2 ? 8 : 4;
+};
+
+// Word wi of the span volume (`total` bytes, 4-byte aligned); the last
+// word may be partial and is read byte by byte.
+__device__ __forceinline__ uint32_t irv_word(const uint8_t* __restrict__ cnt,
+                                             size_t wi, size_t total) {
+  if (wi * 4 + 4 <= total) return reinterpret_cast<const uint32_t*>(cnt)[wi];
+  uint32_t v = 0;
+  for (int k = 0; k < 4; ++k)
+    if (wi * 4 + k < total) v |= (uint32_t)cnt[wi * 4 + k] << (8 * k);
+  return v;
+}
+
+// One warp, one column x: the votes of rows [a, b), streaming the span
+// rows [max(a - reach, 0), min(b + reach, H)) once.  Lane l owns the bin
+// groups g = l + 32 j (bins 4g .. 4g + 3 of the GB = ceil(B / 4)): their
+// running prefixes are two u32 words, each packing two u16 bin prefixes.
+// A window's packed difference is exact in both halves, because each
+// bin's window sum is below 2^16: the wrapped carries between the halves
+// cancel.  The total channel B has a u32 prefix of its own, the same in
+// every lane.  Ring slot s: bin group g at ring[s * GB + g], the total at
+// ringt[s].
+//
+// A pixel's bins are the bytes [o, o + B) of the volume; lane l loads the
+// aligned words (o >> 2) + l + 32 j that hold them (lane 0 also the word
+// after the last group, when it is needed), and its group's 4 bytes are a
+// funnel shift of its word and the next one, which the next lane loaded.
+// The total's byte is one broadcast load.  Nothing in a batch's loads
+// uses a loaded value: the loads of batch n + 1 are in flight while batch
+// n is summed and voted.
+template <int GJ>
+__device__ __forceinline__ void irv_vote_run(
+    const uint8_t* __restrict__ cnt, const float* __restrict__ disp,
+    const uint8_t* __restrict__ outl, const int* __restrict__ up,
+    const int* __restrict__ down, const uint8_t* __restrict__ need,
+    float* __restrict__ disp_out, uint8_t* __restrict__ outl_out, int H,
+    int W, int B, int zd, int reach, int N, int thresh_s, float thresh_h,
+    int x, int a, int b, uint2* ring, uint32_t* ringt) {
+  constexpr int STEP = IrvStep<GJ>::value;
+  const unsigned FULL = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const int C = B + 1, GB = (B + 3) / 4;
+  const size_t total = (size_t)H * W * C;
+  const size_t rowb = (size_t)W * C;     // bytes from a row to the next
+  const int r0 = max(a - reach, 0), r1 = min(b + reach, H);
+  const int i_end = b + reach;           // the vote of row b - 1 is step
+                                         // b - 1 + reach
+  // the bytes of each owned group that are bins (the rest belong to the
+  // total or the next pixel)
+  uint32_t mask[GJ];
+#pragma unroll
+  for (int j = 0; j < GJ; ++j) {
+    const int g = lane + 32 * j, left = B - 4 * g;
+    mask[j] = g >= GB ? 0u : left >= 4 ? FULL : (1u << (8 * left)) - 1u;
+    if (g < GB) ring[g] = make_uint2(0u, 0u);    // P[0] in slot 0
+  }
+  if (lane == 0) ringt[0] = 0u;
+  uint2 acc[GJ];
+#pragma unroll
+  for (int j = 0; j < GJ; ++j) acc[j] = make_uint2(0u, 0u);
+  uint32_t acct = 0u;
+  int w = 0;                             // slot of the newest prefix
+
+  // the next batch: raw span words and total bytes of rows i0 .. i0 +
+  // STEP - 1, and in lane k the raw planes of vote row i0 + k - reach
+  uint32_t wn[STEP][GJ], xn[STEP], tn[STEP];
+  int n_o = 0, n_n = 0, n_up = 0, n_dn = 0;
+  float n_d = 0.f;
+  auto load = [&](int i0) {
+    const size_t ob = ((size_t)i0 * W + x) * C;
+    // a batch near the end of the volume reads its last word bytewise
+    const bool tail = ob + (STEP - 1) * rowb + 4 * (32 * GJ + 2) > total;
+#pragma unroll
+    for (int k = 0; k < STEP; ++k) {
+      const size_t o = ob + k * rowb;
+      const uint32_t* wp = reinterpret_cast<const uint32_t*>(cnt) + (o >> 2);
+      const int nw = (((int)(o & 3) + B - 1) >> 2) + 1;   // words of bins
+      const bool row = i0 + k < r1;
+#pragma unroll
+      for (int j = 0; j < GJ; ++j) {
+        const int idx = lane + 32 * j;
+        wn[k][j] = !row || idx >= nw ? 0u
+                   : tail ? irv_word(cnt, (o >> 2) + idx, total) : wp[idx];
+      }
+      xn[k] = !row || lane != 0 || 32 * GJ >= nw ? 0u
+              : tail ? irv_word(cnt, (o >> 2) + 32 * GJ, total)
+                     : wp[32 * GJ];
+      tn[k] = row ? cnt[o + B] : 0u;
+    }
+    const int y = i0 + lane - reach;
+    n_o = 0;
+    if (lane < STEP && y >= a && y < b) {
+      const size_t p = (size_t)y * W + x;
+      n_o = outl[p];
+      n_n = need == nullptr ? 1 : need[p];
+      n_up = up[p];
+      n_dn = down[p];
+      n_d = disp[p];
+    }
+  };
+
+  load(r0);
+  for (int i0 = r0; i0 < i_end; i0 += STEP) {
+    uint32_t wc[STEP][GJ], xc[STEP], tc[STEP];
+#pragma unroll
+    for (int k = 0; k < STEP; ++k) {
+#pragma unroll
+      for (int j = 0; j < GJ; ++j) wc[k][j] = wn[k][j];
+      xc[k] = xn[k];
+      tc[k] = tn[k];
+    }
+    // lane k: does row k's pixel vote, and its window [lo, hi) of rows
+    const int yl = i0 + lane - reach;
+    const bool vot = n_o != 0 && n_n != 0;
+    const unsigned win =
+        ((unsigned)min(yl + min(max(n_dn, 0), reach) + 1, H) << 16) |
+        (unsigned)max(yl - min(max(n_up, 0), reach), 0);
+    const float dv = n_d;
+    const unsigned voters = __ballot_sync(FULL, vot);
+    const unsigned ob = (unsigned)(((size_t)i0 * W + x) * C);  // low bits
+    if (i0 + STEP < i_end) load(i0 + STEP);
+    // the batch's span rows into the rings (rows past the frame are zero
+    // rows: their prefixes repeat the last)
+#pragma unroll
+    for (int k = 0; k < STEP; ++k) {                  // P[i0 + k + 1 - r0]
+      const int sh = 8 * (int)((ob + (unsigned)k * (unsigned)rowb) & 3u);
+      w = w + 1 == N ? 0 : w + 1;
+#pragma unroll
+      for (int j = 0; j < GJ; ++j) {
+        // lane 0 hands lane 31 the first word after its group
+        const uint32_t give =
+            lane != 0 ? wc[k][j]
+                      : j + 1 < GJ ? wc[k][min(j + 1, GJ - 1)] : xc[k];
+        const uint32_t nxt = __shfl_sync(FULL, give, (lane + 1) & 31);
+        const uint32_t v = __funnelshift_r(wc[k][j], nxt, sh) & mask[j];
+        acc[j].x += __byte_perm(v, 0u, 0x4140);
+        acc[j].y += __byte_perm(v, 0u, 0x4342);
+        if (mask[j] != 0u) ring[w * GB + lane + 32 * j] = acc[j];
+      }
+      acct += tc[k];
+      if (lane == 0) ringt[w] = acct;
+    }
+    // then the batch's votes: the newest prefix, row i0 + STEP, sits in
+    // slot w, and a window reaches back at most STEP + 2 * reach < N rows
+    for (unsigned vb = voters; vb != 0u; vb &= vb - 1u) {
+      const int k = __ffs(vb) - 1;
+      const int y = i0 + k - reach;
+      const unsigned wk = __shfl_sync(FULL, win, k);
+      const float d = __shfl_sync(FULL, dv, k);
+      const int shi = w - (i0 + STEP - (int)(wk >> 16));
+      const int slo = w - (i0 + STEP - (int)(wk & 0xFFFFu));
+      const int s_hi = shi < 0 ? shi + N : shi;
+      const int s_lo = slo < 0 ? slo + N : slo;
+      // key = count << 16 | (0xFFFF - bin): the largest key is the first
+      // maximum of the counts (a masked byte counts 0 and never wins)
+      unsigned key = 0u;
+#pragma unroll
+      for (int j = 0; j < GJ; ++j) {
+        const int g = lane + 32 * j;
+        if (mask[j] == 0u) continue;
+        const uint2 ph = ring[s_hi * GB + g], pl = ring[s_lo * GB + g];
+        const uint32_t h01 = ph.x - pl.x, h23 = ph.y - pl.y;
+        const unsigned c0 = 0xFFFFu - 4u * g;
+        key = max(key, max(max((h01 << 16) | c0, (h01 & 0xFFFF0000u) |
+                                                      (c0 - 1u)),
+                           max((h23 << 16) | (c0 - 2u),
+                               (h23 & 0xFFFF0000u) | (c0 - 3u))));
+      }
+      const unsigned kmax = __reduce_max_sync(FULL, key);
+      const int total_k = (int)(ringt[s_hi] - ringt[s_lo]);
+      const int m = (int)(kmax >> 16);
+      const int max_d = m > 0 ? 0xFFFF - (int)(kmax & 0xFFFFu) - zd : (int)d;
+      const float ratio =
+          __fdiv_rn((float)(max_d + zd), (float)max(total_k, 1));
+      if (lane == 0 && total_k > thresh_s && ratio > thresh_h) {
+        const size_t p = (size_t)y * W + x;
+        disp_out[p] = (float)max_d;
+        outl_out[p] = 0;
+      }
+    }
+  }
+}
+
+// Grid: (ceil(W / warps), ceil(H / IRV_SEG)); a warp takes one column of
+// the block's row segment and streams its runs of voting rows.
+template <int GJ>
+__global__ void __launch_bounds__(32 * IRV_VOTE_WARPS, 5)
+irv_vote_kernel(const uint8_t* __restrict__ cnt,
+                const float* __restrict__ disp,
+                const uint8_t* __restrict__ outl, const int* __restrict__ up,
+                const int* __restrict__ down, const uint8_t* __restrict__ need,
+                const uint16_t* __restrict__ live,
+                float* __restrict__ disp_out, uint8_t* __restrict__ outl_out,
+                int H, int W, int B, int zd, int reach, int N, int thresh_s,
+                float thresh_h) {
+  extern __shared__ uint2 vrings[];
+  const int warp = threadIdx.x >> 5;
+  const int x = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (x >= W) return;                    // a whole warp: no barrier below
+  const int GB = (B + 3) / 4;
+  uint2* ring = reinterpret_cast<uint2*>(
+      reinterpret_cast<uint8_t*>(vrings) + (size_t)warp * N * (8 * GB + 4));
+  uint32_t* ringt = reinterpret_cast<uint32_t*>(ring + (size_t)N * GB);
+  const int y1 = min((blockIdx.y + 1) * IRV_SEG, H);
+  const int t1 = (y1 + IRV_TILE - 1) / IRV_TILE;
+  // runs [a, b) from a tile's first to a later tile's last voting row:
+  // the next tile joins the run when the rows between their voters are
+  // at most 2 * reach (no row is streamed that a restart would skip)
+  int a = -1, b = -1;
+  for (int t = blockIdx.y * (IRV_SEG / IRV_TILE); t < t1; ++t) {
+    const unsigned v = live[(size_t)t * W + x];
+    if (v == 0u) continue;
+    const int f = t * IRV_TILE + (int)(v & 0xFFu) - 1;
+    const int l = t * IRV_TILE + (int)(v >> 8);
+    if (a >= 0 && f - b > 2 * reach) {
+      irv_vote_run<GJ>(cnt, disp, outl, up, down, need, disp_out, outl_out,
+                       H, W, B, zd, reach, N, thresh_s, thresh_h, x, a, b,
+                       ring, ringt);
+      a = -1;
+    }
+    if (a < 0) a = f;
+    b = l;
+  }
+  if (a >= 0)
+    irv_vote_run<GJ>(cnt, disp, outl, up, down, need, disp_out, outl_out, H,
+                     W, B, zd, reach, N, thresh_s, thresh_h, x, a, b, ring,
+                     ringt);
+}
+
+// cnt (H, W, B + 1) u8 from stm_irv_rowspan (called with the same need),
+// 4-byte aligned; disp/outl the round's input; up/down (H, W) i32; need
+// (H, W) u8 or null; live a (ceil(H / 64), W) u16 scratch; disp_out (H, W)
+// f32, outl_out (H, W) u8.
 STM_API int stm_irv_vote(const void* cnt, const void* disp, const void* outl,
                          const void* up, const void* down, const void* need,
-                         void* disp_out, void* outl_out, int H, int W, int B,
-                         int zd, int reach, int thresh_s, float thresh_h,
-                         void* stream) {
-  const int threads = irv_threads(B + 1);
-  if (H <= 0 || W <= 0 || B <= 0 || threads > 1024 || reach < 0 ||
-      reach > 127)
+                         void* live, void* disp_out, void* outl_out, int H,
+                         int W, int B, int zd, int reach, int thresh_s,
+                         float thresh_h, void* stream) {
+  const int GB = (B + 3) / 4;
+  const int GJ = (GB + 31) / 32;
+  if (H <= 0 || H > 65535 || W <= 0 || B <= 0 || GJ > 8 || reach < 0 ||
+      reach > 127 || ((uintptr_t)cnt & 3) != 0 ||
+      live == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int nw = threads / 32;
-  const size_t smem = (size_t)(2 * IRV_TILE * nw + 3 * IRV_TILE) *
-                          sizeof(int) +
-                      (size_t)(IRV_TILE + 2 * reach + 1) * (B + 1) *
-                          sizeof(uint16_t);
-  cudaError_t err = stm_smem_cap(irv_vote_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(W, (H + IRV_TILE - 1) / IRV_TILE);
-  irv_vote_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)cnt, (const float*)disp, (const uint8_t*)outl,
-      (const int*)up, (const int*)down, (const uint8_t*)need,
-      (float*)disp_out, (uint8_t*)outl_out, H, W, B, zd, reach, thresh_s,
-      thresh_h);
+  cudaStream_t s = (cudaStream_t)stream;
+  irv_live(need, outl, disp, live, disp_out, outl_out, H, W, s);
+  // a ring of N = 2 * reach + 2 + STEP rows (even: every warp's rings
+  // stay 8-byte aligned) of GB bin groups and the total
+#define IRV_VOTE_LAUNCH(J)                                                  \
+  case J: {                                                                 \
+    const int N = 2 * reach + 2 + IrvStep<J>::value;                        \
+    const size_t per_warp = (size_t)N * (8 * GB + 4);                       \
+    const int warps =                                                       \
+        (int)min((size_t)IRV_VOTE_WARPS, IRV_SMEM_MAX / per_warp);          \
+    if (warps == 0) return (int)cudaErrorInvalidValue;                      \
+    const size_t smem = warps * per_warp;                                   \
+    cudaError_t err = stm_smem_cap(irv_vote_kernel<J>, smem);               \
+    if (err != cudaSuccess) return (int)err;                                \
+    dim3 grid((W + warps - 1) / warps, (H + IRV_SEG - 1) / IRV_SEG);        \
+    irv_vote_kernel<J><<<grid, 32 * warps, smem, s>>>(                      \
+        (const uint8_t*)cnt, (const float*)disp, (const uint8_t*)outl,      \
+        (const int*)up, (const int*)down, (const uint8_t*)need,             \
+        (const uint16_t*)live, (float*)disp_out,                            \
+        (uint8_t*)outl_out, H, W, B, zd, reach, N, thresh_s, thresh_h);     \
+    break;                                                                  \
+  }
+  switch (GJ) {
+    IRV_VOTE_LAUNCH(1)
+    IRV_VOTE_LAUNCH(2)
+    IRV_VOTE_LAUNCH(3)
+    IRV_VOTE_LAUNCH(4)
+    IRV_VOTE_LAUNCH(5)
+    IRV_VOTE_LAUNCH(6)
+    IRV_VOTE_LAUNCH(7)
+    IRV_VOTE_LAUNCH(8)
+  }
+#undef IRV_VOTE_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -44,10 +44,10 @@ _SIGS = {
     "stm_hpass_sum_i32": [_P, _P, _P, _P] + [_I] * 5 + [_P],
     "stm_hpass_wta_i32": [_P, _P, _P, _P] + [_I] * 5 + [_P],
     "stm_hslo_wta": [_P] * 5 + [_I] * 5 + [_F, _P, _P, _P],
-    "stm_vv_pass": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
+    "stm_vv_pass": [_P] * 4 + [_I] * 6 + [_P],
     "stm_dcc": [_P] * 4 + [_I, _I, _F, _I, _P],
     "stm_irv_rowspan": [_P] * 7 + [_I] * 5 + [_P],
-    "stm_irv_vote": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "stm_irv_vote": [_P] * 9 + [_I] * 6 + [_F, _P],
     "stm_bilateral": [_P] * 3 + [_I] * 3 + [_F, _F, _P],
     "stm_bleed_mask": [_P, _P, _I, _I, _I, _F, _P],
     "stm_warp_merge": [_P] * 10 + [_I] * 3 + [_P],

@@ -161,19 +161,22 @@ def vv_pass(vol: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
             s2: int, s3: int, max_arm: int) -> torch.Tensor:
     """Passes 2 and 3: two vertical window sums of an (H, W, D) int32
     volume over [y - UP, y + DOWN), rescaled by s2 then s3.  Kernel B5
-    (csrc/vpass.cu), launched twice with an int32 scratch between."""
+    (csrc/vpass.cu), one launch: each column streams down the frame once
+    through two prefix rings."""
     if kernels.on_cpu(vol):
         return vv_pass_plain(vol, up, down, s2, s3, max_arm)
     kernels.require(vol, "vol", torch.int32, 3, vol.device)
     _check_arms(vol, (up, down), ("up", "down"))
     h, w, nd = vol.shape
-    scratch = torch.empty_like(vol)
+    if nd > 1024 or h > 65535:
+        raise ValueError("vv_pass: the kernel takes D <= 1024 and H <= "
+                         "65535")
     out = torch.empty_like(vol)
     rc = kernels.lib("vpass").stm_vv_pass(
-        vol.data_ptr(), up.data_ptr(), down.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), h, w, nd, max_arm, s2, s3, kernels.stream_of(out))
+        vol.data_ptr(), up.data_ptr(), down.data_ptr(), out.data_ptr(), h,
+        w, nd, max_arm, s2, s3, kernels.stream_of(out))
     kernels.check_launch(rc, "vv_pass")
-    vv_pass.launches += 2
+    vv_pass.launches += 1
     return out
 
 

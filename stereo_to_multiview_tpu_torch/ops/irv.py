@@ -56,7 +56,7 @@ def span_sum_inclusive(vol: torch.Tensor, arm_neg: torch.Tensor,
     return cs.gather(axis, hi) - cs.gather(axis, lo)
 
 
-TILE = 64        # rows of a vote block / columns of a row-span block
+TILE = 64        # rows of a vote tile / columns of a row-span block
 
 
 def irv_rowspan_plain(disp, outliers, left, right, num_disp: int,
@@ -126,8 +126,9 @@ def irv_rowspan(disp: torch.Tensor, outliers: torch.Tensor,
     the reliable pixels of bin b (trunc(disp) + zero_disp == b) in
     [x - LEFT, x + RIGHT], channel B every reliable pixel there.  With a
     `need` plane (bool or u8) the kernel computes only the spans that a
-    vote at an outlying need pixel may read, at the grain of its blocks
-    (TILE rows of a column for a vote, TILE columns of a row for a span);
+    vote at an outlying need pixel may read, at the grain of the kernels'
+    gating (TILE-row tiles of a column for a vote, TILE columns of a row
+    for a span);
     the others are left undefined, and `irv_vote` with the same `need`
     never reads them.
     Kernel B8 (csrc/irv.cu)."""
@@ -142,7 +143,7 @@ def irv_rowspan(disp: torch.Tensor, outliers: torch.Tensor,
     cnt = torch.empty((h, w, num_disp + 1), dtype=torch.uint8,
                       device=disp.device)
     live = None if need is None else torch.empty(
-        (-(-h // TILE), w), dtype=torch.uint8, device=disp.device)
+        (-(-h // TILE), w), dtype=torch.int16, device=disp.device)
     rc = kernels.lib("irv").stm_irv_rowspan(
         disp.data_ptr(), outliers.data_ptr(), left.data_ptr(),
         right.data_ptr(), None if need is None else need.data_ptr(),
@@ -160,7 +161,8 @@ def irv_vote(cnt: torch.Tensor, disp: torch.Tensor, outliers: torch.Tensor,
     """The vote of one IRV round from its row spans: (disp, outliers)
     after the round.  With a `need` plane (bool or u8) the vote is
     applied at need pixels only; every other pixel keeps its disparity
-    and label.  Kernel B9 (csrc/irv.cu)."""
+    and label.  Kernel B9 (csrc/irv.cu): each column streams only the
+    span rows within reach of a pixel that votes."""
     if kernels.on_cpu(cnt):
         return irv_vote_plain(cnt, disp, outliers, up, down, thresh_s,
                               thresh_h, zero_disp, usd, need)
@@ -172,14 +174,19 @@ def irv_vote(cnt: torch.Tensor, disp: torch.Tensor, outliers: torch.Tensor,
         raise ValueError("irv_vote: cnt must be (H, W, B + 1)")
     if not 0 <= usd <= 127:
         raise ValueError("irv_vote: usd must be <= 127")
+    if cnt.data_ptr() % 4 or cnt.shape[2] > 1024 or h > 65535:
+        raise ValueError("irv_vote: cnt must be 4-byte aligned, with at "
+                         "most 1024 channels and 65535 rows")
     disp_out = torch.empty_like(disp)
     out_out = torch.empty_like(outliers)
+    live = torch.empty((-(-h // TILE), w), dtype=torch.int16,
+                       device=disp.device)
     rc = kernels.lib("irv").stm_irv_vote(
         cnt.data_ptr(), disp.data_ptr(), outliers.data_ptr(), up.data_ptr(),
         down.data_ptr(), None if need is None else need.data_ptr(),
-        disp_out.data_ptr(), out_out.data_ptr(), h, w,
-        cnt.shape[2] - 1, zero_disp, usd, thresh_s, float(f32(thresh_h)),
-        kernels.stream_of(disp_out))
+        live.data_ptr(), disp_out.data_ptr(),
+        out_out.data_ptr(), h, w, cnt.shape[2] - 1, zero_disp, usd,
+        thresh_s, float(f32(thresh_h)), kernels.stream_of(disp_out))
     kernels.check_launch(rc, "irv_vote")
     irv_vote.launches += 1
     return disp_out, out_out
