@@ -15,7 +15,11 @@
    rounds and the row-chunked IRV against the whole-frame one, bit for
    bit, and the lane-major window passes at the band_digits 2 and 1
    shifts, and the streamed B5 and B9 where their streams meet the
-   frame's edges (37 rows, fewer than a ring holds; reach 0).  The entry
+   frame's edges (37 rows, fewer than a ring holds; reach 0), and the
+   streamed B4 and B6 there and where their row streams and vector paths
+   end (a width below one segment, D=126 and D=130, prefixes that wrap,
+   ties).  The configuration limits once refused on the card: B2 and B3
+   at D=126, the warps B12, B14 and B19 with 38 views.  The entry
    points beside process_frame run on the 1080p
    frame's own stages, each as a path with its launch counts checked:
    `dr_irv_band_lr` (B15, 5 fixed rounds) equal to the fixed-round
@@ -39,17 +43,17 @@
    kernels the path replaces must not; then a few runs are timed with
    CUDA events.
 4. Checks the outputs: shapes, dtypes, finite disparities in range, and
-   small frames (plain, HSLO + median + resampled, lowres, and the
-   disparity-major core) run on the card against the same frames run on
-   the CPU.
+   small frames (plain, HSLO + median + resampled, lowres, bilateral
+   radius 10, num_disp 30, 40 views, and the disparity-major core) run on
+   the card against the same frames run on the CPU.
 
 `python3 chip_smoke.py --frames N [--package-root DIR]` instead times only
 the four preset paths (HD1080_D128, HSLO_4K, LOWRES, UHD4K_16V), N frames
 each, on the package under DIR: the way to compare two commits' frame
 and stage times within one call.  `--stream-checks [--package-root DIR]`
-only holds the streamed kernels B5 and B9 (and the kernels that feed
-them) against their plain versions, on the package under DIR: the way to
-show that a deliberately broken copy of either fails.
+only holds the streamed kernels B4, B5, B6 and B9 (and the kernels that
+feed them) against their plain versions, on the package under DIR: the
+way to show that a deliberately broken copy of one fails.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
 a `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -150,6 +154,35 @@ for _suffix in (AT_SHORT, AT_REACH0):
     for _name in ("B5 vv_pass (passes 2+3)", "B9 irv_vote",
                   "B9 irv_vote (need)"):
         KERNELS[_name + _suffix] = KERNELS[_name]
+# the streamed horizontal passes where their row streams meet the frame's
+# edges and their vector paths end: the crops above (1001 columns, no
+# multiple of a segment), a width below one segment, the left-eye view of
+# a crop's own pair volume, a D that is no multiple of 4 (scalar loads
+# and stores), a D above 128 (two chunks of d a lane), costs that carry
+# the u16 prefixes past 2^16, and sums full of ties
+HPASS = ("B4 h_pass_sum (pass 1)", "B6 h_pass_wta (pass 4 + WTA)",
+         "B6 h_pass_sum (pass 4, no WTA)")
+AT_NARROW = " (37x200, W < one segment)"
+AT_VIEW = " (200x1001, the pair's left-eye view)"
+AT_D126 = " (200x1001, D=126: scalar path)"
+AT_D130 = " (37x1001, D=130: two chunks of d)"
+AT_WRAP = " (200x1001, costs 240..255: u16 prefixes wrap)"
+AT_TIES = " (200x1001, sums full of ties)"
+for _suffix, _names in ((AT_SHORT, HPASS), (AT_REACH0, HPASS),
+                        (AT_NARROW, HPASS), (AT_VIEW, HPASS[:1]),
+                        (AT_D126, HPASS), (AT_D130, HPASS[:2]),
+                        (AT_WRAP, HPASS[:1]), (AT_TIES, HPASS[1:2])):
+    for _name in _names:
+        KERNELS[_name + _suffix] = KERNELS[_name]
+# the configuration limits the wrappers once refused: B2 and B3 at a D
+# that is no multiple of 4, the warps of 38 intermediate views (more than
+# one kernel argument block holds)
+AT_VIEWS38 = " (200x1001, 38 views)"
+for _suffix, _names in ((AT_D126, ("B2 cost_pair", "B3 shear_right")),
+                        (AT_VIEWS38, ("B12 warp_merge_views",
+                                      "B14 warp_views"))):
+    for _name in _names:
+        KERNELS[_name + _suffix] = KERNELS[_name]
 # the disparity-major core, whole-frame and at a 540-row chunk's extent
 AT_CHUNK = " (680-row chunk)"
 DM_KERNELS = {
@@ -223,6 +256,8 @@ KERNELS.update({
     "B20 dibr_warp_pair_kern": ("dibr_warp_pair_kern", _SRC + "warp.cu",
                                 _TPU + "warpkern.py:66", WARP_RM),
 })
+KERNELS["B19 dibr_warp_views_kern" + AT_VIEWS38] = KERNELS[
+    "B19 dibr_warp_views_kern"]
 # the wrappers each path must not launch (its route replaces them); every
 # other wrapper must launch at least once on it
 DM_WRAPPERS = {"cost_dm", "pass1_dm", "vv_dm", "pass4_wta_dm"}
@@ -374,7 +409,7 @@ def check_core_kernels(chk, img_l, img_r, cfg, hslo=True):
     from stereo_to_multiview_tpu_torch.ops import (
         band, costkern, cross, hslokern)
     from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
-    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN
     from stereo_to_multiview_tpu_torch.ops.mux import mux_average
 
     h, w = img_l.shape[:2]
@@ -418,14 +453,8 @@ def check_core_kernels(chk, img_l, img_r, cfg, hslo=True):
     if not hslo:
         del cost_r
 
-    cost_l = pair[:, m:m + w]
-    lr = (arms[LEFT], arms[RIGHT])
-    a1 = band.h_pass_sum(cost_l, *lr, s1, usd)
-    chk.record("B4 h_pass_sum (pass 1)", a1,
-               band.h_pass_sum_plain(cost_l, *lr, s1, usd),
-               lambda: band.h_pass_sum(cost_l, *lr, s1, usd),
-               lambda: band.h_pass_sum_plain(cost_l, *lr, s1, usd),
-               nbytes=hwd + 2 * hw * 4 + hwd * 4, ops=3 * hwd)
+    a1 = record_hpass(chk, "B4 h_pass_sum (pass 1)", pair[:, m:m + w], arms,
+                      usd, s1)
     del pair
 
     ud = (arms[UP], arms[DOWN])
@@ -437,23 +466,12 @@ def check_core_kernels(chk, img_l, img_r, cfg, hslo=True):
                nbytes=hwd * 4 + 2 * hw * 4 + hwd * 4, ops=2 * 4 * hwd)
     del a1
 
-    disp = band.h_pass_wta(a2, *lr, zd, usd)
-    chk.record("B6 h_pass_wta (pass 4 + WTA)", disp,
-               band.h_pass_wta_plain(a2, *lr, zd, usd),
-               lambda: band.h_pass_wta(a2, *lr, zd, usd),
-               lambda: band.h_pass_wta_plain(a2, *lr, zd, usd),
-               nbytes=hwd * 4 + 2 * hw * 4 + hw * 4, ops=3 * hwd)
-    del disp
+    record_hpass(chk, "B6 h_pass_wta (pass 4 + WTA)", a2, arms, usd, zd=zd)
     if not hslo:
         return arms, arms_r
 
     # the scanline-optimisation route: pass 4 as a volume, then B13
-    a4 = band.h_pass_sum(a2, *lr, 0, usd)
-    chk.record("B6 h_pass_sum (pass 4, no WTA)", a4,
-               band.h_pass_sum_plain(a2, *lr, 0, usd),
-               lambda: band.h_pass_sum(a2, *lr, 0, usd),
-               lambda: band.h_pass_sum_plain(a2, *lr, 0, usd),
-               nbytes=hwd * 4 + 2 * hw * 4 + hwd * 4, ops=3 * hwd)
+    a4 = record_hpass(chk, "B6 h_pass_sum (pass 4, no WTA)", a2, arms, usd)
     del a2
     kappa = band.agg_cost_scale(usd, cfg.band_digits, cfg.band_qscale)
     hargs = (a4, mux_average(img_l), mux_average(img_r), nd, zd, cfg.hslo_T,
@@ -770,6 +788,164 @@ def check_vstream_edges(chk, dl, ol, arms, cfg):
     chk.suffix = ""
 
 
+def record_hpass(chk, name, vol, arms, usd, shift=0, zd=None):
+    """One entry of hpass.cu held against its plain version: pass 1 (u8)
+    or pass 4 without the WTA (int32) with `shift`, or pass 4 + WTA with
+    `zd`.  Returns the kernel's output."""
+    from stereo_to_multiview_tpu_torch.ops import band
+    from stereo_to_multiview_tpu_torch.ops.cross import LEFT, RIGHT
+    h, w, nd = vol.shape
+    hw, hwd = h * w, h * w * nd
+    lr = (arms[LEFT], arms[RIGHT])
+    if zd is None:
+        kern = lambda: band.h_pass_sum(vol, *lr, shift, usd)
+        plain = lambda: band.h_pass_sum_plain(vol, *lr, shift, usd)
+        nbytes = hwd * vol.element_size() + 2 * hw * 4 + hwd * 4
+    else:
+        kern = lambda: band.h_pass_wta(vol, *lr, zd, usd)
+        plain = lambda: band.h_pass_wta_plain(vol, *lr, zd, usd)
+        nbytes = hwd * 4 + 2 * hw * 4 + hw * 4
+    out = kern()
+    chk.record(name, out, plain(), kern, plain, nbytes=nbytes, ops=3 * hwd)
+    return out
+
+
+def check_hstream_edges(chk, img_l, img_r, cfg):
+    """B4 and B6 (WTA and sum-only) where their row streams meet the
+    frame's edges and their vector paths end, on crops of the frame's
+    middle rows: 37x1001 and 200x1001 at reach 0 (1001 columns: the last
+    segment is shorter), 37x200 (one segment narrower than its maximum),
+    the left-eye view of a 200x1001 crop's pair volume (strided, vector
+    path); the crop's own pair at D=126 (scalar loads and stores; B2 and
+    B3 there too); then random volumes at D=130 (two chunks of d a lane),
+    u8 costs in 240..255 (the u16 prefix halves wrap within a segment)
+    and int32 sums full of ties (0/1 inputs)."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band, costkern, cross
+    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN
+    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+
+    dev = img_l.device
+    y0 = img_l.shape[0] // 2
+    arm_args = (cfg.ucd, cfg.lcd, cfg.usd, cfg.lsd)
+    table = costkern.device_cost_table(cfg.ad_coeff, cfg.census_coeff, dev)
+    s2, s3 = band.agg_rescale_shifts(cfg.usd)[1:]
+    b4, b6, b6s = HPASS
+
+    def crop(rows, cols):
+        l, r = (t[y0:y0 + rows, :cols].contiguous() for t in (img_l, img_r))
+        return l, r, cross.cross_arms(l, *arm_args)
+
+    def pair_of(l, r, nd, zd):
+        args = (l, r, census_transform_9x7(mux_average(l)),
+                census_transform_9x7(mux_average(r)), table, nd, zd)
+        return args, costkern.cost_pair(*args)
+
+    def passes(suffix, rows, cols, usd, nd, zd, wanted=HPASS, b23=False):
+        chk.suffix = suffix
+        l, r, arms = crop(rows, cols)
+        args, pair = pair_of(l, r, nd, zd)
+        hw = pair.shape[0] * cols
+        if b23:
+            chk.record("B2 cost_pair", pair, costkern.cost_pair_plain(*args),
+                       lambda: costkern.cost_pair(*args),
+                       lambda: costkern.cost_pair_plain(*args),
+                       nbytes=2 * hw * 3 + 2 * hw * 8 + table.numel()
+                       + pair.numel(), ops=10 * pair.numel())
+            chk.record("B3 shear_right", costkern.shear_right(pair, zd),
+                       costkern.shear_right_plain(pair, zd),
+                       lambda: costkern.shear_right(pair, zd),
+                       lambda: costkern.shear_right_plain(pair, zd),
+                       nbytes=pair.numel() + hw * nd, ops=0)
+        m = costkern.pair_margin(nd, zd)
+        a1 = record_hpass(chk, b4, pair[:, m:m + cols], arms, usd)
+        if len(wanted) > 1:
+            a2 = band.vv_pass(a1, arms[UP], arms[DOWN], s2, s3, usd)
+            record_hpass(chk, b6, a2, arms, usd, zd=zd)
+            record_hpass(chk, b6s, a2, arms, usd)
+        chk.suffix = ""
+
+    nd, zd = cfg.num_disp, cfg.zero_disp
+    passes(AT_SHORT, 37, 1001, cfg.usd, nd, zd)
+    passes(AT_REACH0, 200, 1001, 0, nd, zd)
+    passes(AT_NARROW, 37, 200, cfg.usd, nd, zd)
+    passes(AT_VIEW, 200, 1001, cfg.usd, nd, zd, wanted=(b4,))
+    passes(AT_D126, 200, 1001, cfg.usd, 126, 63, b23=True)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    _, _, arms = crop(200, 1001)
+    _, _, arms37 = crop(37, 1001)
+
+    def rand(shape, lo, hi, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    chk.suffix = AT_D130
+    record_hpass(chk, b4, rand((37, 1001, 130), 0, 256, torch.uint8),
+                 arms37, cfg.usd)
+    record_hpass(chk, b6, rand((37, 1001, 130), 0, 17_600, torch.int32),
+                 arms37, cfg.usd, zd=65)
+    chk.suffix = AT_WRAP
+    record_hpass(chk, b4, rand((200, 1001, nd), 240, 256, torch.uint8), arms,
+                 cfg.usd)
+    chk.suffix = AT_TIES
+    ties = rand((200, 1001, nd), 0, 2, torch.int32)
+    disp = record_hpass(chk, b6, ties, arms, cfg.usd, zd=zd)
+    sums = band.h_pass_sum_plain(ties, arms[2], arms[3], 0, cfg.usd)
+    last = nd - 1 - torch.argmin(sums.flip(2), dim=2)
+    tied = float((last - zd != disp).float().mean())
+    print(f"  ties: the last minimum differs from the first at {tied:.4f} "
+          f"of the pixels", flush=True)
+    if tied < 0.01:
+        raise SmokeFailure("B6 ties: too few ties to test the first-min "
+                           "rule")
+    chk.suffix = ""
+
+
+def check_many_views(chk, img_l, img_r, bl, br, cfg):
+    """B12, B14 and B19 with 38 intermediate views (num_views=40, more
+    than one kernel argument block of 32 views holds), on a 200x1001 crop
+    of a frame's images and final disparities."""
+    from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
+    from stereo_to_multiview_tpu_torch.ops import dibr, warpkern
+
+    y0 = img_l.shape[0] // 2
+    l, r, dl, dr = (t[y0:y0 + 200, :1001].contiguous()
+                    for t in (img_l, img_r, bl, br))
+    hw = 200 * 1001
+    shifts = _synth_shifts(40)
+    occl = dibr.dibr_occl(dl, dr)
+    mask_l, mask_r = (dibr.dibr_bleed_mask(o, cfg.bleed_radius) for o in occl)
+    feathered = dibr.dibr_feather_mask(mask_r, cfg.feather_radius,
+                                       cfg.feather_sigma)
+    chk.suffix = AT_VIEWS38
+    wargs = (l, r, dl, dr, mask_l, mask_r, feathered, shifts)
+    views = dibr.warp_merge_views(*wargs)
+    chk.record("B12 warp_merge_views", views,
+               dibr.warp_merge_views_plain(*wargs),
+               lambda: dibr.warp_merge_views(*wargs),
+               lambda: dibr.warp_merge_views_plain(*wargs),
+               nbytes=2 * hw * 3 + 5 * hw * 4 + views.numel(),
+               ops=views.numel() * 20)
+    uargs = (l, r, dl, dr, shifts)
+    vab = dibr.warp_views(*uargs)
+    chk.record("B14 warp_views", vab, dibr.warp_views_plain(*uargs),
+               lambda: dibr.warp_views(*uargs),
+               lambda: dibr.warp_views_plain(*uargs),
+               nbytes=2 * hw * 3 + 2 * hw * 4 + 2 * vab[0].numel() * 4,
+               ops=2 * vab[0].numel() * 8)
+    bargs = (l, r, dl, dr, shifts, cfg.num_disp, cfg.zero_disp)
+    got = warpkern.dibr_warp_views_kern(*bargs)
+    chk.record("B19 dibr_warp_views_kern", got,
+               warpkern.warp_views_bounded_plain(*bargs),
+               lambda: warpkern.dibr_warp_views_kern(*bargs),
+               lambda: warpkern.warp_views_bounded_plain(*bargs),
+               nbytes=2 * hw * 3 + 2 * hw * 4 + 2 * got[0].numel() * 4,
+               ops=2 * got[0].numel() * 8)
+    chk.suffix = ""
+
+
 def check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg):
     """B7 (labels), B8, B9 and B10 on the inputs a path gives them: the
     stage outputs of one frame computed with the kernels.  Returns both
@@ -853,7 +1029,7 @@ def check_band_digits(chk, img_l, img_r, arms, cfg):
     (at usd=34: (0, 6, 6) and (7, 6, 6); the path's own are (0, 3, 6))."""
     from stereo_to_multiview_tpu_torch.ops import band, costkern
     from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
-    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN
     from stereo_to_multiview_tpu_torch.ops.mux import mux_average
 
     h, w = img_l.shape[:2]
@@ -866,16 +1042,12 @@ def check_band_digits(chk, img_l, img_r, arms, cfg):
         costkern.device_cost_table(cfg.ad_coeff, cfg.census_coeff,
                                    img_l.device), nd, zd)
     cost_l = pair[:, m:m + w]
-    lr, ud = (arms[LEFT], arms[RIGHT]), (arms[UP], arms[DOWN])
+    ud = (arms[UP], arms[DOWN])
     for digits in (2, 1):
         s1, s2, s3 = band.agg_rescale_shifts(usd, digits)
         tag = f", band_digits={digits} shifts)"
-        a1 = band.h_pass_sum(cost_l, *lr, s1, usd)
-        chk.record("B4 h_pass_sum (pass 1" + tag, a1,
-                   band.h_pass_sum_plain(cost_l, *lr, s1, usd),
-                   lambda: band.h_pass_sum(cost_l, *lr, s1, usd),
-                   lambda: band.h_pass_sum_plain(cost_l, *lr, s1, usd),
-                   nbytes=hwd + 2 * hw * 4 + hwd * 4, ops=3 * hwd)
+        a1 = record_hpass(chk, "B4 h_pass_sum (pass 1" + tag, cost_l, arms,
+                          usd, s1)
         a2 = band.vv_pass(a1, *ud, s2, s3, usd)
         chk.record("B5 vv_pass (passes 2+3" + tag, a2,
                    band.vv_pass_plain(a1, *ud, s2, s3, usd),
@@ -883,15 +1055,11 @@ def check_band_digits(chk, img_l, img_r, arms, cfg):
                    lambda: band.vv_pass_plain(a1, *ud, s2, s3, usd),
                    nbytes=hwd * 4 + 2 * hw * 4 + hwd * 4, ops=2 * 4 * hwd)
         del a1
-        disp = band.h_pass_wta(a2, *lr, zd, usd)
-        chk.record("B6 h_pass_wta (pass 4 + WTA" + tag, disp,
-                   band.h_pass_wta_plain(a2, *lr, zd, usd),
-                   lambda: band.h_pass_wta(a2, *lr, zd, usd),
-                   lambda: band.h_pass_wta_plain(a2, *lr, zd, usd),
-                   nbytes=hwd * 4 + 2 * hw * 4 + hw * 4, ops=3 * hwd)
+        record_hpass(chk, "B6 h_pass_wta (pass 4 + WTA" + tag, a2, arms, usd,
+                     zd=zd)
         print(f"  band_digits={digits}: shifts {(s1, s2, s3)}, pass-3 "
               f"values up to {int(a2.max())}", flush=True)
-        del a2, disp
+        del a2
 
 
 def check_dm_kernels(chk, img_l, img_r, arms_l, arms_r, cfg, full=True):
@@ -1581,7 +1749,7 @@ def check_small_frame(label, cfg):
 
 
 def small_configs():
-    """The three small configurations of phase 4b."""
+    """The small configurations of phase 4b."""
     from stereo_to_multiview_tpu_torch.config import PipelineConfig
     base = PipelineConfig(num_rows=96, num_cols=160, num_rows_out=96,
                           num_cols_out=160, num_disp=32, zero_disp=16,
@@ -1594,6 +1762,11 @@ def small_configs():
             num_cols_out=192, hslo_H1=3000.0, hslo_H2=9000.0),
         "lowres": base.replace(num_rows_disp=48, num_cols_disp=80,
                                disp_scale=0.5, num_disp=16, zero_disp=8),
+        # the configuration limits the card once refused halfway through
+        # a frame
+        "bilateral_radius=10": base.replace(bilateral_radius=10),
+        "num_disp=30": base.replace(num_disp=30, zero_disp=15),
+        "num_views=40": base.replace(num_views=40),
     }
 
 
@@ -1633,9 +1806,10 @@ def time_frames(root: str, n_frames: int) -> int:
 
 def stream_checks(root: str) -> int:
     """`--stream-checks [--package-root DIR]`: only the checks that hold
-    B5 and B9 against their plain versions (the stereo core's and the IRV
-    kernels at 1080p, then the edge frames), on the package under DIR.
-    Exit 1 if one fails: a deliberately broken copy of a kernel must."""
+    the streamed B4, B5, B6 and B9 against their plain versions (the
+    stereo core's and the IRV kernels at 1080p, then the edge frames), on
+    the package under DIR.  Exit 1 if one fails: a deliberately broken
+    copy of a kernel must."""
     import torch
     sys.path.insert(0, root)
     from stereo_to_multiview_tpu_torch import config, kernels
@@ -1653,6 +1827,7 @@ def stream_checks(root: str) -> int:
                                             hslo=False)
         check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
+        check_hstream_edges(chk, img_l, img_r, cfg)
     except (SmokeFailure, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1666,8 +1841,8 @@ def main() -> int:
                     help="time only the three preset paths, this many "
                          "frames each, and print no result line")
     ap.add_argument("--stream-checks", action="store_true",
-                    help="only hold B5 and B9 against their plain versions "
-                         "and print no result line")
+                    help="only hold B4, B5, B6 and B9 against their plain "
+                         "versions and print no result line")
     ap.add_argument("--package-root", default=HERE,
                     help="with --frames or --stream-checks: the checkout "
                          "whose package runs (default: this one)")
@@ -1709,7 +1884,9 @@ def main() -> int:
               f"{report['build_s']:.1f} s", flush=True)
         for name, log in logs.items():
             for line in log.splitlines():
-                if "registers" in line or "spill" in line:
+                # each kernel's (mangled) name, then its registers and spills
+                if ("Compiling entry" in line or "registers" in line
+                        or "spill" in line):
                     print(f"  ptxas {name}: {line.strip()}", flush=True)
 
         cfg = config.HD1080_D128
@@ -1723,7 +1900,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         bl, br = check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
+        check_hstream_edges(chk, img_l, img_r, cfg)
+        torch.cuda.empty_cache()
         check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
+        check_many_views(chk, img_l, img_r, bl, br, cfg)
         # the entry points beside process_frame, on this frame's stages:
         # B15 and dr_irv_band_lr on its raw disparities and labels, the
         # row-major warps (B19, B20) and the forward warp on its final

@@ -7,15 +7,27 @@ its module names, so each counterpart is easy to find:
 
   config         -- PipelineConfig (same fields), config_from_dict
   ops            -- one function per pipeline stage, on torch tensors
-  ops.costkern   -- kernels B2 (cost) and B3 (right-eye shear)
+  ops.cross      -- kernel B1 (cross arms)
+  ops.costkern   -- kernels B2 (cost pair volume), B3 (right-eye shear),
+                    B16 (`cost_dm`: both eyes or one, disparity-major)
+                    and B17 (`shear_right_dm`: the right eye by per-plane
+                    shifts), with `ci_adcensus_kern(_stacked)`
   ops.band       -- kernels B4/B6 (horizontal passes, WTA) and B5
-                    (vertical passes) of the band engine's stereo core
+                    (vertical passes) of the band engine's stereo core;
+                    B18a-c, the disparity-major core
+                    (`band_stereo_core_dm`); B15 (float span sums,
+                    `band_span_sum_h/_v`, under `dr_irv_band(_lr)`)
+  ops.chunks     -- the row chunks of the stereo cores and IRV rounds
+  ops.dcc        -- kernel B7 (consistency labels)
   ops.hslokern   -- kernel B13 (scanline optimisation + WTA); ops.hslo
                     holds its plain version
   ops.irv        -- kernels B8/B9 (an IRV round, `need`-gated) and the
                     early-stopping round loop
+  ops.filters    -- kernel B10 (bilateral, radius <= 8), median, bleed
   ops.dibr       -- kernels B7 (hits), B11, B12 (fused warp + merge) and
-                    B14 (the unfused synthesis' warps)
+                    B14 (the unfused synthesis' warps); the forward warp
+  ops.warpkern   -- kernels B19/B20 (the bounded row-major warps,
+                    `dibr_warp_views_kern`, `dibr_warp_pair_kern`)
   ops.scale      -- the rescales of the lowres path and the interlace
   csrc           -- the CUDA sources of those kernels (sm_90a)
   kernels        -- nvcc build, ctypes loading, launch counters

@@ -22,7 +22,9 @@
 // abs-diffs of byte-packed BGR, two __popc, one lookup).  Each thread
 // emits 4 consecutive disparities as one 32-bit store, so a warp writes
 // 128 contiguous bytes (one x, 128 d); the image reads of a warp are one
-// broadcast (L) and 32 consecutive columns (R).
+// broadcast (L) and 32 consecutive columns (R).  A D that is no multiple
+// of 4 leaves the rows unaligned for such stores: the thread then writes
+// its (up to) 4 bytes one at a time, the last quad of a position cut at D.
 
 #include "stm_common.cuh"
 
@@ -30,6 +32,7 @@
 #define COST_XP_PER_BLOCK 512
 #define COST_THREADS 256
 
+template <bool VEC>
 __global__ void __launch_bounds__(COST_THREADS)
 cost_pair_kernel(const uint32_t* __restrict__ lpk,
                  const uint32_t* __restrict__ rpk,
@@ -46,12 +49,12 @@ cost_pair_kernel(const uint32_t* __restrict__ lpk,
   const int wp = W + 2 * M;
   const int xp0 = blockIdx.x * COST_XP_PER_BLOCK;
   const int nx = min(COST_XP_PER_BLOCK, wp - xp0);
-  const int quads = D >> 2;
+  const int quads = (D + 3) >> 2;
   const uint32_t* lrow = lpk + (size_t)y * W;
   const uint32_t* rrow = rpk + (size_t)y * W;
   const int2* lcrow = lcen + (size_t)y * W;
   const int2* rcrow = rcen + (size_t)y * W;
-  uint32_t* orow = reinterpret_cast<uint32_t*>(out + (size_t)y * wp * D);
+  uint8_t* orow = out + (size_t)y * wp * D;
 
   for (int t = threadIdx.x; t < nx * quads; t += blockDim.x) {
     const int xi = t / quads;
@@ -69,21 +72,28 @@ cost_pair_kernel(const uint32_t* __restrict__ lpk,
       const int ham = __popc(lc.x ^ rc.x) + __popc(lc.y ^ rc.y);
       packed |= (uint32_t)tab[ad * 49 + ham] << (8 * j);
     }
-    orow[(size_t)xp * quads + (d0 >> 2)] = packed;
+    uint8_t* o = orow + (size_t)xp * D + d0;
+    if (VEC) {
+      *reinterpret_cast<uint32_t*>(o) = packed;
+    } else {
+      for (int j = 0; j < 4 && d0 + j < D; ++j)
+        o[j] = (uint8_t)(packed >> (8 * j));
+    }
   }
 }
 
 // lpk/rpk: (H, W) u32 packed b | g << 8 | r << 16; lcen/rcen: (H, W, 2)
 // i32 census words; table: 766*49 u8; out: (H, W + 2M, D) u8 with
-// M = max(zd, D - zd), D % 4 == 0.
+// M = max(zd, D - zd).
 STM_API int stm_cost_pair(const void* lpk, const void* rpk, const void* lcen,
                           const void* rcen, const void* table, void* out,
                           int H, int W, int D, int zd, void* stream) {
-  if (H <= 0 || W <= 0 || D <= 0 || (D & 3) || zd < 0 || zd > D)
+  if (H <= 0 || W <= 0 || D <= 0 || zd < 0 || zd > D)
     return (int)cudaErrorInvalidValue;
   const int M = zd > D - zd ? zd : D - zd;
   dim3 grid((W + 2 * M + COST_XP_PER_BLOCK - 1) / COST_XP_PER_BLOCK, H);
-  cost_pair_kernel<<<grid, COST_THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = (D & 3) ? cost_pair_kernel<false> : cost_pair_kernel<true>;
+  kernel<<<grid, COST_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)lpk, (const uint32_t*)rpk, (const int2*)lcen,
       (const int2*)rcen, (const uint8_t*)table, (uint8_t*)out, W, D, zd, M);
   return (int)cudaGetLastError();

@@ -18,11 +18,11 @@
 //
 // Bound on the H100: memory.  B8 writes and B9 reads the (H, W, B + 1)
 // u8 span volume, 267 MB per eye and round at 1080p/D=128 (~80 us each);
-// the planes around it are 8 MB.  B8 uses the window-prefix scheme of the
-// aggregation (window.cuh) with one thread per channel: it stages the
-// row's bin keys for the tile plus the arm reach in shared memory, each
-// thread builds the prefix counts of its channel from them (the one-hot
-// volume never exists), and each output is one difference.
+// the planes around it are 8 MB.  B8 takes a block per 64 columns of a
+// row and one thread per channel: it stages the row's bin keys for the
+// tile plus the arm reach in shared memory, each thread builds the prefix
+// counts of its channel from them (the one-hot volume never exists), and
+// each output is one difference.
 //
 // B9 streams the span volume down the columns.  A warp owns one column of
 // a 256-row segment (2 adjacent columns a block, no barrier); per row it

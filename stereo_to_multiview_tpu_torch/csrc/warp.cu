@@ -38,6 +38,10 @@
 // MB read (~0.1 ms).  Same design, one thread per (view, pixel); the
 // sampling code is B12's own (`make_lerp`, `lerp_u8`), so the two cannot
 // drift apart.
+//
+// The shifts (and B19's bounds) reach a kernel by value, WARP_MAX_VIEWS
+// views at a time: an entry point takes any number of views and launches
+// its kernel once for each group of at most that many.
 
 #include "stm_common.cuh"
 
@@ -117,28 +121,33 @@ warp_merge_kernel(const uint8_t* __restrict__ img_l,
 }
 
 // img_l, img_r: (H, W, 3) u8; disp_*, mask_*, feather: (H, W) f32;
-// shifts_l, shifts_r: host arrays of nv <= 32 floats; out: (nv, H, W, 3)
-// u8.
+// shifts_l, shifts_r: host arrays of nv floats; out: (nv, H, W, 3) u8.
 STM_API int stm_warp_merge(const void* img_l, const void* img_r,
                            const void* disp_l, const void* disp_r,
                            const void* mask_l, const void* mask_r,
                            const void* feather, const float* shifts_l,
                            const float* shifts_r, void* out, int H, int W,
                            int nv, void* stream) {
-  if (H <= 0 || W <= 0 || nv <= 0 || nv > WARP_MAX_VIEWS ||
-      shifts_l == nullptr || shifts_r == nullptr)
+  if (H <= 0 || W <= 0 || nv <= 0 || shifts_l == nullptr ||
+      shifts_r == nullptr)
     return (int)cudaErrorInvalidValue;
-  WarpShifts s;
-  for (int v = 0; v < nv; ++v) {
-    s.l[v] = shifts_l[v];
-    s.r[v] = shifts_r[v];
+  const size_t view = (size_t)H * W * 3;
+  for (int v0 = 0; v0 < nv; v0 += WARP_MAX_VIEWS) {
+    const int n = min(nv - v0, WARP_MAX_VIEWS);
+    WarpShifts s;
+    for (int v = 0; v < n; ++v) {
+      s.l[v] = shifts_l[v0 + v];
+      s.r[v] = shifts_r[v0 + v];
+    }
+    dim3 grid((W + WARP_TX - 1) / WARP_TX, H, n);
+    warp_merge_kernel<<<grid, WARP_TX, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
+        (const float*)disp_r, (const float*)mask_l, (const float*)mask_r,
+        (const float*)feather, s, (uint8_t*)out + v0 * view, H, W);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((W + WARP_TX - 1) / WARP_TX, H, nv);
-  warp_merge_kernel<<<grid, WARP_TX, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
-      (const float*)disp_r, (const float*)mask_l, (const float*)mask_r,
-      (const float*)feather, s, (uint8_t*)out, H, W);
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 __global__ void __launch_bounds__(WARP_TX)
@@ -166,25 +175,32 @@ warp_views_kernel(const uint8_t* __restrict__ img_l,
 }
 
 // img_l, img_r: (H, W, 3) u8; disp_l, disp_r: (H, W) f32; shifts_l,
-// shifts_r: host arrays of nv <= 32 floats; va, vb: (nv, H, W, 3) f32.
+// shifts_r: host arrays of nv floats; va, vb: (nv, H, W, 3) f32.
 STM_API int stm_warp_views(const void* img_l, const void* img_r,
                            const void* disp_l, const void* disp_r,
                            const float* shifts_l, const float* shifts_r,
                            void* va, void* vb, int H, int W, int nv,
                            void* stream) {
-  if (H <= 0 || W <= 0 || nv <= 0 || nv > WARP_MAX_VIEWS ||
-      shifts_l == nullptr || shifts_r == nullptr)
+  if (H <= 0 || W <= 0 || nv <= 0 || shifts_l == nullptr ||
+      shifts_r == nullptr)
     return (int)cudaErrorInvalidValue;
-  WarpShifts s;
-  for (int v = 0; v < nv; ++v) {
-    s.l[v] = shifts_l[v];
-    s.r[v] = shifts_r[v];
+  const size_t view = (size_t)H * W * 3;
+  for (int v0 = 0; v0 < nv; v0 += WARP_MAX_VIEWS) {
+    const int n = min(nv - v0, WARP_MAX_VIEWS);
+    WarpShifts s;
+    for (int v = 0; v < n; ++v) {
+      s.l[v] = shifts_l[v0 + v];
+      s.r[v] = shifts_r[v0 + v];
+    }
+    dim3 grid((W + WARP_TX - 1) / WARP_TX, H, n);
+    warp_views_kernel<<<grid, WARP_TX, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
+        (const float*)disp_r, s, (float*)va + v0 * view,
+        (float*)vb + v0 * view, H, W);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((W + WARP_TX - 1) / WARP_TX, H, nv);
-  warp_views_kernel<<<grid, WARP_TX, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
-      (const float*)disp_r, s, (float*)va, (float*)vb, H, W);
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 // B19 replaces the TPU kernel stereo_to_multiview_tpu/ops/warpkern.py
@@ -250,23 +266,30 @@ STM_API int stm_warp_views_bounded(const void* img_l, const void* img_r,
                                    const int* bounds_l, const int* bounds_r,
                                    void* va, void* vb, int H, int W, int nv,
                                    void* stream) {
-  if (H <= 0 || W <= 0 || nv <= 0 || nv > WARP_MAX_VIEWS ||
-      shifts_l == nullptr || shifts_r == nullptr || bounds_l == nullptr ||
-      bounds_r == nullptr)
+  if (H <= 0 || W <= 0 || nv <= 0 || shifts_l == nullptr ||
+      shifts_r == nullptr || bounds_l == nullptr || bounds_r == nullptr)
     return (int)cudaErrorInvalidValue;
-  WarpShifts s;
-  WarpBounds b;
-  for (int v = 0; v < nv; ++v) {
-    s.l[v] = shifts_l[v];
-    s.r[v] = shifts_r[v];
-    b.lo_l[v] = bounds_l[2 * v];
-    b.hi_l[v] = bounds_l[2 * v + 1];
-    b.lo_r[v] = bounds_r[2 * v];
-    b.hi_r[v] = bounds_r[2 * v + 1];
+  const size_t view = (size_t)H * W * 3;
+  for (int v0 = 0; v0 < nv; v0 += WARP_MAX_VIEWS) {
+    const int n = min(nv - v0, WARP_MAX_VIEWS);
+    WarpShifts s;
+    WarpBounds b;
+    for (int v = 0; v < n; ++v) {
+      const int u = v0 + v;
+      s.l[v] = shifts_l[u];
+      s.r[v] = shifts_r[u];
+      b.lo_l[v] = bounds_l[2 * u];
+      b.hi_l[v] = bounds_l[2 * u + 1];
+      b.lo_r[v] = bounds_r[2 * u];
+      b.hi_r[v] = bounds_r[2 * u + 1];
+    }
+    dim3 grid((W + WARP_TX - 1) / WARP_TX, H, n);
+    warp_views_bounded_kernel<<<grid, WARP_TX, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
+        (const float*)disp_r, s, b, (float*)va + v0 * view,
+        (float*)vb + v0 * view, H, W);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((W + WARP_TX - 1) / WARP_TX, H, nv);
-  warp_views_bounded_kernel<<<grid, WARP_TX, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
-      (const float*)disp_r, s, b, (float*)va, (float*)vb, H, W);
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }

@@ -67,9 +67,9 @@ def resolve_device(device=None) -> torch.device:
 def check_ported(cfg: PipelineConfig):
     """Raise NotImplementedError for any knob that is not ported yet."""
     todo = [
-        (cfg.engine == "xla", "engine='xla'", "queue A item 14"),
-        (cfg.band_qscale != 127.0, "band_qscale != 127", "queue A item 14"),
-        (cfg.band_lossy_wta, "band_lossy_wta", "queue A item 14"),
+        (cfg.engine == "xla", "engine='xla'", "A.4"),
+        (cfg.band_qscale != 127.0, "band_qscale != 127", "A.3"),
+        (cfg.band_lossy_wta, "band_lossy_wta", "A.3"),
     ]
     for bad, what, item in todo:
         if bad:

@@ -215,7 +215,7 @@ def band_aggregate_q(cost_q: torch.Tensor, arms: torch.Tensor, max_arm: int,
         raise ValueError("band_digits must be 1, 2 or 3")
     if qscale != QSCALE:
         raise NotImplementedError(
-            "band_qscale != 127 is ROADMAP queue A item 14 (dials), not "
+            "band_qscale != 127 is ROADMAP A.3 (dials), not "
             "ported yet")
     _halo_for(max_arm)
     s1, s2, s3 = agg_rescale_shifts(max_arm, digits, qscale)
@@ -242,7 +242,7 @@ def quantize_cost(cost: torch.Tensor, qscale: float = QSCALE) -> torch.Tensor:
     same integers as bf16).  qscale above 127 is the band_qscale dial."""
     if qscale > 127.5:
         raise NotImplementedError(
-            "band_qscale != 127 is ROADMAP queue A item 14 (dials), not "
+            "band_qscale != 127 is ROADMAP A.3 (dials), not "
             "ported yet")
     return torch.round(cost.to(torch.float32) * f32(qscale)).to(torch.uint8)
 

@@ -142,8 +142,6 @@ def cost_pair(img_l: torch.Tensor, img_r: torch.Tensor, cen_l: torch.Tensor,
             or cen_l.shape != (h, w, 2) or cen_r.shape != (h, w, 2)
             or table.numel() != AD_VALUES * HAM_VALUES):
         raise ValueError("cost_pair: inconsistent input shapes")
-    if num_disp % 4:
-        raise ValueError("cost_pair kernel needs num_disp % 4 == 0")
     margin = pair_margin(num_disp, zero_disp)
     lpk, rpk = pack_bgr(img_l), pack_bgr(img_r)
     cl, cr, tab = cen_l.contiguous(), cen_r.contiguous(), table.contiguous()
@@ -180,9 +178,9 @@ def shear_right(pair: torch.Tensor, zero_disp: int) -> torch.Tensor:
     kernels.require(pair, "pair", torch.uint8, 3, pair.device)
     h, wp, nd = pair.shape
     w = wp - 2 * pair_margin(nd, zero_disp)
-    if nd % 4 or w <= 0:
-        raise ValueError("shear_right kernel needs D % 4 == 0 and a pair "
-                         "volume wider than 2 * max(zd, D - zd)")
+    if w <= 0:
+        raise ValueError("shear_right: the pair volume must be wider than "
+                         "2 * max(zd, D - zd)")
     out = torch.empty((h, w, nd), dtype=torch.uint8, device=pair.device)
     rc = kernels.lib("shear").stm_shear_right(
         pair.data_ptr(), out.data_ptr(), h, w, nd, zero_disp,

@@ -163,8 +163,6 @@ def warp_merge_views(img_l, img_r, disp_l, disp_r, mask_l, mask_r,
         if t.shape != (h, w):
             raise ValueError(f"warp_merge_views: {name} is not (H, W)")
     nv = len(shifts)
-    if nv > 32:
-        raise ValueError("warp_merge_views takes at most 32 views")
     sl, sr = merge_shifts(shifts)
     out = torch.empty((nv, h, w, 3), dtype=torch.uint8, device=dev)
     rc = kernels.lib("warp").stm_warp_merge(
@@ -208,8 +206,6 @@ def warp_views(img_l, img_r, disp_l, disp_r, shifts):
         if t.shape != (h, w):
             raise ValueError(f"warp_views: {name} is not (H, W)")
     nv = len(shifts)
-    if nv > 32:
-        raise ValueError("warp_views takes at most 32 views")
     sl, sr = merge_shifts(shifts)
     va = torch.empty((nv, h, w, 3), dtype=F32, device=dev)
     vb = torch.empty_like(va)

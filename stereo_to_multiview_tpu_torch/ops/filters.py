@@ -1,5 +1,6 @@
 """Post filters: lifting Gaussian (mask feather), bilateral (kernel B10
-and its plain PyTorch version), 3x3 median, bleed.
+and its plain PyTorch version up to radius 8, the XLA filter's order
+above), 3x3 median, bleed.
 
 Float constants are float32 and every accumulation runs in the JAX
 package's order, so the results match it to the last bit wherever its
@@ -69,26 +70,53 @@ def _bilateral_constants(radius: int, sigma_color: float,
     return sk, inv_2var, lut_scale
 
 
-def filter_bilateral_plain(img: torch.Tensor, radius: int,
-                           sigma_color: float,
-                           sigma_spatial: float) -> torch.Tensor:
-    """Plain version of `filter_bilateral`: one shifted plane per tap."""
-    sk, inv_2var, lut_scale = _bilateral_constants(radius, sigma_color,
-                                                   sigma_spatial)
+def _bilateral_sum(img: torch.Tensor, radius: int, sk, inv_2var,
+                   lut_scale, taps) -> torch.Tensor:
+    """The bilateral's weighted mean, one shifted plane per tap, the taps
+    ((dx, dy) pairs) accumulated in the order given."""
     h, w = img.shape
     a = img.to(F32)
     p = edge_pad(a, radius)
     num = torch.zeros((h, w), dtype=F32, device=img.device)
     den = torch.zeros((h, w), dtype=F32, device=img.device)
-    for dx in range(-radius, radius + 1):
-        for dy in range(-radius, radius + 1):
-            s = p[dy + radius:dy + radius + h, dx + radius:dx + radius + w]
-            t = torch.floor((a - s).abs())
-            rw = torch.exp(-(t * t) * inv_2var) * lut_scale
-            wgt = f32(sk[dy + radius, dx + radius]) * rw
-            num = num + wgt * s
-            den = den + wgt
+    for dx, dy in taps:
+        s = p[dy + radius:dy + radius + h, dx + radius:dx + radius + w]
+        t = torch.floor((a - s).abs())
+        rw = torch.exp(-(t * t) * inv_2var) * lut_scale
+        wgt = f32(sk[dy + radius, dx + radius]) * rw
+        num = num + wgt * s
+        den = den + wgt
     return num / den
+
+
+def filter_bilateral_plain(img: torch.Tensor, radius: int,
+                           sigma_color: float,
+                           sigma_spatial: float) -> torch.Tensor:
+    """Plain version of `filter_bilateral` up to radius 8: the band
+    kernel's constants and tap order (dx outer, dy inner)."""
+    sk, inv_2var, lut_scale = _bilateral_constants(radius, sigma_color,
+                                                   sigma_spatial)
+    r = range(-radius, radius + 1)
+    return _bilateral_sum(img, radius, sk, inv_2var, lut_scale,
+                          [(dx, dy) for dx in r for dy in r])
+
+
+def filter_bilateral_wide(img: torch.Tensor, radius: int,
+                          sigma_color: float,
+                          sigma_spatial: float) -> torch.Tensor:
+    """The bilateral filter as the JAX package's XLA filter computes it
+    (stereo_to_multiview_tpu/ops/filters.py `filter_bilateral`), the one
+    its band engine runs above radius 8: taps dy outer, dx inner, and
+    sigma_color squared in float32.  Plain torch on every device: no TPU
+    kernel runs there."""
+    var = np.float32(sigma_color) ** 2
+    lut_scale = f32(1.0 / float(np.sqrt(2 * np.pi * var)))
+    inv_2var = f32(1.0 / (2.0 * float(var)))
+    r = range(-radius, radius + 1)
+    return _bilateral_sum(img, radius, gaussian_kernel_2d(radius,
+                                                          sigma_spatial),
+                          inv_2var, lut_scale,
+                          [(dx, dy) for dy in r for dx in r])
 
 
 @kernels.kernel_wrapper
@@ -98,16 +126,21 @@ def filter_bilateral(img: torch.Tensor, radius: int, sigma_color: float,
     from the 2D Gaussian, range weight exp(-t^2 / 2 s_c^2) / sqrt(2 pi
     s_c^2) at t = floor(|center - sample|); clamp-to-edge.
 
-    The tap order (dx outer, dy inner) is that of the band engine's
-    bilateral kernel, the one on the main path: the result feeds trunc()
-    in the occlusion test, so an ulp matters there.  Kernel B10
-    (csrc/bilateral.cu), radius <= 8."""
+    Up to radius 8 the tap order (dx outer, dy inner) is that of the band
+    engine's bilateral kernel, the one on the main path: the result feeds
+    trunc() in the occlusion test, so an ulp matters there.  Kernel B10
+    (csrc/bilateral.cu).  Above radius 8 the band engine runs the XLA
+    filter instead, and so does the port: `filter_bilateral_wide`, on
+    either device."""
+    if radius > 8:
+        return filter_bilateral_wide(img, radius, sigma_color,
+                                     sigma_spatial)
     if kernels.on_cpu(img):
         return filter_bilateral_plain(img, radius, sigma_color,
                                       sigma_spatial)
     kernels.require(img, "img", F32, 2, img.device)
-    if not 0 <= radius <= 8:
-        raise ValueError("filter_bilateral kernel takes radius 0..8")
+    if radius < 0:
+        raise ValueError("filter_bilateral: radius must be >= 0")
     sk, inv_2var, lut_scale = _bilateral_constants(radius, sigma_color,
                                                    sigma_spatial)
     h, w = img.shape

@@ -79,8 +79,6 @@ def _launch(what, img_l, img_r, disp_l, disp_r, shifts, num_disp: int,
         if t.shape != (h, w):
             raise ValueError(f"{what}: {name} is not (H, W)")
     nv = len(shifts)
-    if nv > 32:
-        raise ValueError(f"{what} takes at most 32 views")
     sl, sr = merge_shifts(shifts)
     va = torch.empty((nv, h, w, 3), dtype=F32, device=dev)
     vb = torch.empty_like(va)

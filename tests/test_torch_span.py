@@ -232,7 +232,7 @@ def test_quantize_cost_matches_jax(float_costs):
     assert got.dtype == torch.uint8
     ref = np.asarray(jband.quantize_cost(jnp.asarray(cl))).astype(np.float32)
     np.testing.assert_array_equal(got.numpy().astype(np.float32), ref)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
         tband.quantize_cost(_t(cl), qscale=255.0)
 
 
