@@ -19,20 +19,29 @@
    streamed B4 and B6 there and where their row streams and vector paths
    end (a width below one segment, D=126 and D=130, prefixes that wrap,
    ties).  The configuration limits once refused on the card: B2 and B3
-   at D=126, the warps B12, B14 and B19 with 38 views.  The entry
-   points beside process_frame run on the 1080p
+   at D=126, the warps B12, B14 and B19 with 38 views.  The modes of the
+   band engine's dials: B2's int16 (band_qscale 510) and float32 pairs
+   and both eyes directly in u8, int16 and float32, B3 in int16 and
+   float32, B4 on int16 costs at the qscale-510 shifts of band_digits 3,
+   2 and 1, B6's lossy WTA (band_lossy_wta) at the shifts of band_digits
+   3, 2 and 1 and on inputs that its rounding turns into ties; and where
+   their streams end (37 rows, D=126, int16 windows past 2^16).  The
+   entry points beside process_frame run on the 1080p
    frame's own stages, each as a path with its launch counts checked:
    `dr_irv_band_lr` (B15, 5 fixed rounds) equal to the fixed-round
    `dr_irv` (B8/B9); `dibr_warp_views_kern` (B19) equal to
    `dibr_warp_pair_kern` (B20) view by view and to B14; and
    `ci_adcensus_kern(shift_extract=True)` (B16's one-eye modes, B17)
-   equal to shift_extract=False, u8 and float32.  The forward warp
+   equal to shift_extract=False, u8 and float32; and
+   `ci_adcensus_kern_xm` (B2's pair and B3, or B2 once an eye) with the
+   shear equal to without, u8, int16 and float32.  The forward warp
    (`dibr_dfm`, plain torch) is timed at 1080p and held card vs CPU.
 3. Drives the paths on SBS frames built from tests/data/bud_{2,3}.bmp:
    `process_frame` at HD1080_D128 (the main path: fused synthesis), at
    HD1080_D128_HSLO_4K (scanline optimisation, median, unfused synthesis,
-   4K interlace), at HD1080_D128 with band_digits 2 and 1, and at
-   UHD4K_16V (2160x3840, 16 views, row-chunked stereo core and IRV);
+   4K interlace), at HD1080_D128 with band_digits 2 and 1, with
+   band_qscale=510 and with band_lossy_wta, and at UHD4K_16V (2160x3840,
+   16 views, row-chunked stereo core and IRV);
    `process_frame_lowres` at HD1080_LOWRES; and the disparity-major
    stereo core `band_stereo_core_dm` at 1080p/D=128, whole-frame and in
    540-row chunks, and at 2160x3840 in 540-row chunks (its kernels held
@@ -44,16 +53,20 @@
    CUDA events.
 4. Checks the outputs: shapes, dtypes, finite disparities in range, and
    small frames (plain, HSLO + median + resampled, lowres, bilateral
-   radius 10, num_disp 30, 40 views, and the disparity-major core) run on
-   the card against the same frames run on the CPU.
+   radius 10, num_disp 30, 40 views, band_qscale 510 and 64,
+   band_lossy_wta at band_digits 3 and 1, HSLO at band_qscale 510, and
+   the disparity-major core) run on the card against the same frames run
+   on the CPU.
 
 `python3 chip_smoke.py --frames N [--package-root DIR]` instead times only
-the four preset paths (HD1080_D128, HSLO_4K, LOWRES, UHD4K_16V), N frames
-each, on the package under DIR: the way to compare two commits' frame
-and stage times within one call.  `--stream-checks [--package-root DIR]`
-only holds the streamed kernels B4, B5, B6 and B9 (and the kernels that
-feed them) against their plain versions, on the package under DIR: the
-way to show that a deliberately broken copy of one fails.
+the four preset paths (HD1080_D128, HSLO_4K, LOWRES, UHD4K_16V) and the
+two dial paths (where that package has the dials), N frames each, on the
+package under DIR: the way to compare two commits' frame and stage times
+within one call.  `--stream-checks [--package-root DIR]` only holds the
+streamed kernels B4, B5, B6 and B9 (and the kernels that feed them), then
+the dials' modes of B2-B4 and B6, against their plain versions, on the
+package under DIR: the way to show that a deliberately broken copy of
+one fails.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
 a `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -258,6 +271,48 @@ KERNELS.update({
 })
 KERNELS["B19 dibr_warp_views_kern" + AT_VIEWS38] = KERNELS[
     "B19 dibr_warp_views_kern"]
+# the band engine's dials: band_qscale (int16 costs above 127.5) and
+# band_lossy_wta (pass 4's inputs rounded to bf16), each as a path of
+# process_frame, and the band engine's cost entry `ci_adcensus_kern_xm`
+# in each cost mode, with shear (B2's pair volume, B3) and without (B2
+# once an eye, directly)
+QSCALE510 = "HD1080_D128 band_qscale=510"
+LOSSY = "HD1080_D128 band_lossy_wta"
+DIAL_MODES = (("u8", 127.0, True), ("int16", 510.0, True),
+              ("float32", 127.0, False))
+XM_PAIR = {m: f"ci_adcensus_kern_xm HD1080_D128 {m}" for m, _, _ in DIAL_MODES}
+XM_EYES = {m: f"ci_adcensus_kern_xm shear=False HD1080_D128 {m}"
+           for m, _, _ in DIAL_MODES}
+B2_SRC = ("cost_pair", _SRC + "cost.cu", _TPU + "costkern.py:279")
+B3_SRC = ("shear_right", _SRC + "shear.cu", _TPU + "costkern.py:342")
+B4I = "B4 h_pass_sum (pass 1, int16 costs)"
+B6L = "B6 h_pass_wta (pass 4 + lossy WTA)"
+B4I_SRC = ("h_pass_sum", _SRC + "hpass.cu", _TPU + "band.py:150")
+B6L_SRC = ("h_pass_wta", _SRC + "hpass.cu", _TPU + "band.py:150")
+DIAL_PAIRS = {"int16, qscale 510": QSCALE510, "float32": XM_PAIR["float32"]}
+for _label, _path in DIAL_PAIRS.items():
+    KERNELS[f"B2 cost_pair (pair, {_label})"] = (*B2_SRC, _path)
+    KERNELS[f"B3 shear_right ({_label})"] = (*B3_SRC, _path)
+for _mode, _, _ in DIAL_MODES:
+    for _side in ("left", "right"):
+        KERNELS[f"B2 cost_pair ({_side} eye {_mode}, direct)"] = (
+            *B2_SRC, XM_EYES[_mode])
+for _digits in (3, 2, 1):
+    KERNELS[f"{B4I[:-1]}, qscale=510 band_digits={_digits} shifts)"] = (
+        *B4I_SRC, QSCALE510)
+    KERNELS[f"{B6L[:-1]}, band_digits={_digits} shifts)"] = (*B6L_SRC, LOSSY)
+# ... and where their streams and vector paths end: a 37-row crop, D=126
+# (scalar loads and stores), int16 costs whose windows pass 2^16, and
+# inputs that the bf16 rounding turns into ties
+AT_I16MAX = " (200x1001, int16 costs 32000..32767: windows past 2^16)"
+for _suffix in (AT_SHORT, AT_D126):
+    KERNELS[B4I + _suffix] = (*B4I_SRC, QSCALE510)
+    KERNELS[B6L + _suffix] = (*B6L_SRC, LOSSY)
+for _label, _path in DIAL_PAIRS.items():
+    KERNELS[f"B2 cost_pair (pair, {_label})" + AT_D126] = (*B2_SRC, _path)
+    KERNELS[f"B3 shear_right ({_label})" + AT_D126] = (*B3_SRC, _path)
+KERNELS[B4I + AT_I16MAX] = (*B4I_SRC, QSCALE510)
+KERNELS[B6L + AT_TIES] = (*B6L_SRC, LOSSY)
 # the wrappers each path must not launch (its route replaces them); every
 # other wrapper must launch at least once on it
 DM_WRAPPERS = {"cost_dm", "pass1_dm", "vv_dm", "pass4_wta_dm"}
@@ -270,7 +325,7 @@ NOT_ON_PATH = {
     HSLO4K: {"h_pass_wta", "warp_merge_views"} | DM_WRAPPERS | SIDE_WRAPPERS,
     LOWRES: {"dc_hslo_wta", "warp_views"} | DM_WRAPPERS | SIDE_WRAPPERS,
 }
-for _path in (DIGITS2, DIGITS1, UHD4K):
+for _path in (DIGITS2, DIGITS1, UHD4K, QSCALE510, LOSSY):
     NOT_ON_PATH[_path] = NOT_ON_PATH[MAIN]
 # `h_pass_sum` counts two entry points of hpass.cu: pass 1 (u8, both eyes)
 # on every path, and pass 4 without the WTA (int32, both eyes) where the
@@ -283,6 +338,8 @@ EXACT_LAUNCHES = {
     DIGITS2: {"h_pass_sum": 2, "vv_pass": 2},
     DIGITS1: {"h_pass_sum": 2, "vv_pass": 2},
     UHD4K: {"h_pass_sum": 8, "vv_pass": 8},     # 4 row chunks x 2 eyes
+    QSCALE510: {"h_pass_sum": 2, "vv_pass": 2},
+    LOSSY: {"h_pass_sum": 2, "vv_pass": 2},
 }
 
 
@@ -408,7 +465,6 @@ def check_core_kernels(chk, img_l, img_r, cfg, hslo=True):
     import torch
     from stereo_to_multiview_tpu_torch.ops import (
         band, costkern, cross, hslokern)
-    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
     from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN
     from stereo_to_multiview_tpu_torch.ops.mux import mux_average
 
@@ -428,28 +484,9 @@ def check_core_kernels(chk, img_l, img_r, cfg, hslo=True):
 
     m = costkern.pair_margin(nd, zd)
     s1, s2, s3 = band.agg_rescale_shifts(usd, cfg.band_digits)
-    cen_l = census_transform_9x7(mux_average(img_l))
-    cen_r = census_transform_9x7(mux_average(img_r))
-    table = costkern.cost_table(cfg.ad_coeff, cfg.census_coeff).to(
-        img_l.device)
-    args = (img_l, img_r, cen_l, cen_r, table, nd, zd)
-    pair = costkern.cost_pair(*args)
-    chk.record("B2 cost_pair", pair, costkern.cost_pair_plain(*args),
-               lambda: costkern.cost_pair(*args),
-               lambda: costkern.cost_pair_plain(*args),
-               nbytes=2 * hw * 3 + 2 * hw * 8 + table.numel() + pair.numel(),
-               ops=10 * pair.numel())
+    pair = record_cost(chk, "B2 cost_pair", cost_args(img_l, img_r, cfg))
 
-    cost_r = costkern.shear_right(pair, zd)
-    x = torch.arange(w, device=pair.device)[:, None]
-    d = torch.arange(nd, device=pair.device)[None, :]
-    idx = (x + m - (d - zd)).expand(h, w, nd)
-    chk.record("B3 shear_right", cost_r, costkern.shear_right_plain(pair, zd),
-               lambda: costkern.shear_right(pair, zd),
-               lambda: costkern.shear_right_plain(pair, zd),
-               nbytes=pair.numel() + hwd, ops=0,
-               library=lambda: torch.gather(pair, 1, idx))
-    del idx
+    cost_r = record_shear(chk, "B3 shear_right", pair, zd, library=True)
     if not hslo:
         del cost_r
 
@@ -788,10 +825,11 @@ def check_vstream_edges(chk, dl, ol, arms, cfg):
     chk.suffix = ""
 
 
-def record_hpass(chk, name, vol, arms, usd, shift=0, zd=None):
-    """One entry of hpass.cu held against its plain version: pass 1 (u8)
-    or pass 4 without the WTA (int32) with `shift`, or pass 4 + WTA with
-    `zd`.  Returns the kernel's output."""
+def record_hpass(chk, name, vol, arms, usd, shift=0, zd=None, lossy=False):
+    """One entry of hpass.cu held against its plain version: pass 1 (u8
+    or int16) or pass 4 without the WTA (int32) with `shift`, or pass 4 +
+    WTA with `zd` (each input rounded to bf16 first with `lossy`).
+    Returns the kernel's output."""
     from stereo_to_multiview_tpu_torch.ops import band
     from stereo_to_multiview_tpu_torch.ops.cross import LEFT, RIGHT
     h, w, nd = vol.shape
@@ -802,11 +840,70 @@ def record_hpass(chk, name, vol, arms, usd, shift=0, zd=None):
         plain = lambda: band.h_pass_sum_plain(vol, *lr, shift, usd)
         nbytes = hwd * vol.element_size() + 2 * hw * 4 + hwd * 4
     else:
-        kern = lambda: band.h_pass_wta(vol, *lr, zd, usd)
-        plain = lambda: band.h_pass_wta_plain(vol, *lr, zd, usd)
+        kern = lambda: band.h_pass_wta(vol, *lr, zd, usd, lossy)
+        plain = lambda: band.h_pass_wta_plain(vol, *lr, zd, usd, lossy)
         nbytes = hwd * 4 + 2 * hw * 4 + hw * 4
     out = kern()
     chk.record(name, out, plain(), kern, plain, nbytes=nbytes, ops=3 * hwd)
+    return out
+
+
+def cost_args(img_l, img_r, cfg):
+    """The arguments of `cost_pair` for a pair of images under `cfg`:
+    images, census codes, coefficients, D and zero_disp."""
+    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
+    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+    return (img_l, img_r, census_transform_9x7(mux_average(img_l)),
+            census_transform_9x7(mux_average(img_r)), cfg.ad_coeff,
+            cfg.census_coeff, cfg.num_disp, cfg.zero_disp)
+
+
+def record_cost(chk, name, cargs, qscale=127.0, quant=True, eye="pair"):
+    """One B2 entry: `cost_pair` in one of its modes against its plain
+    version (the host-built table of the same dtype).  Returns the
+    kernel's volume."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import costkern
+    img_l, img_r, cen_l, cen_r, ad, cen, nd, zd = cargs
+    table = costkern.device_cost_table(ad, cen, img_l.device, qscale, quant)
+    pargs = (img_l, img_r, cen_l, cen_r, table, nd, zd, eye)
+    kw = dict(qscale=qscale, quant=quant, eye=eye)
+    out = costkern.cost_pair(*cargs, **kw)
+    hw = img_l.shape[0] * img_l.shape[1]
+    # bytes: the packed images and census codes read once, the u8 table or
+    # the two float32 term tables, the volume written once; ~10 integer
+    # operations an element
+    tab_bytes = (table.numel() if table.dtype == torch.uint8
+                 else (costkern.AD_VALUES + costkern.HAM_VALUES) * 4)
+    chk.record(name, out, costkern.cost_pair_plain(*pargs),
+               lambda: costkern.cost_pair(*cargs, **kw),
+               lambda: costkern.cost_pair_plain(*pargs),
+               nbytes=2 * hw * 3 + 2 * hw * 8 + tab_bytes
+               + out.numel() * out.element_size(), ops=10 * out.numel())
+    return out
+
+
+def record_shear(chk, name, pair, zd, library=False):
+    """One B3 entry: `shear_right` against its plain version; with
+    `library`, one `torch.gather` of the same elements timed beside it.
+    Returns the kernel's volume."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import costkern
+    h, wp, nd = pair.shape
+    m = costkern.pair_margin(nd, zd)
+    w = wp - 2 * m
+    out = costkern.shear_right(pair, zd)
+    lib = None
+    if library:
+        x = torch.arange(w, device=pair.device)[:, None]
+        d = torch.arange(nd, device=pair.device)[None, :]
+        idx = (x + m - (d - zd)).expand(h, w, nd)
+        lib = lambda: torch.gather(pair, 1, idx)
+    chk.record(name, out, costkern.shear_right_plain(pair, zd),
+               lambda: costkern.shear_right(pair, zd),
+               lambda: costkern.shear_right_plain(pair, zd),
+               nbytes=(pair.numel() + out.numel()) * pair.element_size(),
+               ops=0, library=lib)
     return out
 
 
@@ -822,14 +919,11 @@ def check_hstream_edges(chk, img_l, img_r, cfg):
     and int32 sums full of ties (0/1 inputs)."""
     import torch
     from stereo_to_multiview_tpu_torch.ops import band, costkern, cross
-    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
     from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN
-    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
 
     dev = img_l.device
     y0 = img_l.shape[0] // 2
     arm_args = (cfg.ucd, cfg.lcd, cfg.usd, cfg.lsd)
-    table = costkern.device_cost_table(cfg.ad_coeff, cfg.census_coeff, dev)
     s2, s3 = band.agg_rescale_shifts(cfg.usd)[1:]
     b4, b6, b6s = HPASS
 
@@ -837,27 +931,15 @@ def check_hstream_edges(chk, img_l, img_r, cfg):
         l, r = (t[y0:y0 + rows, :cols].contiguous() for t in (img_l, img_r))
         return l, r, cross.cross_arms(l, *arm_args)
 
-    def pair_of(l, r, nd, zd):
-        args = (l, r, census_transform_9x7(mux_average(l)),
-                census_transform_9x7(mux_average(r)), table, nd, zd)
-        return args, costkern.cost_pair(*args)
-
     def passes(suffix, rows, cols, usd, nd, zd, wanted=HPASS, b23=False):
         chk.suffix = suffix
         l, r, arms = crop(rows, cols)
-        args, pair = pair_of(l, r, nd, zd)
-        hw = pair.shape[0] * cols
+        cargs = cost_args(l, r, cfg.replace(num_disp=nd, zero_disp=zd))
         if b23:
-            chk.record("B2 cost_pair", pair, costkern.cost_pair_plain(*args),
-                       lambda: costkern.cost_pair(*args),
-                       lambda: costkern.cost_pair_plain(*args),
-                       nbytes=2 * hw * 3 + 2 * hw * 8 + table.numel()
-                       + pair.numel(), ops=10 * pair.numel())
-            chk.record("B3 shear_right", costkern.shear_right(pair, zd),
-                       costkern.shear_right_plain(pair, zd),
-                       lambda: costkern.shear_right(pair, zd),
-                       lambda: costkern.shear_right_plain(pair, zd),
-                       nbytes=pair.numel() + hw * nd, ops=0)
+            pair = record_cost(chk, "B2 cost_pair", cargs)
+            record_shear(chk, "B3 shear_right", pair, zd)
+        else:
+            pair = costkern.cost_pair(*cargs)
         m = costkern.pair_margin(nd, zd)
         a1 = record_hpass(chk, b4, pair[:, m:m + cols], arms, usd)
         if len(wanted) > 1:
@@ -1028,19 +1110,13 @@ def check_band_digits(chk, img_l, img_r, arms, cfg):
     """B4-B6 on the left eye at the rescale shifts of band_digits 2 and 1
     (at usd=34: (0, 6, 6) and (7, 6, 6); the path's own are (0, 3, 6))."""
     from stereo_to_multiview_tpu_torch.ops import band, costkern
-    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
     from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN
-    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
 
     h, w = img_l.shape[:2]
     nd, zd, usd = cfg.num_disp, cfg.zero_disp, cfg.usd
     hw, hwd = h * w, h * w * nd
     m = costkern.pair_margin(nd, zd)
-    pair = costkern.cost_pair(
-        img_l, img_r, census_transform_9x7(mux_average(img_l)),
-        census_transform_9x7(mux_average(img_r)),
-        costkern.device_cost_table(cfg.ad_coeff, cfg.census_coeff,
-                                   img_l.device), nd, zd)
+    pair = costkern.cost_pair(*cost_args(img_l, img_r, cfg))
     cost_l = pair[:, m:m + w]
     ud = (arms[UP], arms[DOWN])
     for digits in (2, 1):
@@ -1060,6 +1136,174 @@ def check_band_digits(chk, img_l, img_r, arms, cfg):
         print(f"  band_digits={digits}: shifts {(s1, s2, s3)}, pass-3 "
               f"values up to {int(a2.max())}", flush=True)
         del a2
+
+
+def check_band_dials(chk, img_l, img_r, arms, cfg):
+    """The modes of the band_qscale and band_lossy_wta dials on a frame
+    (the left eye's arms for the passes): B2's int16 pair (qscale 510) and
+    float32 pair, and both eyes directly in u8, int16 and float32; B3 on
+    the int16 and float32 pairs; B4 on the int16 left eye at the
+    qscale-510 shifts of band_digits 3, 2 and 1 (usd=34: s1 = 0, 2, 9);
+    B6's lossy WTA at the default qscale's shifts of band_digits 3, 2 and
+    1; then B6's lossy WTA on a crop's inputs that the bf16 rounding turns
+    into ties."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band, costkern, cross
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+
+    h, w = img_l.shape[:2]
+    nd, zd, usd = cfg.num_disp, cfg.zero_disp, cfg.usd
+    m = costkern.pair_margin(nd, zd)
+    cargs = cost_args(img_l, img_r, cfg)
+    for label, q, quant in (("int16, qscale 510", 510.0, True),
+                            ("float32", 127.0, False)):
+        pair = record_cost(chk, f"B2 cost_pair (pair, {label})", cargs, q,
+                           quant)
+        record_shear(chk, f"B3 shear_right ({label})", pair, zd,
+                     library=True)
+        for digits in (3, 2, 1) if quant else ():
+            s1 = band.agg_rescale_shifts(usd, digits, q)[0]
+            a1 = record_hpass(
+                chk, f"{B4I[:-1]}, qscale=510 band_digits={digits} shifts)",
+                pair[:, m:m + w], arms, usd, s1)
+            print(f"  int16 costs up to {int(pair.max())}: pass 1 at s1 = "
+                  f"{s1}, sums up to {int(a1.max())}", flush=True)
+            del a1
+        del pair
+        torch.cuda.empty_cache()
+    for mode, q, quant in DIAL_MODES:
+        for eye, side in (("l", "left"), ("r", "right")):
+            record_cost(chk, f"B2 cost_pair ({side} eye {mode}, direct)",
+                        cargs, q, quant, eye)
+        torch.cuda.empty_cache()
+
+    cost_l = costkern.cost_pair(*cargs)[:, m:m + w]
+    lr, ud = (arms[LEFT], arms[RIGHT]), (arms[UP], arms[DOWN])
+    for digits in (3, 2, 1):
+        s1, s2, s3 = band.agg_rescale_shifts(usd, digits)
+        a2 = band.vv_pass(band.h_pass_sum(cost_l, *lr, s1, usd), *ud, s2, s3,
+                          usd)
+        lossy = record_hpass(chk, f"{B6L[:-1]}, band_digits={digits} shifts)",
+                             a2, arms, usd, zd=zd, lossy=True)
+        moved = float((lossy != band.h_pass_wta(a2, *lr, zd, usd))
+                      .float().mean())
+        print(f"  band_lossy_wta at band_digits={digits}: pass-4 inputs up "
+              f"to {int(a2.max())}; {moved:.5f} of the disparities differ "
+              f"from the exact WTA's", flush=True)
+        del a2
+    del cost_l
+
+    # inputs in [100000, 100256) round to two bf16 values (512 apart)
+    y0 = h // 2
+    crop = img_l[y0:y0 + 200, :1001].contiguous()
+    carms = cross.cross_arms(crop, cfg.ucd, cfg.lcd, usd, cfg.lsd)
+    gen = torch.Generator(device=img_l.device).manual_seed(7)
+    vol = torch.randint(100_000, 100_256, (*crop.shape[:2], nd),
+                        generator=gen, device=img_l.device,
+                        dtype=torch.int32)
+    chk.suffix = AT_TIES
+    disp = record_hpass(chk, B6L, vol, carms, usd, zd=zd, lossy=True)
+    chk.suffix = ""
+    sums = band.h_pass_sum_plain(band.round_bf16(vol), carms[LEFT],
+                                 carms[RIGHT], 0, usd)
+    last = nd - 1 - torch.argmin(sums.flip(2), dim=2)
+    tied = float((last - zd != disp).float().mean())
+    print(f"  lossy ties: the last minimum differs from the first at "
+          f"{tied:.4f} of the pixels", flush=True)
+    if tied < 0.01:
+        raise SmokeFailure("B6 lossy ties: too few ties to test the "
+                           "first-min rule")
+
+
+def check_dial_edges(chk, img_l, img_r, cfg):
+    """The dials' modes where the streams and vector paths end, on crops
+    of the frame's middle rows: 37x1001 (B4 on int16 costs, B6's lossy
+    WTA); the 200x1001 crop's own pair at D=126 (scalar loads and stores:
+    B2 and B3 in int16 and float32, B4 int16, B6 lossy); and random int16
+    costs in 32000..32767, whose windows carry B4's u32 prefixes past
+    2^16."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band, costkern, cross
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+
+    usd = cfg.usd
+    y0 = img_l.shape[0] // 2
+    arm_args = (cfg.ucd, cfg.lcd, usd, cfg.lsd)
+    for suffix, rows, nd, zd in ((AT_SHORT, 37, cfg.num_disp, cfg.zero_disp),
+                                 (AT_D126, 200, 126, 63)):
+        chk.suffix = suffix
+        l, r = (t[y0:y0 + rows, :1001].contiguous() for t in (img_l, img_r))
+        arms = cross.cross_arms(l, *arm_args)
+        cargs = cost_args(l, r, cfg.replace(num_disp=nd, zero_disp=zd))
+        m = costkern.pair_margin(nd, zd)
+        if suffix == AT_D126:
+            for label, q, quant in (("int16, qscale 510", 510.0, True),
+                                    ("float32", 127.0, False)):
+                pair = record_cost(chk, f"B2 cost_pair (pair, {label})",
+                                   cargs, q, quant)
+                record_shear(chk, f"B3 shear_right ({label})", pair, zd)
+        pair = costkern.cost_pair(*cargs, qscale=510.0)
+        s1 = band.agg_rescale_shifts(usd, 3, 510.0)[0]
+        wc = l.shape[1]
+        record_hpass(chk, B4I, pair[:, m:m + wc], arms, usd, s1)
+        s1, s2, s3 = band.agg_rescale_shifts(usd, 3)
+        lr = (arms[LEFT], arms[RIGHT])
+        a1 = band.h_pass_sum(costkern.cost_pair(*cargs)[:, m:m + wc], *lr,
+                             s1, usd)
+        a2 = band.vv_pass(a1, arms[UP], arms[DOWN], s2, s3, usd)
+        record_hpass(chk, B6L, a2, arms, usd, zd=zd, lossy=True)
+
+    chk.suffix = AT_I16MAX
+    gen = torch.Generator(device=img_l.device).manual_seed(16)
+    l = img_l[y0:y0 + 200, :1001].contiguous()
+    vol = torch.randint(32_000, 32_768, (*l.shape[:2], cfg.num_disp),
+                        generator=gen, device=img_l.device,
+                        dtype=torch.int16)
+    out = record_hpass(chk, B4I, vol, cross.cross_arms(l, *arm_args), usd)
+    chk.suffix = ""
+    if int(out.max()) < 1 << 16:
+        raise SmokeFailure("B4 int16: no window sum passed 2^16")
+
+
+def run_xm_entry(img_l, img_r, cfg):
+    """`ci_adcensus_kern_xm` as paths in each cost mode (u8, int16 at
+    qscale 510, float32): shear=True (B2's pair volume, B3) equal to
+    shear=False (B2 once an eye, directly) in every element of both eyes;
+    both timed."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import costkern
+
+    args = (img_l, img_r, cfg.ad_coeff, cfg.census_coeff, cfg.num_disp,
+            cfg.zero_disp)
+    res = {}
+    for mode, q, quant in DIAL_MODES:
+        kw = dict(quant=quant, qscale=q)
+        reset_counts()
+        got = costkern.ci_adcensus_kern_xm(*args, **kw)
+        pair_launches = read_counts(XM_PAIR[mode], {"cost_pair": 1,
+                                                    "shear_right": 1})
+        reset_counts()
+        ref = costkern.ci_adcensus_kern_xm(*args, shear=False, **kw)
+        eye_launches = read_counts(XM_EYES[mode], {"cost_pair": 2},
+                                   zero=("shear_right",))
+        for eye, a, b in (("left", got[0], ref[0]), ("right", got[1],
+                                                     ref[1])):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise SmokeFailure(f"path {XM_PAIR[mode]}: {eye} eye differs "
+                                   f"from shear=False")
+        del got, ref
+        torch.cuda.empty_cache()
+        for path, shear, launches in ((XM_PAIR[mode], True, pair_launches),
+                                      (XM_EYES[mode], False, eye_launches)):
+            res[path] = dict(launches=launches, xm_ms=time_ms(
+                lambda: costkern.ci_adcensus_kern_xm(*args, shear=shear,
+                                                     **kw), 3))
+            torch.cuda.empty_cache()
+        print(f"path {XM_PAIR[mode]}: equal to shear=False in both eyes; "
+              f"{res[XM_PAIR[mode]]['xm_ms']:.3f} ms against "
+              f"{res[XM_EYES[mode]]['xm_ms']:.3f} ms (whole entry: census, "
+              f"kernels; CUDA events, mean of 3)", flush=True)
+    return res
 
 
 def check_dm_kernels(chk, img_l, img_r, arms_l, arms_r, cfg, full=True):
@@ -1767,13 +2011,21 @@ def small_configs():
         "bilateral_radius=10": base.replace(bilateral_radius=10),
         "num_disp=30": base.replace(num_disp=30, zero_disp=15),
         "num_views=40": base.replace(num_views=40),
+        # the band engine's dials
+        "band_qscale=510": base.replace(band_qscale=510.0),
+        "band_qscale=64": base.replace(band_qscale=64.0),
+        "band_lossy_wta": base.replace(band_lossy_wta=True),
+        "band_lossy_wta band_digits=1": base.replace(band_lossy_wta=True,
+                                                     band_digits=1),
+        "hslo band_qscale=510": base.replace(use_hslo=True, band_qscale=510.0,
+                                             hslo_H1=3000.0, hslo_H2=9000.0),
     }
 
 
 def time_frames(root: str, n_frames: int) -> int:
-    """`--frames N [--package-root DIR]`: the four preset paths alone,
-    N timed frames each, on the package found under DIR (this checkout by
-    default).  To compare two commits on one card, unpack the other commit
+    """`--frames N [--package-root DIR]`: the four preset paths and the two
+    dial paths (where the package has the dials) alone, N timed frames
+    each, on the package found under DIR (this checkout by default).  To compare two commits on one card, unpack the other commit
     into a directory and run this script once with each root, in turn."""
     import torch
     sys.path.insert(0, root)
@@ -1784,13 +2036,24 @@ def time_frames(root: str, n_frames: int) -> int:
     kernels.build_kernels()
     sbs = stereo_sbs(config.HD1080_D128.num_rows, config.HD1080_D128.num_cols)
     sbs4k = stereo_sbs(config.UHD4K_16V.num_rows, config.UHD4K_16V.num_cols)
+    main_cfg = config.HD1080_D128
     for name, entry, cfg, frame in (
-            (MAIN, pipeline.process_frame, config.HD1080_D128, sbs),
+            (MAIN, pipeline.process_frame, main_cfg, sbs),
+            (QSCALE510, pipeline.process_frame,
+             main_cfg.replace(band_qscale=510.0), sbs),
+            (LOSSY, pipeline.process_frame,
+             main_cfg.replace(band_lossy_wta=True), sbs),
             (HSLO4K, pipeline.process_frame, config.HD1080_D128_HSLO_4K,
              sbs),
             (LOWRES, pipeline.process_frame_lowres, config.HD1080_LOWRES,
              sbs),
             (UHD4K, pipeline.process_frame, config.UHD4K_16V, sbs4k)):
+        try:
+            pipeline.check_ported(cfg)
+        except NotImplementedError as e:
+            print(f"frame: {name} not in the package under {root}: {e}",
+                  flush=True)
+            continue
         try:
             _, res = run_path(name, entry, frame, cfg, n_frames,
                               exact=os.path.samefile(root, HERE))
@@ -1807,8 +2070,8 @@ def time_frames(root: str, n_frames: int) -> int:
 def stream_checks(root: str) -> int:
     """`--stream-checks [--package-root DIR]`: only the checks that hold
     the streamed B4, B5, B6 and B9 against their plain versions (the
-    stereo core's and the IRV kernels at 1080p, then the edge frames), on
-    the package under DIR.  Exit 1 if one fails: a deliberately broken
+    stereo core's and the IRV kernels at 1080p, then the edge frames, then
+    the dials' modes of B2-B4 and B6), on the package under DIR.  Exit 1 if one fails: a deliberately broken
     copy of a kernel must."""
     import torch
     sys.path.insert(0, root)
@@ -1828,6 +2091,8 @@ def stream_checks(root: str) -> int:
         check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_hstream_edges(chk, img_l, img_r, cfg)
+        check_band_dials(chk, img_l, img_r, arms_l, cfg)
+        check_dial_edges(chk, img_l, img_r, cfg)
     except (SmokeFailure, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1838,10 +2103,11 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=0,
-                    help="time only the three preset paths, this many "
+                    help="time only the preset and dial paths, this many "
                          "frames each, and print no result line")
     ap.add_argument("--stream-checks", action="store_true",
-                    help="only hold B4, B5, B6 and B9 against their plain "
+                    help="only hold B4, B5, B6 and B9 (and the dials' "
+                         "modes) against their plain "
                          "versions and print no result line")
     ap.add_argument("--package-root", default=HERE,
                     help="with --frames or --stream-checks: the checkout "
@@ -1921,6 +2187,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         check_band_digits(chk, img_l, img_r, arms_l, cfg)
         torch.cuda.empty_cache()
+        # the band engine's dials: their kernel modes on this frame and at
+        # the edges, then the cost entry in each mode as paths
+        check_band_dials(chk, img_l, img_r, arms_l, cfg)
+        torch.cuda.empty_cache()
+        check_dial_edges(chk, img_l, img_r, cfg)
+        paths.update(run_xm_entry(img_l, img_r, cfg))
+        torch.cuda.empty_cache()
 
         # the disparity-major core: its kernels at 1080p and at the extent
         # of a 540-row chunk, then the core as a path, whole-frame and
@@ -1981,7 +2254,11 @@ def main() -> int:
                  config.HD1080_LOWRES),
                 (DIGITS2, pipeline.process_frame, cfg2),
                 (DIGITS1, pipeline.process_frame,
-                 cfg.replace(band_digits=1))):
+                 cfg.replace(band_digits=1)),
+                (QSCALE510, pipeline.process_frame,
+                 cfg.replace(band_qscale=510.0)),
+                (LOSSY, pipeline.process_frame,
+                 cfg.replace(band_lossy_wta=True))):
             out, paths[name] = run_path(name, entry, sbs, pcfg, 10)
             check_outputs(name, out, pcfg, pipeline.synth_disp_bounds(pcfg))
             del out
@@ -2039,6 +2316,11 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    unlisted = sorted(set(kres) ^ set(KERNELS))
+    if unlisted:
+        print(f"chip_smoke: FAILED: kernel entries recorded but not listed, "
+              f"or listed but not recorded: {unlisted}", file=sys.stderr)
+        return 1
     rows = []
     for name, (wrapper, source, replaces, path) in KERNELS.items():
         r = kres[name]
@@ -2071,6 +2353,8 @@ def main() -> int:
         elif "shift_extract_ms" in p:
             print(f"cost: {p['shift_extract_ms']:.3f} ms shift_extract, "
                   f"{p['direct_ms']:.3f} ms direct at {name} on {card}")
+        elif "xm_ms" in p:
+            print(f"cost: {p['xm_ms']:.3f} ms at {name} on {card}")
         else:
             print(f"warps: {p['views_ms']:.4f} ms all views, "
                   f"{p['pairs_ms']:.4f} ms per-view pairs at {name} on "

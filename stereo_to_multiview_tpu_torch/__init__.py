@@ -8,12 +8,17 @@ its module names, so each counterpart is easy to find:
   config         -- PipelineConfig (same fields), config_from_dict
   ops            -- one function per pipeline stage, on torch tensors
   ops.cross      -- kernel B1 (cross arms)
-  ops.costkern   -- kernels B2 (cost pair volume), B3 (right-eye shear),
-                    B16 (`cost_dm`: both eyes or one, disparity-major)
-                    and B17 (`shear_right_dm`: the right eye by per-plane
-                    shifts), with `ci_adcensus_kern(_stacked)`
-  ops.band       -- kernels B4/B6 (horizontal passes, WTA) and B5
-                    (vertical passes) of the band engine's stereo core;
+  ops.costkern   -- kernels B2 (cost pair volume or one eye; u8, int16
+                    or float32), B3 (right-eye shear), B16 (`cost_dm`:
+                    both eyes or one, disparity-major) and B17
+                    (`shear_right_dm`: the right eye by per-plane
+                    shifts), with `ci_adcensus_kern(_stacked)` and
+                    `ci_adcensus_kern_xm`
+  ops.fastmath   -- the polynomial exp of `fast_exp` and its proof
+  ops.band       -- kernels B4/B6 (horizontal passes, WTA, the lossy
+                    WTA) and B5 (vertical passes) of the band engine's
+                    stereo core, with the dials band_qscale and
+                    band_lossy_wta;
                     B18a-c, the disparity-major core
                     (`band_stereo_core_dm`); B15 (float span sums,
                     `band_span_sum_h/_v`, under `dr_irv_band(_lr)`)

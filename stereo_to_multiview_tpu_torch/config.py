@@ -71,8 +71,9 @@ class PipelineConfig:
                                  # shifts keep each pass's input below
                                  # (2^24-1)/(2*usd+1) (3), 2^15 (2) or
                                  # 2^8 (1); exact integers at each
-    band_qscale: float = 127.0   # cost quantization scale (127 = u8)
-    band_lossy_wta: bool = False # pass-4 bf16 WTA dial (not ported)
+    band_qscale: float = 127.0   # cost quantization scale (127 = u8;
+                                 # int16 costs above 127.5, <= 16383)
+    band_lossy_wta: bool = False # pass-4 bf16 WTA dial
     xla_agg_qscale: float = 0.0  # JAX XLA engine only
     band_row_chunk: int = 0      # stereo-core rows per chunk (0 = whole)
     irv_row_chunk: int = 0       # IRV rows per chunk (0 = whole frame)

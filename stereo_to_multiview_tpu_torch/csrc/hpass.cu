@@ -2,16 +2,24 @@
 //
 // Replaces the TPU kernel stereo_to_multiview_tpu/ops/band.py `_res_kernel`
 // in mode "int" (reached via `_band_pass_h` from `band_aggregate_q`):
-//   pass 1 (B4): y = sum over [x - LEFT, x + RIGHT) of the u8 cost volume,
-//                rescaled by s1, stored int32;
+//   pass 1 (B4): y = sum over [x - LEFT, x + RIGHT) of the u8 cost volume
+//                (or, at band_qscale > 127.5, of the int16 one: `terms=2`,
+//                band.py:649), rescaled by s1, stored int32;
 //   pass 4 (B6): the same sum of the int32 VV output, then the first-min
 //                argmin over D: disp = argmin - zd as float32; or, for the
 //                scanline optimisation that follows it when cfg.use_hslo
 //                is set, the sum alone as an int32 volume (`_band_pass_h`
 //                with out_dtype int32 and no WTA, band.py
 //                `band_aggregate_q(zero_disp=None, final_out_t=True)`).
-// Volumes are (H, W, D), D innermost; the u8 input may have a row stride
-// larger than W*D (the left eye is a column slice of the pair volume).
+// and in mode "float", terms=1, with the WTA (band_lossy_wta, band.py:
+// 704-708): each int32 input rounded to bf16 (round to nearest, ties to
+// even) before the window sum.  Every such value is an integer, and the
+// pass-4 inputs stay below (2^24 - 1) / (2 * usd + 1) (the rescale
+// shifts), so the window sums stay below 2^24: the float32 dot of the TPU
+// kernel is exact in any order, and the integer sum here equals it.
+// Volumes are (H, W, D), D innermost; the u8 and int16 inputs may have a
+// row stride larger than W*D (the left eye is a column slice of the pair
+// volume).
 // Windows are half-open, [max(x - an, 0), min(x + ap, W)), the arms
 // clamped to [0, reach] (an arm of 0 excludes the anchor side); a sum is
 // rescaled by (y + 2^(shift-1)) >> shift.  All sums are exact integers.
@@ -25,14 +33,16 @@
 // left and run reach columns past its right end.  Lane g owns the 4
 // consecutive d = 4g .. 4g + 3 of each position (of each chunk of 4 * G d
 // when D > 128), so a warp reads a position's 128 d as one 32-bit load a
-// lane (u8: 128 B) or one 16-byte load (int32: 512 B).  The running
+// lane (u8: 128 B), one 8-byte load (int16: 256 B) or one 16-byte load
+// (int32: 512 B).  The running
 // prefix of each owned d goes into a ring of N = 2 * reach + STEP + 1
 // slots in shared memory, the warp's own (no barrier anywhere); output x
 // is P(min(x + ap, W)) - P(max(x - an, 0)), taken reach positions behind
 // the newest input.  Pass 1's prefixes are u16, packed two a u32 word: a
 // window sum is at most (2 * reach + 1) * 255 < 2^16 for reach <= 127, so
 // the wrapped difference of a word is exact in both halves (the low
-// half's carries cancel).  Pass 4's are u32: its window sums are below
+// half's carries cancel).  Pass 1 on int16 costs and pass 4 take u32
+// prefixes: their window sums reach 2^22 (129 x 32766) and stay below
 // 2^31.  Positions go in batches of STEP: the next batch's inputs and
 // arms are loaded before the current batch is pushed, and kept raw until
 // it comes up; a batch pushes all its positions, then reads its outputs
@@ -58,6 +68,10 @@
 // Segments of 512 measured faster for the WTA pass at 1080p, but they
 // leave the 540-row LOWRES frame 540 warps, fewer than the card holds.
 
+#include <cuda_bf16.h>
+
+#include <type_traits>
+
 #include "stm_common.cuh"
 
 // positions of a batch (<= 16): the sums keep more loads in flight, the
@@ -74,9 +88,13 @@ template <> struct HpTypes<uint8_t> {
   typedef uint32_t Raw;             // bytes d0 .. d0 + 3
   typedef uint2 Pre;                // (d0 | d1 << 16, d2 | d3 << 16)
 };
+template <> struct HpTypes<int16_t> {
+  typedef uint2 Raw;                // d0 | d1 << 16, d2 | d3 << 16
+  typedef uint4 Pre;                // one u32 a d
+};
 template <> struct HpTypes<int32_t> {
   typedef int4 Raw;
-  typedef uint4 Pre;                // one u32 a d
+  typedef uint4 Pre;
 };
 
 // The lane's 4 values at p (d0 .. d0 + 3 of one position); nd = D - d0
@@ -89,6 +107,17 @@ __device__ __forceinline__ uint32_t hp_load(const uint8_t* p, int nd) {
   for (int j = 0; j < 4; ++j)
     if (j < nd) v |= (uint32_t)p[j] << (8 * j);
   return v;
+}
+
+template <bool VEC>
+__device__ __forceinline__ uint2 hp_load(const int16_t* p, int nd) {
+  if (VEC) return nd > 0 ? *reinterpret_cast<const uint2*>(p)
+                         : make_uint2(0u, 0u);
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < nd) v[j] = (uint16_t)p[j];
+  return make_uint2(v[0] | (v[1] << 16), v[2] | (v[3] << 16));
 }
 
 template <bool VEC>
@@ -108,11 +137,30 @@ __device__ __forceinline__ void hp_add(uint2& P, uint32_t v) {
   P.y += __byte_perm(v, 0u, 0x4342);          // byte 2 | byte 3 << 16
 }
 
+// int16: each half sign-extended (the costs are >= 0 on every path)
+__device__ __forceinline__ void hp_add(uint4& P, uint2 v) {
+  P.x += (uint32_t)(int32_t)(int16_t)(v.x & 0xFFFFu);
+  P.y += (uint32_t)((int32_t)v.x >> 16);
+  P.z += (uint32_t)(int32_t)(int16_t)(v.y & 0xFFFFu);
+  P.w += (uint32_t)((int32_t)v.y >> 16);
+}
+
 __device__ __forceinline__ void hp_add(uint4& P, int4 v) {
   P.x += (uint32_t)v.x;
   P.y += (uint32_t)v.y;
   P.z += (uint32_t)v.z;
   P.w += (uint32_t)v.w;
+}
+
+// band_lossy_wta: an int32 rounded to bf16 (round to nearest even) and
+// back, exact as an integer below 2^24
+__device__ __forceinline__ int hp_bf16(int v) {
+  return __float2int_rn(__bfloat162float(__float2bfloat16_rn(
+      __int2float_rn(v))));
+}
+
+__device__ __forceinline__ int4 hp_bf16(int4 v) {
+  return make_int4(hp_bf16(v.x), hp_bf16(v.y), hp_bf16(v.z), hp_bf16(v.w));
 }
 
 // The 4 window sums hi - lo.
@@ -138,8 +186,9 @@ __device__ __forceinline__ int hp_slot(int w, int jn, int j, int N) {
 }
 
 // One warp a (row group, segment): blockIdx.x = row group * nseg + seg.
-// G lanes a row (32, or 16 when D <= 64: two rows a warp).
-template <typename TIn, bool WTA, int G, bool VEC>
+// G lanes a row (32, or 16 when D <= 64: two rows a warp).  LOSSY (int32
+// with the WTA only) rounds each input to bf16 as its batch comes up.
+template <typename TIn, bool WTA, int G, bool VEC, bool LOSSY>
 __global__ void __launch_bounds__(32)
 hpass_kernel(const TIn* __restrict__ in, long long in_row,
              const int* __restrict__ arm_neg, const int* __restrict__ arm_pos,
@@ -223,7 +272,10 @@ hpass_kernel(const TIn* __restrict__ in, long long in_row,
       // runs branch-free, so the positions' work can overlap.
       const int w0 = w;
       auto push = [&](int k) {
-        hp_add(P, v[k]);
+        if constexpr (LOSSY)
+          hp_add(P, hp_bf16(v[k]));
+        else
+          hp_add(P, v[k]);
         const int slot = w0 + k + 1;
         ring[(slot < N ? slot : slot - N) * 32 + lane] = P;
       };
@@ -334,13 +386,13 @@ hpass_kernel(const TIn* __restrict__ in, long long in_row,
   }
 }
 
-template <typename TIn, bool WTA, int G, bool VEC>
+template <typename TIn, bool WTA, int G, bool VEC, bool LOSSY>
 static cudaError_t launch_one(dim3 grid, size_t smem, cudaStream_t stream,
                               const TIn* in, long long in_row, const int* an,
                               const int* ap, int32_t* out, float* disp,
                               int H, int W, int D, int reach, int shift,
                               int zd, int S, int nseg, int N) {
-  auto kernel = hpass_kernel<TIn, WTA, G, VEC>;
+  auto kernel = hpass_kernel<TIn, WTA, G, VEC, LOSSY>;
   cudaError_t err = stm_smem_cap(kernel, smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel,
@@ -352,7 +404,7 @@ static cudaError_t launch_one(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-template <typename TIn, bool WTA>
+template <typename TIn, bool WTA, bool LOSSY = false>
 static int launch_hpass(const void* in_v, long long in_row, const void* an,
                         const void* ap, void* out_v, void* disp, int H,
                         int W, int D, int reach, int shift, int zd,
@@ -383,21 +435,19 @@ static int launch_hpass(const void* in_v, long long in_row, const void* an,
   float* dp = (float*)disp;
   const int* a = (const int*)an;
   const int* b = (const int*)ap;
-  cudaError_t err;
-  if (G == 32)
-    err = vec ? launch_one<TIn, WTA, 32, true>(grid, smem, st, in, in_row, a,
-                                               b, out, dp, H, W, D, reach,
-                                               shift, zd, S, nseg, N)
-              : launch_one<TIn, WTA, 32, false>(grid, smem, st, in, in_row,
-                                                a, b, out, dp, H, W, D,
-                                                reach, shift, zd, S, nseg, N);
-  else
-    err = vec ? launch_one<TIn, WTA, 16, true>(grid, smem, st, in, in_row, a,
-                                               b, out, dp, H, W, D, reach,
-                                               shift, zd, S, nseg, N)
-              : launch_one<TIn, WTA, 16, false>(grid, smem, st, in, in_row,
-                                                a, b, out, dp, H, W, D,
-                                                reach, shift, zd, S, nseg, N);
+  auto go = [&](auto kern_g, auto kern_vec) {
+    return launch_one<TIn, WTA, decltype(kern_g)::value,
+                      decltype(kern_vec)::value, LOSSY>(
+        grid, smem, st, in, in_row, a, b, out, dp, H, W, D, reach, shift, zd,
+        S, nseg, N);
+  };
+  using G32 = std::integral_constant<int, 32>;
+  using G16 = std::integral_constant<int, 16>;
+  using Vec = std::true_type;
+  using Scalar = std::false_type;
+  const cudaError_t err =
+      G == 32 ? (vec ? go(G32{}, Vec{}) : go(G32{}, Scalar{}))
+              : (vec ? go(G16{}, Vec{}) : go(G16{}, Scalar{}));
   return (int)err;
 }
 
@@ -410,11 +460,25 @@ STM_API int stm_hpass_sum_u8(const void* in, long long in_row, const void* an,
                                       D, reach, shift, 0, stream);
 }
 
+// Pass 1 at band_qscale > 127.5: in (H, W, D) int16 with row stride in_row
+// elements (x stride D); an/ap (H, W) i32; out (H, W, D) i32.
+STM_API int stm_hpass_sum_i16(const void* in, long long in_row,
+                              const void* an, const void* ap, void* out,
+                              int H, int W, int D, int reach, int shift,
+                              void* stream) {
+  return launch_hpass<int16_t, false>(in, in_row, an, ap, out, nullptr, H, W,
+                                      D, reach, shift, 0, stream);
+}
+
 // Pass 4 + WTA: in (H, W, D) i32 contiguous; an/ap (H, W) i32;
-// disp (H, W) f32.
+// disp (H, W) f32.  lossy != 0: each input rounded to bf16 first.
 STM_API int stm_hpass_wta_i32(const void* in, const void* an, const void* ap,
                               void* disp, int H, int W, int D, int reach,
-                              int zd, void* stream) {
+                              int zd, int lossy, void* stream) {
+  if (lossy)
+    return launch_hpass<int32_t, true, true>(in, (long long)W * D, an, ap,
+                                             nullptr, disp, H, W, D, reach, 0,
+                                             zd, stream);
   return launch_hpass<int32_t, true>(in, (long long)W * D, an, ap, nullptr,
                                      disp, H, W, D, reach, 0, zd, stream);
 }

@@ -16,3 +16,20 @@ static inline cudaError_t stm_smem_cap(K kernel, size_t bytes) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
+
+// Four consecutive values of T (u8, int16 or float32) stored as one
+// aligned word of 4, 8 or 16 bytes.
+template <typename T> struct StmVec4;
+template <> struct StmVec4<uint8_t> { typedef uchar4 V; };
+template <> struct StmVec4<int16_t> { typedef short4 V; };
+template <> struct StmVec4<float> { typedef float4 V; };
+
+template <typename T>
+__device__ __forceinline__ void stm_store4(T* dst, const T (&v)[4]) {
+  typename StmVec4<T>::V q;
+  q.x = v[0];
+  q.y = v[1];
+  q.z = v[2];
+  q.w = v[3];
+  *reinterpret_cast<typename StmVec4<T>::V*>(dst) = q;
+}

@@ -38,11 +38,12 @@ _F = ctypes.c_float
 # sizes as int, float parameters as float.
 _SIGS = {
     "stm_cross_arms": [_P, _P, _I, _I, _F, _F, _I, _I, _P],
-    "stm_cost_pair": [_P] * 6 + [_I] * 4 + [_P],
-    "stm_shear_right": [_P, _P] + [_I] * 4 + [_P],
+    "stm_cost_pair": [_P] * 6 + [_F, _P] + [_I] * 7 + [_P],
+    "stm_shear_right": [_P, _P] + [_I] * 5 + [_P],
     "stm_hpass_sum_u8": [_P, _LL, _P, _P, _P] + [_I] * 5 + [_P],
+    "stm_hpass_sum_i16": [_P, _LL, _P, _P, _P] + [_I] * 5 + [_P],
     "stm_hpass_sum_i32": [_P, _P, _P, _P] + [_I] * 5 + [_P],
-    "stm_hpass_wta_i32": [_P, _P, _P, _P] + [_I] * 5 + [_P],
+    "stm_hpass_wta_i32": [_P, _P, _P, _P] + [_I] * 6 + [_P],
     "stm_hslo_wta": [_P] * 5 + [_I] * 5 + [_F, _P, _P, _P],
     "stm_vv_pass": [_P] * 4 + [_I] * 6 + [_P],
     "stm_dcc": [_P] * 4 + [_I, _I, _F, _I, _P],

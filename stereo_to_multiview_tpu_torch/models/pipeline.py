@@ -37,6 +37,7 @@ import torch
 
 from stereo_to_multiview_tpu_torch.config import PipelineConfig
 from stereo_to_multiview_tpu_torch.ops.band import band_stereo_core_chunked
+from stereo_to_multiview_tpu_torch.ops.costkern import cost_dtype
 from stereo_to_multiview_tpu_torch.ops.cross import cross_arms
 from stereo_to_multiview_tpu_torch.ops.dcc import dr_dcc
 from stereo_to_multiview_tpu_torch.ops.demux import demux_sbs
@@ -65,20 +66,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_ported(cfg: PipelineConfig):
-    """Raise NotImplementedError for any knob that is not ported yet."""
-    todo = [
-        (cfg.engine == "xla", "engine='xla'", "A.4"),
-        (cfg.band_qscale != 127.0, "band_qscale != 127", "A.3"),
-        (cfg.band_lossy_wta, "band_lossy_wta", "A.3"),
-    ]
-    for bad, what, item in todo:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP {item})")
-    if cfg.engine not in ("auto", "band", "xla"):
+    """Raise NotImplementedError for a knob that is not ported yet (the
+    XLA engine), ValueError for a value out of range."""
+    if cfg.engine == "xla":
+        raise NotImplementedError(
+            "engine='xla' is not ported yet (ROADMAP A.4)")
+    if cfg.engine not in ("auto", "band"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
     if cfg.band_digits not in (1, 2, 3):
         raise ValueError("band_digits must be 1, 2 or 3")
+    cost_dtype(cfg.band_qscale)
 
 
 def raw_disparities(img_l, img_r, cfg: PipelineConfig,

@@ -4,15 +4,18 @@ cfg.use_hslo, the scanline optimisation (kernel B13) before the WTA.
 A second, complete core in the disparity-major (2D, H, W) layout runs on
 kernels B16 and B18a-c (`band_stereo_core_dm`).
 
-Every aggregate is an exact integer: the u8 cost q = rint(127 * cost) is
-summed over half-open windows [p - arm_neg, p + arm_pos) and rescaled
+Every aggregate is an exact integer: the quantized cost q = rint(qscale *
+cost) (u8 at the default qscale 127, int16 above 127.5: cfg.band_qscale)
+is summed over half-open windows [p - arm_neg, p + arm_pos) and rescaled
 after passes 1-3 by power-of-2 shifts (`agg_rescale_shifts`) that keep
 each pass's input below (2^24 - 1) / (2 * usd + 1).  The TPU kernels get
 these integers from bf16 digit dots on the MXU; here they are int32 sums,
 bit-identical, so row chunking changes nothing.  cfg.band_digits picks
 the shifts (1, 2 or 3); the lane-major kernels keep int32 volumes at
 every setting, the disparity-major ones int16 (they always run at
-digits=2, as the JAX package's do).
+digits=2 and qscale 127, as the JAX package's do).  cfg.band_lossy_wta
+rounds each pass-4 input to bf16 before the WTA's window sums, as the
+JAX package's single bf16 dot does; those sums stay exact integers too.
 
 Wrappers take the plain version only for CPU tensors; on a CUDA tensor
 they launch the kernel or raise.  Arms are clamped to [0, max_arm] by
@@ -30,13 +33,12 @@ from stereo_to_multiview_tpu_torch import kernels
 from stereo_to_multiview_tpu_torch.ops.chunks import chunk_bounds
 from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
 from stereo_to_multiview_tpu_torch.ops.costkern import (
-    cost_dm, cost_pair, device_cost_table, pair_margin, shear_right)
+    QSCALE, cost_dm, cost_dtype, cost_pair, pair_margin, shear_right)
 from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
 from stereo_to_multiview_tpu_torch.ops.hslokern import dc_hslo_wta
 from stereo_to_multiview_tpu_torch.ops.irv import vote_rule
 from stereo_to_multiview_tpu_torch.ops.mux import f32, mux_average
 
-QSCALE = 127.0
 _HALO = 64
 
 
@@ -108,7 +110,17 @@ def vv_pass_plain(vol, up, down, s2: int, s3: int, max_arm: int):
     return window_sum_plain(a, up, down, 0, max_arm, s3)
 
 
-def h_pass_wta_plain(vol, arm_neg, arm_pos, zero_disp: int, max_arm: int):
+def round_bf16(vol: torch.Tensor) -> torch.Tensor:
+    """Each int32 element rounded to bf16 (round to nearest, ties to even)
+    and back to int32: exact integers for inputs below 2^24."""
+    return vol.to(torch.float32).to(torch.bfloat16).to(torch.float32).to(
+        torch.int32)
+
+
+def h_pass_wta_plain(vol, arm_neg, arm_pos, zero_disp: int, max_arm: int,
+                     lossy: bool = False):
+    if lossy:
+        vol = round_bf16(vol)
     agg = window_sum_plain(vol, arm_neg, arm_pos, 1, max_arm)
     return (torch.argmin(agg, dim=2) - zero_disp).to(torch.float32)
 
@@ -126,31 +138,32 @@ def h_pass_sum(vol: torch.Tensor, arm_neg: torch.Tensor,
                arm_pos: torch.Tensor, shift: int,
                max_arm: int) -> torch.Tensor:
     """Horizontal window sum of an (H, W, D) volume, rescaled by `shift`,
-    as (H, W, D) int32.  Pass 1 takes the u8 cost volume, which may have
-    any row stride (x stride D, d stride 1): kernel B4.  Pass 4 without
-    the WTA (the volume the scanline optimisation reads) takes the
-    contiguous int32 volume of the vertical passes: kernel B6's sum-only
-    entry.  Both in csrc/hpass.cu."""
+    as (H, W, D) int32.  Pass 1 takes the u8 cost volume, or the int16
+    one of band_qscale > 127.5, which may have any row stride (x stride
+    D, d stride 1): kernel B4.  Pass 4 without the WTA (the volume the
+    scanline optimisation reads) takes the contiguous int32 volume of the
+    vertical passes: kernel B6's sum-only entry.  Both in
+    csrc/hpass.cu."""
     if kernels.on_cpu(vol):
         return h_pass_sum_plain(vol, arm_neg, arm_pos, shift, max_arm)
-    if vol.dtype not in (torch.uint8, torch.int32):
-        raise TypeError(f"h_pass_sum: dtype {vol.dtype}, expected uint8 or "
-                        f"int32")
-    u8 = vol.dtype == torch.uint8
-    kernels.require(vol, "vol", vol.dtype, 3, vol.device, contiguous=not u8)
+    entry = {torch.uint8: "stm_hpass_sum_u8", torch.int16: "stm_hpass_sum_i16",
+             torch.int32: "stm_hpass_sum_i32"}.get(vol.dtype)
+    if entry is None:
+        raise TypeError(f"h_pass_sum: dtype {vol.dtype}, expected uint8, "
+                        f"int16 or int32")
+    cost = vol.dtype != torch.int32
+    kernels.require(vol, "vol", vol.dtype, 3, vol.device,
+                    contiguous=not cost)
     h, w, nd = vol.shape
     if vol.stride(2) != 1 or vol.stride(1) != nd:
         raise ValueError("h_pass_sum: volume must have d stride 1 and "
                          "x stride D")
     _check_arms(vol, (arm_neg, arm_pos), ("arm_neg", "arm_pos"))
     out = torch.empty((h, w, nd), dtype=torch.int32, device=vol.device)
-    tail = (arm_neg.data_ptr(), arm_pos.data_ptr(), out.data_ptr(), h, w, nd,
-            max_arm, shift, kernels.stream_of(out))
-    if u8:
-        rc = kernels.lib("hpass").stm_hpass_sum_u8(
-            vol.data_ptr(), vol.stride(0), *tail)
-    else:
-        rc = kernels.lib("hpass").stm_hpass_sum_i32(vol.data_ptr(), *tail)
+    head = (vol.data_ptr(), vol.stride(0)) if cost else (vol.data_ptr(),)
+    rc = getattr(kernels.lib("hpass"), entry)(
+        *head, arm_neg.data_ptr(), arm_pos.data_ptr(), out.data_ptr(), h, w,
+        nd, max_arm, shift, kernels.stream_of(out))
     kernels.check_launch(rc, "h_pass_sum")
     h_pass_sum.launches += 1
     return out
@@ -182,20 +195,22 @@ def vv_pass(vol: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
 
 @kernels.kernel_wrapper
 def h_pass_wta(vol: torch.Tensor, arm_neg: torch.Tensor,
-               arm_pos: torch.Tensor, zero_disp: int,
-               max_arm: int) -> torch.Tensor:
+               arm_pos: torch.Tensor, zero_disp: int, max_arm: int,
+               lossy: bool = False) -> torch.Tensor:
     """Pass 4 + WTA: horizontal window sum of an (H, W, D) int32 volume,
     then the first-min argmin over D; returns (H, W) float32
-    disparities argmin - zero_disp.  Kernel B6 (csrc/hpass.cu)."""
+    disparities argmin - zero_disp.  `lossy` (band_lossy_wta) rounds each
+    element to bf16 first (`round_bf16`).  Kernel B6 (csrc/hpass.cu)."""
     if kernels.on_cpu(vol):
-        return h_pass_wta_plain(vol, arm_neg, arm_pos, zero_disp, max_arm)
+        return h_pass_wta_plain(vol, arm_neg, arm_pos, zero_disp, max_arm,
+                                lossy)
     kernels.require(vol, "vol", torch.int32, 3, vol.device)
     _check_arms(vol, (arm_neg, arm_pos), ("arm_neg", "arm_pos"))
     h, w, nd = vol.shape
     disp = torch.empty((h, w), dtype=torch.float32, device=vol.device)
     rc = kernels.lib("hpass").stm_hpass_wta_i32(
         vol.data_ptr(), arm_neg.data_ptr(), arm_pos.data_ptr(),
-        disp.data_ptr(), h, w, nd, max_arm, zero_disp,
+        disp.data_ptr(), h, w, nd, max_arm, zero_disp, int(lossy),
         kernels.stream_of(disp))
     kernels.check_launch(rc, "h_pass_wta")
     h_pass_wta.launches += 1
@@ -204,26 +219,26 @@ def h_pass_wta(vol: torch.Tensor, arm_neg: torch.Tensor,
 
 def band_aggregate_q(cost_q: torch.Tensor, arms: torch.Tensor, max_arm: int,
                      zero_disp: int | None = None, digits: int = 2,
-                     qscale: float = QSCALE) -> torch.Tensor:
-    """Four-pass cross aggregation (H, V, V, H) of an (H, W, D) u8
-    quantized cost volume with arms (4, H, W) int32.  With zero_disp the
-    first-min WTA is fused into pass 4 and the (H, W) float32
-    disparities are returned; with zero_disp None, the (H, W, D) int32
+                     qscale: float = QSCALE,
+                     lossy_wta: bool = False) -> torch.Tensor:
+    """Four-pass cross aggregation (H, V, V, H) of an (H, W, D) quantized
+    cost volume (u8, or int16 at qscale > 127.5: `quantize_cost`) with
+    arms (4, H, W) int32; `qscale` fixes the rescale shifts.  With
+    zero_disp the first-min WTA is fused into pass 4 and the (H, W)
+    float32 disparities are returned, each pass-4 input rounded to bf16
+    first with `lossy_wta`; with zero_disp None, the (H, W, D) int32
     aggregated volume (exact integers at `agg_cost_scale` of the cost's
-    unit)."""
+    unit; `lossy_wta` is then ignored, as in the JAX package)."""
     if digits not in (1, 2, 3):
         raise ValueError("band_digits must be 1, 2 or 3")
-    if qscale != QSCALE:
-        raise NotImplementedError(
-            "band_qscale != 127 is ROADMAP A.3 (dials), not "
-            "ported yet")
     _halo_for(max_arm)
     s1, s2, s3 = agg_rescale_shifts(max_arm, digits, qscale)
     a = h_pass_sum(cost_q, arms[LEFT], arms[RIGHT], s1, max_arm)
     a = vv_pass(a, arms[UP], arms[DOWN], s2, s3, max_arm)
     if zero_disp is None:
         return h_pass_sum(a, arms[LEFT], arms[RIGHT], 0, max_arm)
-    return h_pass_wta(a, arms[LEFT], arms[RIGHT], zero_disp, max_arm)
+    return h_pass_wta(a, arms[LEFT], arms[RIGHT], zero_disp, max_arm,
+                      lossy_wta)
 
 
 def agg_cost_scale(max_arm: int, digits: int = 2,
@@ -237,14 +252,13 @@ def agg_cost_scale(max_arm: int, digits: int = 2,
 
 
 def quantize_cost(cost: torch.Tensor, qscale: float = QSCALE) -> torch.Tensor:
-    """A float32 cost volume (values in [0, 2]) -> rint(cost * qscale) as
-    u8, the quantized engine's one lossy step (the JAX package stores the
-    same integers as bf16).  qscale above 127 is the band_qscale dial."""
-    if qscale > 127.5:
-        raise NotImplementedError(
-            "band_qscale != 127 is ROADMAP A.3 (dials), not "
-            "ported yet")
-    return torch.round(cost.to(torch.float32) * f32(qscale)).to(torch.uint8)
+    """A float32 cost volume (values in [0, 2]) -> rint(cost * qscale), the
+    quantized engine's one lossy step: u8 for qscale <= 127.5 (the JAX
+    package stores the same integers as bf16), int16 above (the
+    band_qscale dial; qscale <= 16383, as `cost_dtype`)."""
+    cost_dtype(qscale)
+    q = torch.round(cost.to(torch.float32) * f32(qscale)).to(torch.int32)
+    return q.to(torch.uint8 if qscale <= 127.5 else torch.int16)
 
 
 def cross_aggregate_band(cost_hwd: torch.Tensor, arms: torch.Tensor,
@@ -282,7 +296,10 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
     cfg.use_hslo puts the horizontal scanline optimisation (kernel B13)
     between the aggregation and the WTA, its penalties scaled into the
     aggregate's cost units; rows are independent in it, so chunking
-    stays exact.  Returns (disp_l, disp_r) float32 (H, W)."""
+    stays exact.  cfg.band_qscale sets the cost's scale (int16 costs above
+    127.5) and the shifts; cfg.band_lossy_wta rounds the WTA's inputs to
+    bf16 (not read under use_hslo, as in the JAX package).  Returns
+    (disp_l, disp_r) float32 (H, W)."""
     h, w = img_l.shape[:2]
     usd = cfg.usd
     if usd > _HALO:
@@ -291,7 +308,6 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
     chunk = cfg.band_row_chunk or h
     ext, bounds = chunk_bounds(h, chunk, 2 * usd)
     margin = pair_margin(nd, zd)
-    table = device_cost_table(cfg.ad_coeff, cfg.census_coeff, img_l.device)
     gray_l, gray_r = mux_average(img_l), mux_average(img_r)
     cen_l = census_transform_9x7(gray_l)
     cen_r = census_transform_9x7(gray_r)
@@ -301,8 +317,9 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
     parts_l, parts_r = [], []
     for start, lo in bounds:
         sl = slice(start, start + ext)
-        pair = cost_pair(img_l[sl], img_r[sl], cen_l[sl], cen_r[sl], table,
-                         nd, zd)
+        pair = cost_pair(img_l[sl], img_r[sl], cen_l[sl], cen_r[sl],
+                         cfg.ad_coeff, cfg.census_coeff, nd, zd,
+                         cfg.band_qscale)
         cost_l = pair[:, margin:margin + w]
         cost_r = shear_right(pair, zd)
         n_valid = min(chunk, h - (start + lo))
@@ -318,7 +335,8 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
                                    sign)
             else:
                 disp = band_aggregate_q(cost, arms[:, sl], usd, zd,
-                                        cfg.band_digits, cfg.band_qscale)
+                                        cfg.band_digits, cfg.band_qscale,
+                                        cfg.band_lossy_wta)
             parts.append(disp[lo:lo + n_valid])
     if len(parts_l) == 1:
         return parts_l[0], parts_r[0]
@@ -485,9 +503,11 @@ def band_stereo_core_dm(img_l, img_r, arms_l, arms_r, cfg):
     (kernel B16) and `band_aggregate_q_dm` (B18a-c) over row chunks of
     cfg.band_row_chunk output rows with a halo of 2*usd rows, the census
     codes from the whole frame.  No (H, W, D) volume, pair volume or shear
-    exists.  It aggregates at digits=2 whatever cfg.band_digits says, and
-    equals `band_stereo_core_chunked` at band_digits=2; cfg.use_hslo is
-    not read.  Returns (disp_l, disp_r) float32 (H, W)."""
+    exists.  It aggregates u8 costs at digits=2 whatever cfg.band_digits
+    and cfg.band_qscale say, as the JAX package's does, and equals
+    `band_stereo_core_chunked` at band_digits=2 and the default qscale;
+    cfg.use_hslo and cfg.band_lossy_wta are not read.  Returns (disp_l,
+    disp_r) float32 (H, W)."""
     h = img_l.shape[0]
     usd = cfg.usd
     if usd > _HALO:

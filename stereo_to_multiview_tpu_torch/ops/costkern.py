@@ -1,6 +1,6 @@
-"""AD-census cost init: kernels B2 (pair volume), B3 (right-eye shear),
-B16 (both eyes, disparity-major) and B17 (its right eye as per-plane
-shifts of the left), with their plain PyTorch versions.
+"""AD-census cost init: kernels B2 (pair volume, or one eye), B3
+(right-eye shear), B16 (both eyes, disparity-major) and B17 (its right eye
+as per-plane shifts of the left), with their plain PyTorch versions.
 
 cost_l(x, d) = C(L(x), R(clamp(x + d - zd)))      (left eye)
 cost_r(x, d) = C(L(clamp(x - (d - zd))), R(x))    (right eye)
@@ -8,9 +8,14 @@ cost_r(x, d) = C(L(clamp(x - (d - zd))), R(x))    (right eye)
 Both eyes come out of ONE pair volume P(x', d) = C(L(clamp(x')),
 R(clamp(x' + d - zd))) computed over x' in [-M, W + M), M = max(zd,
 D - zd): the left eye is the slice P[:, M:M+W] and the right eye the
-per-d shear P[:, x - (d - zd) + M, d].  C is looked up in the quantized
-cost table (`cost_table`), so the kernel and the plain version agree by
-construction.
+per-d shear P[:, x - (d - zd) + M, d].  B2 also computes one eye
+directly (margin 0, the other eye's reads at x + sign * (d - zd)), the
+JAX package's per-eye mode.  C is the quantized cost rint(qscale *
+(a[AD] + c[H])) of the two float32 `cost_terms`: u8 while round(2 *
+qscale) <= 255, int16 above (the band_qscale dial), or the float32 sum
+itself (quant=False).  The plain version looks it up in `cost_table`;
+the kernel computes it from the terms with the same float32 operations,
+so the two agree by construction.
 
 Layout: (H, W, D) with D innermost, the layout the lane-major
 aggregation reads.
@@ -23,6 +28,8 @@ modes give one eye's (D, H, W) planes, the right eye's over a column
 range.  `ci_adcensus_kern_stacked` and `ci_adcensus_kern` are the JAX
 package's entry points on it; with shift_extract=True the latter takes
 the right eye from the left by per-plane shifts (B17, `shear_right_dm`).
+`ci_adcensus_kern_xm`, the JAX package's entry of the band engine, runs
+on B2 and B3.
 
 The wrappers take the plain version only for CPU tensors; on a CUDA
 tensor they launch the kernel or raise.
@@ -42,6 +49,7 @@ from stereo_to_multiview_tpu_torch.ops.mux import f32, mux_average
 F32 = torch.float32
 AD_VALUES = 766      # 3 channels x |0..255|
 HAM_VALUES = 49      # 48 census bits
+QSCALE = 127.0       # the default quantization scale: u8 costs <= 254
 
 
 def cost_terms(ad_coeff: float, census_coeff: float):
@@ -58,25 +66,45 @@ def cost_terms(ad_coeff: float, census_coeff: float):
     return a, c
 
 
+def cost_dtype(qscale: float = QSCALE, quant: bool = True) -> torch.dtype:
+    """The cost volume's dtype, by the JAX package's rule
+    (costkern.py:418-420): u8 while round(2 * qscale) <= 255, int16
+    above, float32 without `quant`.  int16 holds qscale <= 16383 (round(2
+    * qscale) <= 32767); beyond it the JAX cast wraps, and this raises."""
+    if not quant:
+        return F32
+    qmax = int(round(2.0 * qscale))
+    if not 0.0 < qscale or qmax > 32767:
+        raise ValueError(f"band_qscale {qscale}: the quantized costs (up to "
+                         f"{qmax}) must fit int16, qscale in (0, 16383]")
+    return torch.uint8 if qmax <= 255 else torch.int16
+
+
 def cost_table(ad_coeff: float, census_coeff: float,
-               qscale: float = 127.0) -> torch.Tensor:
-    """(766 * 49,) u8 table of the quantized AD-census cost, index
-    AD * 49 + H:  rint(qscale * (a[AD] + c[H])) of `cost_terms`, in
-    float32 with the TPU kernel's op order
-    (stereo_to_multiview_tpu/ops/costkern.py:309-313).  Built on the CPU
-    and uploaded by the caller, so every device uses the same table."""
+               qscale: float = QSCALE, quant: bool = True) -> torch.Tensor:
+    """(766 * 49,) table of the AD-census cost, index AD * 49 + H:
+    rint(qscale * (a[AD] + c[H])) of `cost_terms` in float32 with the
+    TPU kernel's op order (stereo_to_multiview_tpu/ops/costkern.py:
+    309-313), as `cost_dtype`; the float32 sum a[AD] + c[H] without
+    `quant`.  Built on the CPU and uploaded by the caller, so every device
+    uses the same table."""
+    dtype = cost_dtype(qscale, quant)
     a, c = cost_terms(ad_coeff, census_coeff)
-    q = torch.round((a[:, None] + c[None, :]) * f32(qscale))
-    return q.to(torch.int32).to(torch.uint8).reshape(-1)
+    cost = a[:, None] + c[None, :]
+    if not quant:
+        return cost.reshape(-1)
+    q = torch.round(cost * f32(qscale))
+    return q.to(torch.int32).to(dtype).reshape(-1)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=16)
 def device_cost_table(ad_coeff: float, census_coeff: float,
-                      device: torch.device) -> torch.Tensor:
-    """`cost_table` on `device`, built and uploaded once per coefficients
-    and device: a copy from host memory waits for the device's queue, so
-    a frame must not repeat it."""
-    return cost_table(ad_coeff, census_coeff).to(device)
+                      device: torch.device, qscale: float = QSCALE,
+                      quant: bool = True) -> torch.Tensor:
+    """`cost_table` on `device`, built and uploaded once per coefficients,
+    scale and device: a copy from host memory waits for the device's
+    queue, so a frame must not repeat it."""
+    return cost_table(ad_coeff, census_coeff, qscale, quant).to(device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -92,25 +120,42 @@ def pair_margin(num_disp: int, zero_disp: int) -> int:
     return max(zero_disp, num_disp - zero_disp)
 
 
+PAIR_EYES = ("pair", "l", "r")
+
+
+def _pair_geometry(eye: str, num_disp: int, zero_disp: int):
+    """(margin, sign, right eye owns the columns) of a `cost_pair` mode:
+    the pair volume, or one eye directly."""
+    if eye not in PAIR_EYES:
+        raise ValueError(f"cost_pair: eye must be one of {PAIR_EYES}, not "
+                         f"{eye!r}")
+    if eye == "pair":
+        return pair_margin(num_disp, zero_disp), 1, False
+    return 0, (1 if eye == "l" else -1), eye == "r"
+
+
 def cost_pair_plain(img_l, img_r, cen_l, cen_r, table, num_disp: int,
-                    zero_disp: int) -> torch.Tensor:
-    """Plain version of `cost_pair`: one disparity plane at a time."""
+                    zero_disp: int, eye: str = "pair") -> torch.Tensor:
+    """Plain version of `cost_pair`: one disparity plane at a time, each
+    cost looked up in `table` (its dtype is the volume's)."""
     h, w = img_l.shape[:2]
     dev = img_l.device
-    margin = pair_margin(num_disp, zero_disp)
+    margin, sign, swap = _pair_geometry(eye, num_disp, zero_disp)
+    own, oth, own_c, oth_c = ((img_r, img_l, cen_r, cen_l) if swap
+                              else (img_l, img_r, cen_l, cen_r))
     xs = torch.arange(-margin, w + margin, device=dev)
-    xl = xs.clamp(0, w - 1)
-    lv = img_l[:, xl].to(torch.int32)
-    lc = cen_l[:, xl]
-    rv = img_r.to(torch.int32)
-    tab = table.to(dev).to(torch.int64)
-    out = torch.empty((h, w + 2 * margin, num_disp), dtype=torch.uint8,
+    xo = xs.clamp(0, w - 1)
+    ov = own[:, xo].to(torch.int32)
+    oc = own_c[:, xo]
+    rv = oth.to(torch.int32)
+    tab = table.to(dev)
+    out = torch.empty((h, w + 2 * margin, num_disp), dtype=table.dtype,
                       device=dev)
     for d in range(num_disp):
-        xr = (xs + (d - zero_disp)).clamp(0, w - 1)
-        ad = (lv - rv[:, xr]).abs().sum(dim=-1)
-        ham = hamming48(lc, cen_r[:, xr])
-        out[:, :, d] = tab[ad * HAM_VALUES + ham].to(torch.uint8)
+        xr = (xs + sign * (d - zero_disp)).clamp(0, w - 1)
+        ad = (ov - rv[:, xr]).abs().sum(dim=-1)
+        ham = hamming48(oc, oth_c[:, xr])
+        out[:, :, d] = tab[ad * HAM_VALUES + ham]
     return out
 
 
@@ -120,37 +165,50 @@ def pack_bgr(img: torch.Tensor) -> torch.Tensor:
     return c[:, :, 0] | (c[:, :, 1] << 8) | (c[:, :, 2] << 16)
 
 
+def _check_pair_inputs(what, img_l, img_r, cen_l, cen_r):
+    h, w = img_l.shape[:2]
+    for name, t, dt in (("img_l", img_l, torch.uint8),
+                        ("img_r", img_r, torch.uint8),
+                        ("cen_l", cen_l, torch.int32),
+                        ("cen_r", cen_r, torch.int32)):
+        kernels.require(t, name, dt, 3, img_l.device, contiguous=False)
+    if (img_r.shape != img_l.shape or img_l.shape[2] != 3
+            or cen_l.shape != (h, w, 2) or cen_r.shape != (h, w, 2)):
+        raise ValueError(f"{what}: inconsistent input shapes")
+
+
 @kernels.kernel_wrapper
 def cost_pair(img_l: torch.Tensor, img_r: torch.Tensor, cen_l: torch.Tensor,
-              cen_r: torch.Tensor, table: torch.Tensor, num_disp: int,
-              zero_disp: int) -> torch.Tensor:
-    """Pair volume P (H, W + 2*M, D) u8, M = pair_margin(D, zd), of two
-    (H, W, 3) u8 images and their (H, W, 2) int32 census codes.  Kernel
-    B2 (csrc/cost.cu)."""
+              cen_r: torch.Tensor, ad_coeff: float, census_coeff: float,
+              num_disp: int, zero_disp: int, qscale: float = QSCALE,
+              quant: bool = True, eye: str = "pair") -> torch.Tensor:
+    """AD-census cost of two (H, W, 3) u8 images and their (H, W, 2)
+    int32 census codes, as `cost_dtype(qscale, quant)`.  eye="pair": the
+    pair volume P (H, W + 2*M, D), M = pair_margin(D, zd); eye="l" or "r":
+    that eye's (H, W, D) volume directly.  Kernel B2 (csrc/cost.cu)."""
+    dev = img_l.device
+    table = device_cost_table(ad_coeff, census_coeff, dev, qscale, quant)
     if kernels.on_cpu(img_l):
         return cost_pair_plain(img_l, img_r, cen_l, cen_r, table, num_disp,
-                               zero_disp)
-    dev = img_l.device
+                               zero_disp, eye)
+    _check_pair_inputs("cost_pair", img_l, img_r, cen_l, cen_r)
+    if not 0 <= zero_disp <= num_disp:
+        raise ValueError("cost_pair: need 0 <= zero_disp <= num_disp")
     h, w = img_l.shape[:2]
-    for name, t, dt, nd in (("img_l", img_l, torch.uint8, 3),
-                            ("img_r", img_r, torch.uint8, 3),
-                            ("cen_l", cen_l, torch.int32, 3),
-                            ("cen_r", cen_r, torch.int32, 3),
-                            ("table", table, torch.uint8, 1)):
-        kernels.require(t, name, dt, nd, dev, contiguous=False)
-    if (img_r.shape != img_l.shape or img_l.shape[2] != 3
-            or cen_l.shape != (h, w, 2) or cen_r.shape != (h, w, 2)
-            or table.numel() != AD_VALUES * HAM_VALUES):
-        raise ValueError("cost_pair: inconsistent input shapes")
-    margin = pair_margin(num_disp, zero_disp)
-    lpk, rpk = pack_bgr(img_l), pack_bgr(img_r)
-    cl, cr, tab = cen_l.contiguous(), cen_r.contiguous(), table.contiguous()
-    out = torch.empty((h, w + 2 * margin, num_disp), dtype=torch.uint8,
+    margin, sign, swap = _pair_geometry(eye, num_disp, zero_disp)
+    packed = [pack_bgr(img_l), pack_bgr(img_r)]
+    cens = [cen_l.contiguous(), cen_r.contiguous()]
+    if swap:
+        packed.reverse()
+        cens.reverse()
+    a, c = device_cost_terms(ad_coeff, census_coeff, dev)
+    out = torch.empty((h, w + 2 * margin, num_disp), dtype=table.dtype,
                       device=dev)
     rc = kernels.lib("cost").stm_cost_pair(
-        lpk.data_ptr(), rpk.data_ptr(), cl.data_ptr(), cr.data_ptr(),
-        tab.data_ptr(), out.data_ptr(), h, w, num_disp, zero_disp,
-        kernels.stream_of(out))
+        packed[0].data_ptr(), packed[1].data_ptr(), cens[0].data_ptr(),
+        cens[1].data_ptr(), a.data_ptr(), c.data_ptr(), float(qscale),
+        out.data_ptr(), h, w, num_disp, zero_disp, margin, sign,
+        out.element_size(), kernels.stream_of(out))
     kernels.check_launch(rc, "cost_pair")
     cost_pair.launches += 1
     return out
@@ -170,21 +228,24 @@ def shear_right_plain(pair: torch.Tensor, zero_disp: int) -> torch.Tensor:
 
 @kernels.kernel_wrapper
 def shear_right(pair: torch.Tensor, zero_disp: int) -> torch.Tensor:
-    """Right-eye volume (H, W, D) u8 from the pair volume (H, W + 2*M, D),
-    M = pair_margin(D, zd): out[y, x, d] = pair[y, x - (d - zd) + M, d].
-    Kernel B3 (csrc/shear.cu)."""
+    """Right-eye volume (H, W, D) from the pair volume (H, W + 2*M, D),
+    M = pair_margin(D, zd): out[y, x, d] = pair[y, x - (d - zd) + M, d];
+    u8, int16 or float32.  Kernel B3 (csrc/shear.cu)."""
     if kernels.on_cpu(pair):
         return shear_right_plain(pair, zero_disp)
-    kernels.require(pair, "pair", torch.uint8, 3, pair.device)
+    if pair.dtype not in (torch.uint8, torch.int16, F32):
+        raise TypeError(f"shear_right: dtype {pair.dtype}, expected uint8, "
+                        f"int16 or float32")
+    kernels.require(pair, "pair", pair.dtype, 3, pair.device)
     h, wp, nd = pair.shape
     w = wp - 2 * pair_margin(nd, zero_disp)
     if w <= 0:
         raise ValueError("shear_right: the pair volume must be wider than "
                          "2 * max(zd, D - zd)")
-    out = torch.empty((h, w, nd), dtype=torch.uint8, device=pair.device)
+    out = torch.empty((h, w, nd), dtype=pair.dtype, device=pair.device)
     rc = kernels.lib("shear").stm_shear_right(
         pair.data_ptr(), out.data_ptr(), h, w, nd, zero_disp,
-        kernels.stream_of(out))
+        pair.element_size(), kernels.stream_of(out))
     kernels.check_launch(rc, "shear_right")
     shear_right.launches += 1
     return out
@@ -356,7 +417,7 @@ def shift_extract_applies(w: int, num_disp: int, zero_disp: int) -> bool:
 def ci_adcensus_kern(img_l: torch.Tensor, img_r: torch.Tensor,
                      ad_coeff: float, census_coeff: float, num_disp: int,
                      zero_disp: int, quant: bool = False,
-                     shift_extract: bool = False):
+                     fast_exp: bool = False, shift_extract: bool = False):
     """(H, W, 3) u8 pair -> ((H, W, D), (H, W, D)) cost volumes: float32,
     or u8 rint(127 * cost) with `quant`.  The kernel's disparity-major
     planes are relaid to D-innermost by one torch copy per eye (the JAX
@@ -366,7 +427,9 @@ def ci_adcensus_kern(img_l: torch.Tensor, img_r: torch.Tensor,
     silently, as in the JAX package): B16 computes the left eye alone, B17
     shears it into the right eye, and B16's right-eye mode recomputes the
     border strips [0, M) and [W - M, W), M = max(zd, D - zd), where the
-    shifted column leaves the image.  Equal to the direct path."""
+    shifted column leaves the image.  Equal to the direct path.
+    `fast_exp` changes no value, as in `ci_adcensus_kern_xm`."""
+    del fast_exp
     if not (shift_extract
             and shift_extract_applies(img_l.shape[1], num_disp, zero_disp)):
         vol = ci_adcensus_kern_stacked(img_l, img_r, ad_coeff, census_coeff,
@@ -385,3 +448,61 @@ def ci_adcensus_kern(img_l: torch.Tensor, img_r: torch.Tensor,
         vol_r[:, :, x0:x1] = cost_dm(*args, eyes="r", cols=(x0, x1))
     return (vol_l.permute(1, 2, 0).contiguous(),
             vol_r.permute(1, 2, 0).contiguous())
+
+
+# ---- the band engine's entry: B2 and B3 -------------------------------
+
+def _edge_rows(vol: torch.Tensor, rows: int | None) -> torch.Tensor:
+    """The first `rows` rows of an (H, W, D) volume; rows beyond H repeat
+    the last one (the JAX kernel edge-pads its image and census planes)."""
+    if rows is None:
+        return vol
+    if rows <= vol.shape[0]:
+        return vol[:rows]
+    extra = vol[-1:].expand(rows - vol.shape[0], *vol.shape[1:])
+    return torch.cat([vol, extra])
+
+
+def ci_adcensus_kern_xm(img_l: torch.Tensor, img_r: torch.Tensor,
+                        ad_coeff: float, census_coeff: float, num_disp: int,
+                        zero_disp: int, quant: bool = True,
+                        out_rows: int | None = None, shear: bool = True,
+                        fast_exp: bool = False, ablate_exp: bool = False,
+                        qscale: float = QSCALE):
+    """(H, W, 3) u8 pair -> ((H, W, D), (H, W, D)) cost volumes of the
+    band engine, as `cost_dtype(qscale, quant)`: the JAX package's entry
+    of the same name (costkern.py:366-507).
+
+    shear=True: B2's pair volume and B3's shear (the left eye is a view
+    into the pair); where the reach max(zd, D - zd) exceeds 64, silently
+    the per-eye path instead, as in the JAX package.  shear=False: B2
+    once an eye, directly.  Both give the same values.  out_rows returns
+    that many rows (at most the height rounded up to 128, as the JAX
+    entry allows); rows beyond H repeat the last row's costs.
+
+    `fast_exp` changes no value: the JAX kernels take the polynomial exp
+    only at qscale 127 and only where `fastmath.cost_flip_count` proves
+    the u8 costs equal to the exp table's, which is what this computes.
+    `ablate_exp` (wrong values by design, a measurement of the TPU
+    kernel's exp) raises."""
+    del fast_exp
+    if ablate_exp:
+        raise NotImplementedError(
+            "ablate_exp gives wrong costs by design (a measurement of the "
+            "TPU kernel's exp); it is not ported (ROADMAP A.3)")
+    if num_disp > MAX_REACH or zero_disp > MAX_REACH:
+        raise ValueError("ci_adcensus_kern supports num_disp/zero_disp "
+                         "<= 128")
+    h, w = img_l.shape[:2]
+    if out_rows is not None and out_rows > -(-h // 128) * 128:
+        raise ValueError("out_rows exceeds the kernel's padded height")
+    args = (img_l, img_r, census_transform_9x7(mux_average(img_l)),
+            census_transform_9x7(mux_average(img_r)), ad_coeff,
+            census_coeff, num_disp, zero_disp, qscale, quant)
+    m = pair_margin(num_disp, zero_disp)
+    if shear and m <= 64:
+        pair = cost_pair(*args)
+        vols = pair[:, m:m + w], shear_right(pair, zero_disp)
+    else:
+        vols = cost_pair(*args, eye="l"), cost_pair(*args, eye="r")
+    return tuple(_edge_rows(v, out_rows) for v in vols)

@@ -1,7 +1,8 @@
 """The `band_digits` dial (1 and 2) of the lane-major core, the
 row-chunked IRV (`irv_row_chunk`) and the `UHD4K_16V` preset, against the
 JAX package with engine="band", its Pallas kernels in interpret mode on
-the CPU.
+the CPU; and whole frames at the dials `band_qscale` and `band_lossy_wta`
+(their kernels in tests/test_torch_band_dials.py).
 
 The dial only changes the rescale shifts of an exact integer aggregation,
 and a chunked IRV round reads the same rows as the whole-frame round, so
@@ -91,10 +92,17 @@ def test_band_aggregate_q_refuses_other_dials():
     arms = torch.zeros((4, 4, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="band_digits"):
         tband.band_aggregate_q(cost, arms, 2, 1, digits=4)
-    with pytest.raises(NotImplementedError, match="band_qscale"):
-        tband.band_aggregate_q(cost, arms, 2, 1, qscale=255.0)
     with pytest.raises(ValueError, match="band_digits"):
         tpipe.check_ported(tconfig.PipelineConfig(band_digits=0))
+    # the qscale and lossy-WTA dials are ported: only the XLA engine is
+    # refused, and a qscale whose costs would not fit int16
+    for knobs in (dict(band_qscale=255.0), dict(band_qscale=4000.0),
+                  dict(band_lossy_wta=True)):
+        tpipe.check_ported(tconfig.PipelineConfig(**knobs))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+        tpipe.check_ported(tconfig.PipelineConfig(engine="xla"))
+    with pytest.raises(ValueError, match="int16"):
+        tpipe.check_ported(tconfig.PipelineConfig(band_qscale=16384.0))
 
 
 @pytest.mark.parametrize("row_chunk", [0, 8])
@@ -130,8 +138,11 @@ def _jax_raw(l, r, cfg):
 
 @pytest.mark.parametrize("knobs", [
     dict(band_digits=1), dict(band_digits=2),
-    dict(band_digits=2, band_row_chunk=8, irv_row_chunk=8)],
-    ids=["digits1", "digits2", "digits2_chunked"])
+    dict(band_digits=2, band_row_chunk=8, irv_row_chunk=8),
+    dict(band_qscale=510.0), dict(band_qscale=64.0),
+    dict(band_lossy_wta=True), dict(band_lossy_wta=True, band_digits=1)],
+    ids=["digits1", "digits2", "digits2_chunked", "qscale510", "qscale64",
+         "lossy", "lossy_digits1"])
 def test_process_frame_dials_match_jax_band(stereo_pair, knobs):
     cfg = CFG.replace(**knobs)
     tcfg = config_from_dict(dataclasses.asdict(cfg))

@@ -89,8 +89,7 @@ def test_stacked_cost_equals_the_lane_major_volumes(stereo_pair):
     nd, zd = 12, 6
     cen_l = census_transform_9x7(mux_average(left))
     cen_r = census_transform_9x7(mux_average(right))
-    pair = tck.cost_pair(left, right, cen_l, cen_r,
-                         tck.cost_table(10.0, 30.0), nd, zd)
+    pair = tck.cost_pair(left, right, cen_l, cen_r, 10.0, 30.0, nd, zd)
     m = tck.pair_margin(nd, zd)
     vol = tck.cost_dm(left, right, cen_l, cen_r, 10.0, 30.0, nd, zd)
     assert torch.equal(vol[:nd].permute(1, 2, 0),

@@ -6,8 +6,11 @@ The CUDA kernel runs only on the card; this emulation replays its index
 logic step by step on the CPU, line for line, vectorised over the warps
 of a segment and their lanes: the segments and their priming over the
 reach, the right-end flush, the batches, the ring slots and the reach
-lag, the u16 prefixes packed two a word (pass 1), the chunks of d beyond
-4 * G, the windows handed out by shuffle, and the in-warp first minimum.
+lag, the u16 prefixes packed two a word (pass 1 on u8 costs), the u32
+prefixes of pass 1 on int16 costs (band_qscale > 127.5) and of pass 4,
+the bf16 rounding of each pass-4 input as its batch comes up
+(band_lossy_wta), the chunks of d beyond 4 * G, the windows handed out
+by shuffle, and the in-warp first minimum.
 """
 
 import numpy as np
@@ -59,6 +62,14 @@ def _load(vol, rows, q, d0, nd_lane):
     return v
 
 
+def _bf16(v):
+    """hp_bf16: each value rounded to bf16 (round to nearest, ties to even)
+    on its float32 bits, and back to an integer."""
+    bits = v.astype(np.float32).view(np.uint32).astype(np.uint64)
+    bits = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16) << 16
+    return bits.astype(np.uint32).view(np.float32).astype(np.int64)
+
+
 def _add(prefix, v, u8):
     """hp_add: u8 packs d0 | d1 << 16 and d2 | d3 << 16 (__byte_perm
     0x4140, 0x4342) and adds them to two u32 words; int32 adds each d."""
@@ -80,12 +91,13 @@ def _sums(hi, lo, u8):
 
 
 def emulate_hpass(vol, arm_neg, arm_pos, reach, shift=0, zd=None,
-                  carry=True):
+                  carry=True, lossy=False):
     """hpass_kernel for every warp: the (H, W, D) int32 sums, or with `zd`
-    the (H, W) float32 first-min WTA, and the number of writes of each
-    output.  `carry=False` drops the carries out of the low u16 halves of
-    pass 1's prefixes (a deliberately broken prefix, for the test that
-    the wraps are exercised)."""
+    the (H, W) float32 first-min WTA (each input rounded to bf16 first
+    with `lossy`), and the number of writes of each output.  `carry=False`
+    drops the carries out of the low u16 halves of pass 1's prefixes (a
+    deliberately broken prefix, for the test that the wraps are
+    exercised)."""
     h, w, nd = vol.shape
     u8 = vol.dtype == np.uint8
     wta = zd is not None
@@ -144,7 +156,9 @@ def emulate_hpass(vol, arm_neg, arm_pos, reach, shift=0, zd=None,
                 npush = min(step, q1 - q0 - i0)
                 for k in range(step):
                     if k < npush:
-                        if carry or not u8:
+                        if lossy:
+                            prefix = _add(prefix, _bf16(v[k]), u8)
+                        elif carry or not u8:
                             prefix = _add(prefix, v[k], u8)
                         else:
                             lo = (prefix & 0xFFFF) + (_add(
@@ -231,9 +245,10 @@ def _plain_sum(vol, an, ap, shift, reach):
                                   reach).numpy()
 
 
-def _plain_wta(vol, an, ap, zd, reach):
+def _plain_wta(vol, an, ap, zd, reach, lossy=False):
     return tband.h_pass_wta_plain(torch.from_numpy(vol), torch.from_numpy(an),
-                                  torch.from_numpy(ap), zd, reach).numpy()
+                                  torch.from_numpy(ap), zd, reach,
+                                  lossy).numpy()
 
 
 SUM_CASES = [     # (H, W, D, reach, shift): pass 1 on u8 costs
@@ -363,3 +378,81 @@ def test_pass4_u32_prefixes_wrap_exactly():
     ref = cs[rows, hi] - cs[rows, lo]
     assert ref.max() < 1 << 31
     np.testing.assert_array_equal(got, ref)
+
+
+I16_CASES = [     # (H, W, D, reach, shift, vmax): pass 1 on int16 costs
+    (3, 100, 128, 34, 0, 1021),      # qscale 510, digits 3: s1 = 0
+    (2, 300, 128, 34, 2, 1021),      # qscale 510, digits 2
+    (2, 600, 64, 34, 9, 1021),       # qscale 510, digits 1; two rows a warp
+    (3, 301, 30, 5, 4, 8001),        # qscale 4000; D % 4 != 0
+    (1, 520, 130, 34, 6, 32768),     # the int16 ceiling; D > 128
+    (2, 301, 128, 0, 0, 32768),      # reach 0
+]
+
+
+@pytest.mark.parametrize("h,w,nd,reach,shift,vmax", I16_CASES)
+def test_pass1_int16_stream_matches_plain(h, w, nd, reach, shift, vmax):
+    """Pass 1 on the int16 costs of band_qscale > 127.5: u32 prefixes (a
+    window reaches 129 x 32766 > 2^16), every element written once, equal
+    to `h_pass_sum_plain`."""
+    vol, an, ap = _inputs(h, w, nd, reach, h * 17 + w, np.int16, vmax)
+    got, writes = emulate_hpass(vol, an, ap, reach, shift)
+    assert (writes == 1).all()
+    ref = _plain_sum(vol, an, ap, shift, reach)
+    np.testing.assert_array_equal(got, ref)
+    if vmax > 8000 and reach and not shift:
+        assert ref.max() >= 1 << 16
+
+
+def test_pass1_int16_stream_on_the_left_eye_view():
+    """The int16 left eye is a column slice of the pair volume; its offset
+    and row stride keep the 8-byte vector loads at D = 128."""
+    h, w, nd, zd, reach = 2, 280, 128, 64, 34
+    margin = max(zd, nd - zd)
+    pair, an, ap = _inputs(h, w + 2 * margin, nd, reach, 4, np.int16, 1021)
+    an, ap = an[:, :w].copy(), ap[:, :w].copy()
+    left = pair[:, margin:margin + w]
+    assert not left.flags.c_contiguous and vector_path(left)
+    got, _ = emulate_hpass(left, an, ap, reach, 2)
+    ref = tband.h_pass_sum(torch.from_numpy(pair)[:, margin:margin + w],
+                           torch.from_numpy(an), torch.from_numpy(ap), 2,
+                           reach)
+    np.testing.assert_array_equal(got, ref.numpy())
+
+
+def test_bf16_rounding_matches_torch():
+    """The replay's bit-level rounding equals torch's float32 -> bf16 (the
+    plain version's), ties to even included."""
+    rng = np.random.default_rng(8)
+    v = np.concatenate([np.arange(0, 4096), rng.integers(0, 1 << 24, 50_000),
+                        (np.arange(1, 2000) << 9) + 256]).astype(np.int32)
+    ref = tband.round_bf16(torch.from_numpy(v)).numpy()
+    np.testing.assert_array_equal(_bf16(v), ref)
+    assert (ref != v).any() and (ref[:256] == v[:256]).all()
+
+
+LOSSY_CASES = [   # (H, W, D, reach, zd, vmax): pass 4 + lossy WTA
+    (3, 100, 128, 34, 64, 243_148),  # the digits=3 bound at usd=34
+    (2, 300, 64, 5, 32, 1_525_201),  # the digits=3 bound at usd=5
+    (2, 600, 30, 34, 10, 32_768),    # digits=2 inputs; D % 4 != 0
+    (1, 300, 130, 5, 60, 243_148),   # D > 128: the minimum across chunks
+    (3, 260, 128, 34, 64, 2),        # ties: the first minimum
+]
+
+
+@pytest.mark.parametrize("h,w,nd,reach,zd,vmax", LOSSY_CASES)
+def test_pass4_lossy_wta_stream_matches_plain(h, w, nd, reach, zd, vmax):
+    """band_lossy_wta: each int32 input rounded to bf16 as its batch comes
+    up, then the exact u32 window sums and the first minimum; equal to
+    `h_pass_wta_plain(..., lossy=True)`.  Large inputs lie within 4096 of
+    the bound, closer than a bf16 step there, so the rounding moves
+    argmins and the test is not the exact pass in disguise."""
+    vol, an, ap = _inputs(h, w, nd, reach, h * 5 + w, np.int32, vmax)
+    if vmax > 1 << 16:
+        vol = vmax - 1 - vol % 4096
+    got, writes = emulate_hpass(vol, an, ap, reach, zd=zd, lossy=True)
+    assert (writes == 1).all()
+    ref = _plain_wta(vol, an, ap, zd, reach, lossy=True)
+    np.testing.assert_array_equal(got, ref)
+    if vmax > 1 << 16:
+        assert (ref != _plain_wta(vol, an, ap, zd, reach)).any()

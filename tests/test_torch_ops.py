@@ -110,15 +110,17 @@ def test_process_frame_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(engine="xla"), dict(band_qscale=255.0),
-    dict(band_lossy_wta=True)])
+    dict(engine="xla"), dict(engine="xla", band_qscale=255.0),
+    dict(engine="xla", band_lossy_wta=True)])
 def test_unported_knobs_raise(knob):
-    """A knob the port lacks raises, naming its ROADMAP item."""
+    """A knob the port lacks raises, naming its ROADMAP item: the XLA
+    engine (A.4), with or without the band engine's dials, which are
+    ported."""
     base = dict(num_rows=8, num_cols=16, num_rows_out=8, num_cols_out=16,
                 num_disp=4, zero_disp=2, usd=2, lsd=1)
     cfg = tconfig.PipelineConfig(**{**base, **knob})
     sbs = np.zeros(cfg.sbs_shape, np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
         tpipe.process_frame(sbs, cfg, device="cpu")
 
 

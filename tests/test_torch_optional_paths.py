@@ -156,11 +156,12 @@ def test_row_chunks_stay_exact_with_hslo(sbs):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(engine="xla"), dict(band_qscale=255.0),
-    dict(band_lossy_wta=True)])
+    dict(engine="xla"), dict(engine="xla", band_qscale=255.0),
+    dict(engine="xla", band_lossy_wta=True)])
 def test_check_ported_still_refuses(knob):
+    """Only the XLA engine is refused now, whatever the dials say."""
     cfg = tconfig.PipelineConfig(**{**dict(usd=2, lsd=1), **knob})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
         tpipe.check_ported(cfg)
 
 
@@ -168,7 +169,10 @@ def test_check_ported_still_refuses(knob):
     dict(use_hslo=True), dict(use_median=True), dict(bleed_radius=3),
     dict(num_rows_disp=4, num_cols_disp=8), dict(num_cols_out=32),
     dict(num_views=2), dict(band_digits=1), dict(band_digits=2),
-    dict(irv_row_chunk=8), dict(band_row_chunk=8, irv_row_chunk=16)])
+    dict(irv_row_chunk=8), dict(band_row_chunk=8, irv_row_chunk=16),
+    dict(band_qscale=64.0), dict(band_qscale=255.0), dict(band_qscale=510.0),
+    dict(band_qscale=1020.0), dict(band_qscale=16383.0),
+    dict(band_lossy_wta=True), dict(band_lossy_wta=True, band_digits=1)])
 def test_check_ported_accepts_the_optional_stages(knob):
     tpipe.check_ported(tconfig.PipelineConfig(**knob))
 

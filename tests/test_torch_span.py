@@ -232,8 +232,12 @@ def test_quantize_cost_matches_jax(float_costs):
     assert got.dtype == torch.uint8
     ref = np.asarray(jband.quantize_cost(jnp.asarray(cl))).astype(np.float32)
     np.testing.assert_array_equal(got.numpy().astype(np.float32), ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        tband.quantize_cost(_t(cl), qscale=255.0)
+    # the band_qscale dial: int16 above 127.5, as the JAX package's
+    for q in (255.0, 510.0):
+        got = tband.quantize_cost(_t(cl), qscale=q)
+        ref = np.asarray(jband.quantize_cost(jnp.asarray(cl), qscale=q))
+        assert got.dtype == torch.int16 and ref.dtype == np.int16
+        np.testing.assert_array_equal(got.numpy(), ref)
 
 
 def test_cross_aggregate_band_matches_jax(float_costs):

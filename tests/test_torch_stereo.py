@@ -42,8 +42,7 @@ def _port_costs(left, right, nd, zd, ad=10.0, cen=30.0):
     cen_l = census_transform_9x7(mux_average(l))
     cen_r = census_transform_9x7(mux_average(r))
     m = tck.pair_margin(nd, zd)
-    pair = tck.cost_pair(l, r, cen_l, cen_r, tck.cost_table(ad, cen), nd,
-                         zd)
+    pair = tck.cost_pair(l, r, cen_l, cen_r, ad, cen, nd, zd)
     w = left.shape[1]
     return pair[:, m:m + w], tck.shear_right(pair, zd)
 
