@@ -26,6 +26,12 @@
    2 and 1, B6's lossy WTA (band_lossy_wta) at the shifts of band_digits
    3, 2 and 1 and on inputs that its rounding turns into ties; and where
    their streams end (37 rows, D=126, int16 windows past 2^16).  The
+   streamed B8, full and gated, where its row streams end and its byte
+   prefixes wrap (37 rows, reach 0, an odd width, D=126, D=130, reach 127
+   with windows of 255 in one bin), and with B9 in each round of the early-
+   stop IRV on the 1080p frame; B10 at radii 0, 1, 7 and 8, on 37 rows,
+   on fractional values past its range-weight table and where |a - s|
+   falls on integers and one ulp below them.  The
    entry points beside process_frame run on the 1080p
    frame's own stages, each as a path with its launch counts checked:
    `dr_irv_band_lr` (B15, 5 fixed rounds) equal to the fixed-round
@@ -63,7 +69,8 @@ the four preset paths (HD1080_D128, HSLO_4K, LOWRES, UHD4K_16V) and the
 two dial paths (where that package has the dials), N frames each, on the
 package under DIR: the way to compare two commits' frame and stage times
 within one call.  `--stream-checks [--package-root DIR]` only holds the
-streamed kernels B4, B5, B6 and B9 (and the kernels that feed them), then
+streamed kernels B4, B5, B6, B8 and B9 and B10 (and the kernels that feed
+them; B8, B9 and B10 at their edges and in each IRV round too), then
 the dials' modes of B2-B4 and B6, against their plain versions, on the
 package under DIR: the way to show that a deliberately broken copy of
 one fails.
@@ -86,6 +93,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12      # float32 outside the tensor cores; the
                             # kernels' integer ALU work is counted at it
+# float32 operations that may not contract into a multiply-add (B10):
+# 128 a clock on each of the 132 SMs at the 1.98 GHz boost clock
+PEAK_FP32_NOFMA_PER_S = 128 * 132 * 1.98e9
 
 # kernel name -> (wrapper, source, replaced TPU kernel, the path whose
 # launch count the kernels line reports)
@@ -313,6 +323,42 @@ for _label, _path in DIAL_PAIRS.items():
     KERNELS[f"B3 shear_right ({_label})" + AT_D126] = (*B3_SRC, _path)
 KERNELS[B4I + AT_I16MAX] = (*B4I_SRC, QSCALE510)
 KERNELS[B6L + AT_TIES] = (*B6L_SRC, LOSSY)
+# B8 where its row streams end and its byte prefixes wrap, full and gated:
+# the 37-row and reach-0 crops above, an odd W, D=126 (B + 1 = 127: the
+# pixels of the volume lie at every alignment), reach 127 with every
+# reliable pixel in one bin (windows of 255: the byte prefixes wrap) and
+# D=130 (more than 128 bins: the kernel with two groups a lane)
+RS_ODD = " (200x1001, odd W)"
+RS_D126 = " (200x1000, D=126: B + 1 = 127)"
+RS_WRAP = " (200x1001, reach 127: windows of 255 in one bin)"
+RS_D130 = " (37x1001, D=130: two groups a lane)"
+for _suffix in (AT_SHORT, AT_REACH0, RS_ODD, RS_D126, RS_WRAP, RS_D130):
+    for _name in ("B8 irv_rowspan", "B8 irv_rowspan (need)"):
+        KERNELS[_name + _suffix] = KERNELS[_name]
+# B8 and B9 in every round of the pipeline's early-stop loop on the 1080p
+# frame (HD1080_D128's irv_iterations; the bud frame runs all five):
+# round 1 full, each later round under its own frontier
+IRV_ROUNDS = 5
+
+
+def irv_round_suffix(k: int) -> str:
+    return f" (round {k} of dr_irv_early_stop)"
+
+
+for _k in range(1, IRV_ROUNDS + 1):
+    for _name in (("B8 irv_rowspan", "B9 irv_vote") if _k == 1 else
+                  ("B8 irv_rowspan (need)", "B9 irv_vote (need)")):
+        KERNELS[_name + irv_round_suffix(_k)] = KERNELS[_name]
+# B10 at the radii 0, 1 and 8 beside the main path's 7, on a 37-row crop,
+# on fractional values over +-1000 (range-weight indices past the table:
+# the direct expression) and where |a - s| falls on integers and one ulp
+# below them (where the floor changes)
+B10_EDGES = {f" (r={_r})": _r for _r in (0, 1, 8)}
+B10_CROP = " (37x1001)"
+B10_FRAC = " (200x1001, fractional values in [-1000, 1000))"
+B10_ULP = " (200x1001, |a - s| on and one ulp below integers)"
+for _suffix in (*B10_EDGES, B10_CROP, B10_FRAC, B10_ULP):
+    KERNELS["B10 filter_bilateral" + _suffix] = KERNELS["B10 filter_bilateral"]
 # the wrappers each path must not launch (its route replaces them); every
 # other wrapper must launch at least once on it
 DM_WRAPPERS = {"cost_dm", "pass1_dm", "vv_dm", "pass4_wta_dm"}
@@ -404,9 +450,9 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_rate: float = PEAK_OPS_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -420,11 +466,12 @@ class KernelChecks:
         self.results = {}
         self.irv = {}
         self.irv_shares = {}
+        self.irv_rounds = {}
         self.suffix = ""    # appended to every recorded name
         self.raw = None     # (disp_l, disp_r, labels) of check_disp_kernels
 
     def record(self, name, got, ref, kern, plain, nbytes, ops, library=None,
-               plain_once=False):
+               plain_once=False, ops_rate=PEAK_OPS_PER_S):
         import torch
         name += self.suffix
         torch.cuda.synchronize()
@@ -445,7 +492,7 @@ class KernelChecks:
                                    f"version (max_abs_err {e}, {bad} "
                                    f"elements, first at {first})")
             err = max(err, e)
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = bound(nbytes, ops, ops_rate)
         reps = self.reps
         r = self.results[name] = dict(
             max_abs_err=err, ms=time_ms(kern, reps),
@@ -579,27 +626,32 @@ def vote_cells(need, outliers):
 
 
 def rowspan_live(need, outliers, usd: int):
-    """(H, W) bool: the row spans the gated B8 computes.  A vote tile of
-    `vote_cells` may read its rows plus `usd` either way; a row-span block
-    (one row, IRV_TILE columns) is computed iff one of its columns is so
-    read.  The smoke holds this mirror of the kernels' gating from both
-    sides: the live spans must equal the plain version's, and a vote fed
-    255 in every other span must equal the plain vote."""
+    """(H, W) bool: the row spans the gated B8 must compute, which are the
+    rows the gated B9 streams.  For each vote tile of `vote_cells` (IRV_TILE
+    rows of one column) with first and last voting rows f and l, the rows
+    [f - usd, l + usd] of its column, clipped to the frame.  The kernel
+    may write more (the 16-byte stores that also hold a byte of such a
+    span); the smoke holds this mirror from both sides: the live spans
+    must equal the plain version's, and a vote fed 255 in every other span
+    must equal the plain vote."""
     import torch
     import torch.nn.functional as F
     from stereo_to_multiview_tpu_torch.ops.irv import TILE as IRV_TILE
     h, w = need.shape
-    cells = vote_cells(need, outliers)                     # (nt, W)
-    nt = cells.shape[0]
-    rows = torch.arange(h, device=need.device)[:, None]
-    tiles = torch.arange(nt, device=need.device)[None, :]
-    reads = ((tiles * IRV_TILE - usd <= rows)
-             & (rows < (tiles + 1) * IRV_TILE + usd))      # (H, nt)
-    read = (reads.to(torch.float32) @ cells.to(torch.float32)) > 0  # (H, W)
-    nx = -(-w // IRV_TILE)
-    blocks = F.pad(read, (0, nx * IRV_TILE - w)).reshape(
-        h, nx, IRV_TILE).any(dim=2)
-    return blocks.repeat_interleave(IRV_TILE, dim=1)[:, :w]
+    nt = -(-h // IRV_TILE)
+    voting = F.pad(need.to(bool) & (outliers != 0),
+                   (0, 0, 0, nt * IRV_TILE - h)).reshape(nt, IRV_TILE, w)
+    cell = voting.any(dim=1).to(torch.int32)               # (nt, W)
+    rows = torch.arange(IRV_TILE, device=need.device)[None, :, None]
+    first = torch.where(voting, rows, IRV_TILE).amin(dim=1)
+    last = torch.where(voting, rows, -1).amax(dim=1)
+    base = torch.arange(nt, device=need.device)[:, None] * IRV_TILE
+    lo = (base + first - usd).clamp(0, h).to(torch.int64)
+    hi = (base + last + usd + 1).clamp(0, h).to(torch.int64)
+    edges = torch.zeros((h + 1, w), dtype=torch.int32, device=need.device)
+    edges.scatter_add_(0, lo, cell)
+    edges.scatter_add_(0, hi, -cell)
+    return torch.cumsum(edges, dim=0)[:h] > 0
 
 
 def vote_span_rows(need, outliers, up, down, usd: int):
@@ -620,6 +672,20 @@ def vote_span_rows(need, outliers, up, down, usd: int):
     return torch.cumsum(edges, dim=0)[:h] > 0
 
 
+def record_full_rowspan(chk, d, o, lr, nd: int, zd: int, usd: int):
+    """B8 without `need` (every span) against its plain version; returns
+    the kernel's spans."""
+    from stereo_to_multiview_tpu_torch.ops import irv
+    cnt = irv.irv_rowspan(d, o, *lr, nd, zd, usd)
+    chk.record("B8 irv_rowspan", cnt,
+               irv.irv_rowspan_plain(d, o, *lr, nd, zd, usd),
+               lambda: irv.irv_rowspan(d, o, *lr, nd, zd, usd),
+               lambda: irv.irv_rowspan_plain(d, o, *lr, nd, zd, usd),
+               nbytes=d.numel() * (4 + 1 + 8) + cnt.numel(),
+               ops=4 * cnt.numel())
+    return cnt
+
+
 def record_full_vote(chk, cnt, d, o, ud, vote, usd: int):
     """B9 without `need` (every outlier votes); its bound counts the spans
     within reach of an outlier (`vote_span_rows`), the planes and the
@@ -637,11 +703,12 @@ def record_full_vote(chk, cnt, d, o, ud, vote, usd: int):
                ops=4 * read * cnt.numel())
 
 
-def record_gated_irv(chk, d1, o1, need, arms, cfg, usd, b8=True):
-    """The gated B8 (if `b8`) and B9 of one round under `need`, B9 fed 255
-    in every span the gated B8 skips; their bounds count the spans the
-    votes read (`vote_span_rows`).  Returns (live share of the row spans,
-    share of the vote tiles, share of the spans the votes read)."""
+def record_gated_irv(chk, d1, o1, need, arms, cfg, usd, b8=True, b9=True):
+    """The gated B8 (if `b8`) and B9 (if `b9`) of one round under `need`,
+    B9 fed 255 in every span the gated B8 may skip; their bounds count the
+    spans the votes read (`vote_span_rows`).  Returns (live share of the
+    row spans, share of the vote tiles, share of the spans the votes
+    read)."""
     import torch
     from stereo_to_multiview_tpu_torch.ops import irv
     from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
@@ -664,8 +731,11 @@ def record_gated_irv(chk, d1, o1, need, arms, cfg, usd, b8=True):
                    lambda: irv.irv_rowspan_plain(d1, o1, *lr, nd, zd, usd),
                    nbytes=hw * (4 + 1 + 8 + 1) + read_share * n_cnt,
                    ops=4 * read_share * n_cnt)
+    if not b9:
+        return live_share, cell_share, read_share
     # the skipped spans are undefined: give the gated vote 255 (a count no
-    # span reaches) in each, so that reading one would show
+    # span of a reach below 127 reaches) in each, so that reading one would
+    # show
     cnt_n = torch.where(live, cnt_n, 255)
     chk.record("B9 irv_vote (need)",
                irv.irv_vote(cnt_n, d1, o1, *ud, *vote, need),
@@ -690,12 +760,7 @@ def check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg):
     hw, nd, zd, usd = h * w, cfg.num_disp, cfg.zero_disp, cfg.usd
     ol = labels[0]
     lr, ud = (arms_l[LEFT], arms_l[RIGHT]), (arms_l[UP], arms_l[DOWN])
-    cnt = irv.irv_rowspan(dl, ol, *lr, nd, zd, usd)
-    chk.record("B8 irv_rowspan", cnt,
-               irv.irv_rowspan_plain(dl, ol, *lr, nd, zd, usd),
-               lambda: irv.irv_rowspan(dl, ol, *lr, nd, zd, usd),
-               lambda: irv.irv_rowspan_plain(dl, ol, *lr, nd, zd, usd),
-               nbytes=hw * (4 + 1 + 8) + cnt.numel(), ops=4 * cnt.numel())
+    cnt = record_full_rowspan(chk, dl, ol, lr, nd, zd, usd)
 
     vote = (cfg.irv_thresh_s, cfg.irv_thresh_h, zd, usd)
     record_full_vote(chk, cnt, dl, ol, ud, vote, usd)
@@ -823,6 +888,156 @@ def check_vstream_edges(chk, dl, ol, arms, cfg):
         print(f"  {suffix.strip()}: the gated vote reads {shares[2]:.4f} "
               f"of the spans", flush=True)
     chk.suffix = ""
+
+
+def check_irv_rounds(chk, dl, ol, arms, cfg):
+    """B8 and B9 in every round of the pipeline's early-stop loop on the
+    left eye's raw disparities and labels: round 1 full, each later round
+    under the frontier of the round before (`dr_irv_early_stop`'s own
+    `need`).  The rounds' outcome must equal `dr_irv_early_stop`.  Returns
+    the shares of each gated round."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import irv
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+
+    nd, zd, usd = cfg.num_disp, cfg.zero_disp, cfg.usd
+    lr, ud = (arms[LEFT], arms[RIGHT]), (arms[UP], arms[DOWN])
+    vote = (cfg.irv_thresh_s, cfg.irv_thresh_h, zd, usd)
+    d, o, need, done, shares = dl, ol, None, 0, {}
+    while done < cfg.irv_iterations:
+        chk.suffix = irv_round_suffix(done + 1)
+        if need is None:
+            cnt = record_full_rowspan(chk, d, o, lr, nd, zd, usd)
+            record_full_vote(chk, cnt, d, o, ud, vote, usd)
+            del cnt
+        else:
+            live, cells, read = record_gated_irv(chk, d, o, need, arms, cfg,
+                                                 usd)
+            shares[done + 1] = dict(need=float(need.float().mean()),
+                                    live_rowspans=live, vote_tiles=cells,
+                                    votes_read=read)
+            print(f"  IRV round {done + 1}: need covers "
+                  f"{shares[done + 1]['need']:.4f} of the pixels; the votes "
+                  f"read {read:.4f} of the spans, the gated B8 computes at "
+                  f"least {live:.4f}", flush=True)
+        d1, o1 = irv.irv_round(d, o, arms, *vote[:2], nd, zd, usd, need)
+        done += 1
+        changed = o1 != o
+        d, o = d1, o1
+        if done == cfg.irv_iterations or not bool(changed.any()):
+            break
+        need = irv.dilate_frontier(changed, usd)
+    chk.suffix = ""
+    if done != IRV_ROUNDS:
+        raise SmokeFailure(f"IRV rounds: the frame ran {done} rounds, the "
+                           f"kernel table lists {IRV_ROUNDS}")
+    rounds = []
+    ref = irv.dr_irv_early_stop(dl, ol, arms, cfg.irv_thresh_s,
+                                cfg.irv_thresh_h, nd, zd, usd,
+                                cfg.irv_iterations, rounds)
+    if not (torch.equal(ref[0], d) and torch.equal(ref[1], o)):
+        raise SmokeFailure("IRV rounds: the recorded rounds differ from "
+                           "dr_irv_early_stop")
+    print(f"IRV rounds: {done} rounds on the left eye, equal to "
+          f"dr_irv_early_stop; B8 and B9 each launch once a round and eye",
+          flush=True)
+    return shares
+
+
+def check_rowspan_edges(chk, dl, ol, arms, cfg):
+    """B8, full and gated, where its row streams end and its byte prefixes
+    wrap: a 37-row crop and a reach-0 crop of the frame's middle rows, a
+    200x1001 crop (odd W), D=126 on a 200x1000 crop (B + 1 = 127: every
+    alignment of a pixel in the volume), and reach 127 on a frame of one
+    disparity with sparse outliers and arms of 127 (windows of 255
+    reliable pixels of one bin: the byte prefixes wrap), and D=130 on a
+    37x1001 crop (two groups of bins a lane)."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import irv
+    from stereo_to_multiview_tpu_torch.ops.cross import LEFT, RIGHT
+
+    y0 = dl.shape[0] // 2
+    # (suffix, rows, columns, num_disp and zero_disp or None, reach); at
+    # D=130 the frame's disparities in [-64, 64) reach bins 2 .. 129
+    cases = ((AT_SHORT, 37, 1001, None, cfg.usd),
+             (AT_REACH0, 200, 1001, None, 0), (RS_ODD, 200, 1001, None, cfg.usd),
+             (RS_D126, 200, 1000, (126, 63), cfg.usd),
+             (RS_WRAP, 200, 1001, None, 127), (RS_D130, 37, 1001, (130, 66), cfg.usd))
+    for suffix, rows, cols, bins, usd in cases:
+        chk.suffix = suffix
+        c = cfg.replace(num_disp=bins[0], zero_disp=bins[1]) if bins else cfg
+        rs, cs = slice(y0, y0 + rows), slice(0, cols)
+        d, o = dl[rs, cs].contiguous(), ol[rs, cs].contiguous()
+        a = arms[:, rs, cs].contiguous()
+        ys = torch.arange(rows, device=d.device)[:, None]
+        xs = torch.arange(cols, device=d.device)[None, :]
+        if suffix == RS_WRAP:
+            d = torch.full_like(d, 5.0)
+            o = ((ys % 7 == 0) & (xs % 13 == 0)).to(torch.uint8)
+            a = torch.full_like(a, 127)
+        cnt = record_full_rowspan(chk, d, o, (a[LEFT], a[RIGHT]),
+                                  c.num_disp, c.zero_disp, usd)
+        top = int(cnt.max())
+        del cnt
+        if suffix == RS_WRAP and top != 255:
+            raise SmokeFailure(f"B8{suffix}: the largest window holds {top}, "
+                               f"not 255")
+        # a frontier around a sparse subset of the crop's outliers
+        need = irv.dilate_frontier((o != 0) & (ys % 11 == 0)
+                                   & (xs % 53 == 0), usd)
+        shares = record_gated_irv(chk, d, o, need, a, c, usd, b9=False)
+        print(f"  {suffix.strip()}: largest window {top}; the gated B8 "
+              f"computes at least {shares[0]:.4f} of the spans", flush=True)
+    chk.suffix = ""
+
+
+def record_bilateral(chk, name, img, radius: int, cfg):
+    """B10 against its plain version; the bound counts five float32
+    operations a tap (the difference, the add that floors it, the weight
+    times the sample, two sums) at the rate of operations that do not
+    contract into a multiply-add.  The weight itself, the spatial tap
+    times the range weight of an integer t, is a table of the tap and t
+    built once a launch, so it costs no operation a pixel.  Returns the
+    kernel's output."""
+    from stereo_to_multiview_tpu_torch.ops import filters
+    blf = (radius, cfg.bilateral_sigma_color, cfg.bilateral_sigma_spatial)
+    out = filters.filter_bilateral(img, *blf)
+    chk.record(name, out, filters.filter_bilateral_plain(img, *blf),
+               lambda: filters.filter_bilateral(img, *blf),
+               lambda: filters.filter_bilateral_plain(img, *blf),
+               nbytes=2 * img.numel() * 4,
+               ops=5 * (2 * radius + 1) ** 2 * img.numel(),
+               ops_rate=PEAK_FP32_NOFMA_PER_S)
+    return out
+
+
+def check_bilateral_edges(chk, disp, cfg):
+    """B10 beside the main path's radius: radii 0, 1 and 8 on the frame's
+    disparities after IRV, the default radius on a 37x1001 crop, on
+    fractional values over [-1000, 1000) (range-weight indices past the
+    table: the direct expression) and on a map whose |a - s| falls on
+    integers and one ulp below them, up to 128 (where each block takes
+    the table without the check)."""
+    import torch
+    for suffix, r in B10_EDGES.items():
+        record_bilateral(chk, "B10 filter_bilateral" + suffix, disp, r, cfg)
+    y0 = disp.shape[0] // 2
+    r = cfg.bilateral_radius
+    record_bilateral(chk, "B10 filter_bilateral" + B10_CROP,
+                     disp[y0:y0 + 37, :1001].contiguous(), r, cfg)
+    gen = torch.Generator(device=disp.device).manual_seed(10)
+    frac = torch.rand((200, 1001), generator=gen, device=disp.device) \
+        * 2000.0 - 1000.0
+    record_bilateral(chk, "B10 filter_bilateral" + B10_FRAC, frac, r, cfg)
+    n = torch.randint(1, 128, (200, 1001), generator=gen,
+                      device=disp.device).to(torch.float32)
+    below = torch.nextafter(n, torch.zeros_like(n))
+    v = torch.where(torch.rand(n.shape, generator=gen, device=n.device)
+                    < 0.5, n, below)
+    ys = torch.arange(200, device=n.device)[:, None]
+    xs = torch.arange(1001, device=n.device)[None, :]
+    ulp = torch.where((ys + xs) % 2 == 0, torch.zeros_like(v), v)
+    record_bilateral(chk, "B10 filter_bilateral" + B10_ULP, ulp, r, cfg)
 
 
 def record_hpass(chk, name, vol, arms, usd, shift=0, zd=None, lossy=False):
@@ -1030,8 +1245,9 @@ def check_many_views(chk, img_l, img_r, bl, br, cfg):
 
 def check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg):
     """B7 (labels), B8, B9 and B10 on the inputs a path gives them: the
-    stage outputs of one frame computed with the kernels.  Returns both
-    eyes' filtered disparities."""
+    stage outputs of one frame computed with the kernels; on the main
+    path's own frame (no suffix) also B8 and B9 in every IRV round and
+    B10 at the edges.  Returns both eyes' filtered disparities."""
     from stereo_to_multiview_tpu_torch.ops import dcc, filters
     from stereo_to_multiview_tpu_torch.ops.band import (
         band_stereo_core_chunked)
@@ -1048,16 +1264,15 @@ def check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg):
                lambda: dcc.dr_dcc_plain(dl, dr, cfg.dcc_thresh),
                nbytes=2 * hw * 4 + 2 * hw, ops=2 * hw * 10)
 
-    dl, dr = check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg)
+    dl_irv, dr = check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg)
+    if not chk.suffix:             # the main path's own frame
+        chk.irv_rounds = check_irv_rounds(chk, dl, labels[0], arms_l, cfg)
     r = cfg.bilateral_radius
-    blf = (r, cfg.bilateral_sigma_color, cfg.bilateral_sigma_spatial)
-    bl = filters.filter_bilateral(dl, *blf)
-    chk.record("B10 filter_bilateral", bl,
-               filters.filter_bilateral_plain(dl, *blf),
-               lambda: filters.filter_bilateral(dl, *blf),
-               lambda: filters.filter_bilateral_plain(dl, *blf),
-               nbytes=2 * hw * 4, ops=20 * (2 * r + 1) ** 2 * hw)
-    return bl, filters.filter_bilateral(dr, *blf)
+    bl = record_bilateral(chk, "B10 filter_bilateral", dl_irv, r, cfg)
+    if not chk.suffix:
+        check_bilateral_edges(chk, dl_irv, cfg)
+    return bl, filters.filter_bilateral(dr, r, cfg.bilateral_sigma_color,
+                                        cfg.bilateral_sigma_spatial)
 
 
 def check_synth_kernels(chk, img_l, img_r, bl, br, cfg, unfused=True):
@@ -2067,10 +2282,21 @@ def time_frames(root: str, n_frames: int) -> int:
     return 0
 
 
+def print_ptxas(logs: dict):
+    """Each source's nvcc seconds, then each built kernel's (mangled)
+    name, its registers and spills, from nvcc's -Xptxas -v report."""
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if (line.startswith("nvcc ") or "Compiling entry" in line
+                    or "registers" in line or "spill" in line):
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
+
+
 def stream_checks(root: str) -> int:
     """`--stream-checks [--package-root DIR]`: only the checks that hold
-    the streamed B4, B5, B6 and B9 against their plain versions (the
-    stereo core's and the IRV kernels at 1080p, then the edge frames, then
+    the streamed B4, B5, B6, B8 and B9 and B10 against their plain
+    versions (the stereo core's, the IRV kernels in each round and B10 at
+    1080p, then the edge frames, then
     the dials' modes of B2-B4 and B6), on the package under DIR.  Exit 1 if one fails: a deliberately broken
     copy of a kernel must."""
     import torch
@@ -2079,7 +2305,7 @@ def stream_checks(root: str) -> int:
     from stereo_to_multiview_tpu_torch.models import pipeline
 
     print(f"gpu: {gpu_line()}", flush=True)
-    kernels.build_kernels()
+    print_ptxas(kernels.build_kernels())
     cfg = config.HD1080_D128
     sbs = torch.from_numpy(stereo_sbs(cfg.num_rows, cfg.num_cols))
     img_l, img_r = (t.contiguous() for t in
@@ -2090,6 +2316,7 @@ def stream_checks(root: str) -> int:
                                             hslo=False)
         check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
+        check_rowspan_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_hstream_edges(chk, img_l, img_r, cfg)
         check_band_dials(chk, img_l, img_r, arms_l, cfg)
         check_dial_edges(chk, img_l, img_r, cfg)
@@ -2106,8 +2333,8 @@ def main() -> int:
                     help="time only the preset and dial paths, this many "
                          "frames each, and print no result line")
     ap.add_argument("--stream-checks", action="store_true",
-                    help="only hold B4, B5, B6 and B9 (and the dials' "
-                         "modes) against their plain "
+                    help="only hold B4, B5, B6, B8, B9 and B10 (and the "
+                         "dials' modes) against their plain "
                          "versions and print no result line")
     ap.add_argument("--package-root", default=HERE,
                     help="with --frames or --stream-checks: the checkout "
@@ -2148,12 +2375,7 @@ def main() -> int:
         report["build_s"] = time.perf_counter() - t0
         print(f"build: {len(logs)} kernel libraries in "
               f"{report['build_s']:.1f} s", flush=True)
-        for name, log in logs.items():
-            for line in log.splitlines():
-                # each kernel's (mangled) name, then its registers and spills
-                if ("Compiling entry" in line or "registers" in line
-                        or "spill" in line):
-                    print(f"  ptxas {name}: {line.strip()}", flush=True)
+        print_ptxas(logs)
 
         cfg = config.HD1080_D128
         sbs = stereo_sbs(cfg.num_rows, cfg.num_cols)
@@ -2166,6 +2388,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         bl, br = check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
+        check_rowspan_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_hstream_edges(chk, img_l, img_r, cfg)
         torch.cuda.empty_cache()
         check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
@@ -2244,6 +2467,7 @@ def main() -> int:
         kres = chk.results
         report["irv_early_stop"] = chk.irv
         report["irv_need_shares"] = chk.irv_shares
+        report["irv_rounds"] = chk.irv_rounds
         del img_l, img_r, low_l, low_r, arms_l, arms_r, bl, br
         torch.cuda.empty_cache()
 

@@ -18,11 +18,29 @@
 //
 // Bound on the H100: memory.  B8 writes and B9 reads the (H, W, B + 1)
 // u8 span volume, 267 MB per eye and round at 1080p/D=128 (~80 us each);
-// the planes around it are 8 MB.  B8 takes a block per 64 columns of a
-// row and one thread per channel: it stages the row's bin keys for the
-// tile plus the arm reach in shared memory, each thread builds the prefix
-// counts of its channel from them (the one-hot volume never exists), and
-// each output is one difference.
+// the planes around it are 8 MB.  B8 streams each row: a warp takes one
+// row and segment of <= 256 columns, primed over the reach to its left
+// and run reach positions past its right end (the design of B4/B6,
+// hpass.cu).  Lane l owns the bins 4l .. 4l + 3 (and 4l + 128 .. above
+// B = 128).  A lane's four running counts are the four bytes of one u32:
+// a window's count is at most 2 * reach + 1 <= 255 for reach <= 127, so
+// the wrapped difference of two prefixes is exact in every byte (the
+// carries between the bytes cancel, as between B9's u16 halves).  Pushing
+// a position is one shift and one add a group; lane k of a batch loads
+// position k's disparity and label (its bin key) and the arms of output
+// k, a batch's loads issued one batch ahead.  Its time follows its
+// shared-memory operations (on an H100, fewer of them took it from 0.233
+// to 0.192 ms at 1080p), so the warp reads the keys, and the outputs'
+// window slots, four at a time from shared memory (a broadcast load
+// where a shuffle moves one), and the total (channel B) takes one prefix
+// a position, which lane k of a batch writes for position k from a
+// ballot of the reliable positions and lane k of an output chunk reads
+// for its pixel (a lane of its own would cost three shared accesses a
+// pixel).  The prefixes go into a ring of 2 * reach + 33 slots in shared
+// memory; a window is one difference of two slots.  A pixel's B + 1
+// outputs are contiguous bytes: a batch's 32 pixels are staged in shared
+// memory at the alignment they have in the volume and go out as 16-byte
+// stores.
 //
 // B9 streams the span volume down the columns.  A warp owns one column of
 // a 256-row segment (2 adjacent columns a block, no barrier); per row it
@@ -62,9 +80,14 @@
 // the next live tile and restarting its rings where the two tiles' voters
 // lie more than 2 * reach rows apart (a prefix difference does not depend
 // on where the prefix started): it reads only spans of the live cells'
-// reach.  With `need`, a B8 block (one row, 64 columns) whose row no live
-// cell of its columns can read (the cell's rows plus the vote reach)
-// writes nothing: those spans stay undefined and are never read.  Without
+// reach.  With `need`, B8 computes a span (y, x) only where a vote may
+// read it, at B9's own grain: y in [t * 64 + first - reach, t * 64 + last
+// + reach] for a live cell (t, x) of the map, with first and last its
+// voting rows (a pixel looks up at most 2 * ceil(reach / 64) + 1 cells).
+// These are exactly the rows B9 streams.  A batch of 32 columns whose
+// pixels no vote reads is skipped, and so are its pushes where no later
+// batch needs them; a store that holds no byte of a read pixel is
+// skipped.  The other spans stay undefined and are never read.  Without
 // `need` B8 writes every span.
 
 #include "stm_common.cuh"
@@ -86,7 +109,7 @@ __device__ __forceinline__ int irv_key(float d, uint8_t outl, int B, int zd) {
 // outlier, at a need pixel when `need` is given) in the tile's rows
 // [t * IRV_TILE, (t + 1) * IRV_TILE), else (last + 1) << 8 | (first + 1)
 // with the first and last voting rows' offsets in the tile.  B8 gates its
-// blocks on it, B9 takes its runs from it.  With disp_out, it also copies
+// spans on it, B9 takes its runs from it.  With disp_out, it also copies
 // disp and outl to the vote's outputs (coalesced), where the vote then
 // writes only the pixels that accept.  A thread takes a quarter of a
 // tile's rows in one column.
@@ -139,97 +162,364 @@ static inline void irv_live(const void* need, const void* outl,
       (uint16_t*)live, (float*)disp_out, (uint8_t*)outl_out, H, W);
 }
 
-__global__ void irv_rowspan_kernel(const float* __restrict__ disp,
-                                   const uint8_t* __restrict__ outl,
-                                   const int* __restrict__ left,
-                                   const int* __restrict__ right,
-                                   const uint16_t* __restrict__ live,
-                                   uint8_t* __restrict__ cnt, int H, int W,
-                                   int B, int zd, int reach) {
-  extern __shared__ int smem[];
-  const int C = B + 1;
-  const int y = blockIdx.y;
-  const int p0 = blockIdx.x * IRV_TILE;
-  const int p1 = min(p0 + IRV_TILE, W);
-  if (live != nullptr) {
-    // a live cell (t, x) reads the rows [t * TILE - reach, (t + 1) * TILE
-    // + reach) of column x
-    const int nt = (H + IRV_TILE - 1) / IRV_TILE;
-    const int t0 = max(y - reach, 0) / IRV_TILE;
-    const int t1 = min((y + reach) / IRV_TILE, nt - 1);
-    int any = 0;
-    for (int i = threadIdx.x; i < (t1 - t0 + 1) * (p1 - p0); i += blockDim.x)
-      any |= live[(size_t)(t0 + i / (p1 - p0)) * W + p0 + i % (p1 - p0)] != 0;
-    if (!__syncthreads_or(any)) return;
-  }
-  const int lo = max(p0 - reach, 0);
-  const int hi = min(p1 + reach, W);
-  int* win_a = smem;                                  // IRV_TILE window
-  int* win_b = win_a + IRV_TILE;                      // ends (prefix rows)
-  int* key = win_b + IRV_TILE;                        // hi - lo keys
-  uint16_t* pre = reinterpret_cast<uint16_t*>(key + IRV_TILE + 2 * reach);
-  const size_t row = (size_t)y * W;
-  for (int q = lo + threadIdx.x; q < hi; q += blockDim.x)
-    key[q - lo] = irv_key(disp[row + q], outl[row + q], B, zd);
-  for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
-    const int an = min(max(left[row + p], 0), reach);
-    const int ap = min(max(right[row + p], 0), reach);
-    win_a[p - p0] = max(p - an, 0) - lo;
-    win_b[p - p0] = min(p + ap + 1, W) - lo;
-  }
-  __syncthreads();
+// ---- B8: the row spans -------------------------------------------------
 
-  const int c = threadIdx.x;
-  if (c >= C) return;
-  uint16_t acc = 0;
-  pre[c] = 0;
-  for (int q = 0; q < hi - lo; ++q) {
-    const int k = key[q];
-    acc += (c < B) ? (k == c) : (k >= 0);
-    pre[(q + 1) * C + c] = acc;                       // read back only by c
+#define IRV_RS_STEP 32            // positions pushed (and outputs) a batch
+#define IRV_RS_SEG 256            // most output columns of a segment
+#define IRV_RS_TILES 5            // most live cells a pixel looks up
+#define IRV_SMEM_MAX (227 * 1024)  // shared memory a block may hold
+
+// One pixel's bins into the stage at o (the lane's first group): the window
+// differences of the lane's groups between the slots packed in sk, stored
+// a byte at a time (the stage is at the volume's alignment; aligned stores
+// chosen at compile time by C % 4 took the same time on an H100).
+template <int GJ>
+__device__ __forceinline__ void irv_emit_px(const uint32_t* ring, int GB,
+                                            int lane,
+                                            const unsigned (&nbin)[GJ],
+                                            uint8_t* o, unsigned sk) {
+  const uint32_t* ph = ring + (sk >> 16) * GB + lane;
+  const uint32_t* pl = ring + (sk & 0xFFFFu) * GB + lane;
+#pragma unroll
+  for (int j = 0; j < GJ; ++j) {
+    uint8_t* q = o + 128 * j;
+    if (nbin[j] == 4u) {
+      const uint32_t v = ph[32 * j] - pl[32 * j];
+      q[0] = (uint8_t)v;
+      q[1] = (uint8_t)(v >> 8);
+      q[2] = (uint8_t)(v >> 16);
+      q[3] = (uint8_t)(v >> 24);
+    } else if (nbin[j] != 0u) {              // the last group, partial
+      const uint32_t v = ph[32 * j] - pl[32 * j];
+      for (unsigned k = 0; k < nbin[j]; ++k) q[k] = (uint8_t)(v >> (8 * k));
+    }
   }
-  for (int p = p0; p < p1; ++p)
-    cnt[(row + p) * C + c] = (uint8_t)(pre[win_b[p - p0] * C + c] -
-                                       pre[win_a[p - p0] * C + c]);
 }
 
-static inline int irv_threads(int C) { return (C + 31) / 32 * 32; }
+// The n <= 32 pixels of an output chunk into the stage st, four at a time
+// (their slots one 16-byte broadcast load of sbuf); pixel k starts at st +
+// k C.  FULLC: n = 32.
+template <int GJ, bool FULLC>
+__device__ __forceinline__ void irv_emit_chunk(const uint32_t* ring,
+                                               const unsigned* sbuf, int GB,
+                                               int C, int lane,
+                                               const unsigned (&nbin)[GJ],
+                                               uint8_t* st, int n) {
+  auto emit4 = [&](int i) {
+    const uint4 sq = reinterpret_cast<const uint4*>(sbuf)[i];
+    uint8_t* o = st + 4 * i * C + 4 * lane;
+    irv_emit_px<GJ>(ring, GB, lane, nbin, o, sq.x);
+    if (FULLC || 4 * i + 1 < n)
+      irv_emit_px<GJ>(ring, GB, lane, nbin, o + C, sq.y);
+    if (FULLC || 4 * i + 2 < n)
+      irv_emit_px<GJ>(ring, GB, lane, nbin, o + 2 * C, sq.z);
+    if (FULLC || 4 * i + 3 < n)
+      irv_emit_px<GJ>(ring, GB, lane, nbin, o + 3 * C, sq.w);
+  };
+  if constexpr (GJ == 1 && FULLC) {          // the main path
+#pragma unroll 2
+    for (int i = 0; i < IRV_RS_STEP / 4; ++i) emit4(i);
+  } else {
+#pragma unroll 1
+    for (int i = 0; 4 * i < n; ++i) emit4(i);
+  }
+}
+
+// One warp a (row, segment of S columns): blockIdx.x = y * nseg + seg.
+// Bin group g holds the bins 4g .. 4g + 3 (of GB = ceil(B / 4)); lane l
+// owns the groups g = l + 32 j, j < GJ, each group's running counts the
+// four bytes of one u32 (see the header).  The total (channel B) has a
+// prefix of its own a slot: lane k of a batch takes the prefix after
+// position k from a ballot of the reliable positions, and lane k of an
+// output chunk takes pixel k's total.
+//
+// Output chunk m is the 32 columns x0 + 32 m ..; batch b = m + K pushes
+// the 32 positions x0 + reach + 32 m .. (K = ceil(2 reach / 32) priming
+// batches first, m < 0), after which every window of chunk m is in the
+// ring: the newest boundary x0 + reach + 32 (m + 1) sits in slot w, and
+// the oldest a window needs, x0 + 32 m - reach, at most 2 reach + 32 slots
+// behind it.  A position outside [x0 - reach, x1 + reach) or the row
+// counts nothing (key -1), so every batch pushes 32 positions without a
+// branch.  With `need`, chunk m is live iff a vote reads one of its
+// pixels (the live cells' rows, see the header), a batch runs iff one of
+// the chunks m .. m + K it feeds is live, and the prefixes restart at 0
+// after a batch that did not run.  The outputs of a live chunk are
+// staged in shared memory at the alignment they have in the volume and
+// go out as 16-byte stores, with a byte head and tail; under `need` a
+// store that holds no byte of a pixel a vote reads is skipped.  A batch's
+// keys, and an output chunk's window slots, go through shared memory
+// (kbuf, sbuf) and are read four at a time by broadcast 16-byte loads: a
+// quarter of the shared-memory operations of a shuffle each.
+template <int GJ>
+__global__ void __launch_bounds__(32)
+irv_rowspan_kernel(const float* __restrict__ disp,
+                   const uint8_t* __restrict__ outl,
+                   const int* __restrict__ left,
+                   const int* __restrict__ right,
+                   const uint16_t* __restrict__ live,
+                   uint8_t* __restrict__ cnt, int H, int W, int B, int zd,
+                   int reach, int S, int nseg, int N) {
+  extern __shared__ __align__(16) unsigned char rs_smem[];
+  const unsigned FULL = 0xFFFFFFFFu;
+  const int C = B + 1, GB = (B + 3) / 4;
+  const int lane = threadIdx.x;
+  uint32_t* ring = reinterpret_cast<uint32_t*>(rs_smem);   // [slot][group]
+  uint32_t* ringt = ring + (size_t)N * GB;                 // [slot]
+  int* kbuf = reinterpret_cast<int*>(
+      rs_smem + ((size_t)N * (GB + 1) * 4 + 15) / 16 * 16);
+  unsigned* sbuf = reinterpret_cast<unsigned*>(kbuf + IRV_RS_STEP);
+  uint8_t* stage = reinterpret_cast<uint8_t*>(sbuf + IRV_RS_STEP);
+  const int y = blockIdx.x / nseg;
+  const int x0 = (blockIdx.x % nseg) * S, x1 = min(x0 + S, W);
+  const int M = (x1 - x0 + IRV_RS_STEP - 1) / IRV_RS_STEP;
+  const int K = (2 * reach + IRV_RS_STEP - 1) / IRV_RS_STEP;
+  const size_t row = (size_t)y * W;
+
+  // bit m of `mine`: pixel x0 + 32 m + lane is read by a vote; bit m of
+  // `chunks`: one of chunk m's pixels is
+  unsigned mine = 0u, chunks = 0u;
+  const int t0 = max(y - reach, 0) / IRV_TILE;
+  const int t1 = min(y + reach, H - 1) / IRV_TILE;
+#pragma unroll
+  for (int m = 0; m < IRV_RS_SEG / IRV_RS_STEP; ++m) {
+    if (m >= M) break;
+    const int p = x0 + IRV_RS_STEP * m + lane;
+    bool v = p < x1;
+    if (live != nullptr) {
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < IRV_RS_TILES; ++i) {
+        const int t = t0 + i;
+        if (v && t <= t1) {
+          const unsigned c = live[(size_t)t * W + p];
+          const int base = t * IRV_TILE - 1;
+          any |= c != 0u && base + (int)(c & 0xFFu) - reach <= y &&
+                 y <= base + (int)(c >> 8) + reach;
+        }
+      }
+      v = any;
+    }
+    mine |= (unsigned)v << m;
+    chunks |= (unsigned)__any_sync(FULL, v) << m;
+  }
+  if (chunks == 0u) return;                  // the whole warp
+
+  const unsigned feed = chunks << K;         // batch b runs iff a bit of
+  const unsigned kmask = (2u << K) - 1u;     // feed in [b, b + K] is set
+  const int nb = K + M;
+  const int q0 = max(x0 - reach, 0), q1 = min(x1 + reach, W);
+  const int gj = (GB + 31) / 32;             // groups a lane, <= GJ
+  unsigned nbin[GJ];                         // the lane's bins a group
+#pragma unroll
+  for (int j = 0; j < GJ; ++j)
+    nbin[j] = (unsigned)min(max(B - 4 * (lane + 32 * j), 0), 4);
+  // floor(j / C) = __umulhi(j, magic) for every staged byte j
+  const unsigned magic = (unsigned)((0x100000000ull + C - 1) / C);
+  const unsigned le = (2u << lane) - 1u;     // lanes 0 .. lane
+
+  uint32_t acc[GJ], acct = 0u;
+  int w = 0;                                 // slot of the newest boundary
+  // the next batch, raw: the key's planes of position x0 + reach + 32 m +
+  // lane, the arms of output x0 + 32 m + lane
+  float n_d = 0.f;
+  int n_o = 1, n_l = 0, n_r = 0;
+  auto load = [&](int b) {
+    const int m = b - K;
+    const int q = x0 + reach + IRV_RS_STEP * m + lane;
+    const int p = x0 + IRV_RS_STEP * m + lane;
+    n_d = 0.f;
+    n_o = 1;
+    n_l = n_r = 0;
+    if (q >= q0 && q < q1) {
+      n_d = disp[row + q];
+      n_o = outl[row + q];
+    }
+    if (m >= 0 && p < x1) {
+      n_l = left[row + p];
+      n_r = right[row + p];
+    }
+  };
+  auto runs = [&](int b) { return ((feed >> b) & kmask) != 0u; };
+
+  int b = 0;
+  while (!runs(b)) ++b;
+  load(b);
+  int prev = -2;
+  while (b < nb) {
+    int bn = b + 1;
+    while (bn < nb && !runs(bn)) ++bn;
+    const float d_raw = n_d;
+    const int o_raw = n_o, l_raw = n_l, r_raw = n_r;
+    if (bn < nb) load(bn);                   // in flight during this batch
+    if (b != prev + 1) {                     // (re)start: P = 0 at the
+      acct = 0u;                             // batch's first boundary
+#pragma unroll
+      for (int j = 0; j < GJ; ++j) {
+        acc[j] = 0u;
+        if (nbin[j] != 0u) ring[w * GB + lane + 32 * j] = 0u;
+      }
+      if (lane == 0) ringt[w] = 0u;
+    }
+    const int key = irv_key(d_raw, (uint8_t)o_raw, B, zd);
+    const int w0 = w;
+    __syncwarp();                            // the last batch read kbuf
+    kbuf[lane] = key;
+    // the totals: lane k writes the prefix after position k
+    const unsigned rel = __ballot_sync(FULL, key >= 0);
+    {
+      const int s = w0 + lane + 1;
+      ringt[s < N ? s : s - N] = acct + __popc(rel & le);
+      acct += __popc(rel);
+    }
+    __syncwarp();
+    // the bins: push the batch's 32 positions
+    auto push = [&](int k, int kk) {
+      const int s = w0 + k + 1;
+      uint32_t* rs = ring + (s < N ? s : s - N) * GB + lane;
+#pragma unroll
+      for (int j = 0; j < GJ; ++j) {
+        if (GJ > 1 && j >= gj) break;        // the groups this B has
+        const unsigned dk = (unsigned)(kk - 4 * (lane + 32 * j));
+        acc[j] += dk < nbin[j] ? 1u << (dk << 3) : 0u;
+        if (nbin[j] != 0u) rs[32 * j] = acc[j];
+      }
+    };
+    auto push4 = [&](int i) {
+      const int4 kq = reinterpret_cast<const int4*>(kbuf)[i];
+      push(4 * i, kq.x);
+      push(4 * i + 1, kq.y);
+      push(4 * i + 2, kq.z);
+      push(4 * i + 3, kq.w);
+    };
+    if constexpr (GJ == 1) {                 // the main path: unrolled
+#pragma unroll
+      for (int i = 0; i < IRV_RS_STEP / 4; ++i) push4(i);
+    } else {                                 // B > 128: a smaller build
+#pragma unroll 1
+      for (int i = 0; i < IRV_RS_STEP / 4; ++i) push4(i);
+    }
+    w = w0 + IRV_RS_STEP < N ? w0 + IRV_RS_STEP : w0 + IRV_RS_STEP - N;
+
+    const int m = b - K;
+    if (m >= 0 && ((chunks >> m) & 1u)) {
+      const int xc = x0 + IRV_RS_STEP * m;
+      const int n = min(IRV_RS_STEP, x1 - xc);
+      const int bnew = xc + reach + IRV_RS_STEP;   // boundary in slot w
+      int sh = w, sl = w;                    // this lane's output window
+      if (lane < n) {
+        const int p = xc + lane;
+        const int an = min(max(l_raw, 0), reach);
+        const int ap = min(max(r_raw, 0), reach);
+        sh = w - (bnew - min(p + ap + 1, W));
+        sl = w - (bnew - max(p - an, 0));
+        sh += sh < 0 ? N : 0;
+        sl += sl < 0 ? N : 0;
+      }
+      uint8_t* dst = cnt + (row + xc) * C;
+      const int off = (int)((uintptr_t)dst & 15u);
+      uint8_t* st = stage + off;
+      __syncwarp();                          // the last chunk's copy is done
+      sbuf[lane] = (unsigned)sh << 16 | (unsigned)sl;
+      if (lane < n) st[lane * C + B] = (uint8_t)(ringt[sh] - ringt[sl]);
+      __syncwarp();
+      if (n == IRV_RS_STEP)
+        irv_emit_chunk<GJ, true>(ring, sbuf, GB, C, lane, nbin, st, n);
+      else
+        irv_emit_chunk<GJ, false>(ring, sbuf, GB, C, lane, nbin, st, n);
+      __syncwarp();
+      // out: a byte head to the 16-byte boundary, 16-byte stores, a byte
+      // tail; under `need` only the stores that hold a read pixel's byte
+      const unsigned reads = __ballot_sync(FULL, (mine >> m) & 1u);
+      const bool every = live == nullptr;
+      auto read = [&](int j0, int j1) {      // bytes j0 .. j1 of the chunk
+        const unsigned k0 = __umulhi((unsigned)j0, magic);
+        const unsigned k1 = __umulhi((unsigned)j1, magic);
+        return every || ((reads >> k0) & ((2u << (k1 - k0)) - 1u)) != 0u;
+      };
+      const int nbytes = n * C;
+      const int head = min((16 - off) & 15, nbytes);
+      const int body = (nbytes - head) >> 4;
+      const int tail = nbytes - head - 16 * body;
+      if (lane < head && read(lane, lane)) dst[lane] = st[lane];
+      if (lane >= 16 && lane - 16 < tail) {
+        const int j = head + 16 * body + lane - 16;
+        if (read(j, j)) dst[j] = st[j];
+      }
+      for (int c = lane; c < body; c += 32) {
+        const int j = head + 16 * c;
+        if (read(j, j + 15))
+          *reinterpret_cast<uint4*>(dst + j) =
+              *reinterpret_cast<const uint4*>(st + j);
+      }
+    }
+    prev = b;
+    b = bn;
+  }
+}
+
+template <int GJ>
+static cudaError_t irv_rowspan_launch(int blocks, size_t smem,
+                                      cudaStream_t stream, const void* disp,
+                                      const void* outl, const void* left,
+                                      const void* right, const void* live,
+                                      void* cnt, int H, int W, int B, int zd,
+                                      int reach, int S, int nseg, int N) {
+  auto kernel = irv_rowspan_kernel<GJ>;
+  cudaError_t err = stm_smem_cap(kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, 32, smem, stream>>>(
+      (const float*)disp, (const uint8_t*)outl, (const int*)left,
+      (const int*)right, (const uint16_t*)live, (uint8_t*)cnt, H, W, B, zd,
+      reach, S, nseg, N);
+  return cudaGetLastError();
+}
 
 // disp (H, W) f32, outl (H, W) u8, left/right (H, W) i32; cnt (H, W, B + 1)
-// u8.  Arms clamp to [0, reach], reach <= 127.  need (H, W) u8 or null;
-// with need, live is a (ceil(H / 64), W) u16 scratch and the spans no
-// needed vote reads are left unwritten.
+// u8, B + 1 <= 1024.  Arms clamp to [0, reach], reach <= 127.  need (H, W)
+// u8 or null; with need, live is a (ceil(H / 64), W) u16 scratch and the
+// spans no needed vote reads may be left unwritten.
 STM_API int stm_irv_rowspan(const void* disp, const void* outl,
                             const void* left, const void* right,
                             const void* need, void* live, void* cnt, int H,
                             int W, int B, int zd, int reach, void* stream) {
-  const int threads = irv_threads(B + 1);
-  if (H <= 0 || W <= 0 || B <= 0 || threads > 1024 || reach < 0 ||
-      reach > 127)
+  const int C = B + 1;
+  if (H <= 0 || W <= 0 || B <= 0 || C > 1024 || reach < 0 || reach > 127)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(3 * IRV_TILE + 2 * reach) * sizeof(int) +
-                      (size_t)(IRV_TILE + 2 * reach + 1) * (B + 1) *
-                          sizeof(uint16_t);
-  cudaError_t err = stm_smem_cap(irv_rowspan_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
+  const int GB = (B + 3) / 4, GJ = (GB + 31) / 32;
+  const int N = 2 * reach + IRV_RS_STEP + 1;
+  const size_t smem = ((size_t)N * (GB + 1) * 4 + 15) / 16 * 16 +
+                      2 * IRV_RS_STEP * 4 +
+                      ((size_t)IRV_RS_STEP * C + 16 + 15) / 16 * 16;
+  if (smem > IRV_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  int nseg = (W + IRV_RS_SEG - 1) / IRV_RS_SEG;
+  const int S = ((W + nseg - 1) / nseg + IRV_RS_STEP - 1) / IRV_RS_STEP *
+                IRV_RS_STEP;
+  nseg = (W + S - 1) / S;
+  if ((long long)H * nseg > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   if (need != nullptr) {
     if (live == nullptr) return (int)cudaErrorInvalidValue;
-    irv_live(need, outl, disp, live, nullptr, nullptr, H, W,
-             (cudaStream_t)stream);
+    irv_live(need, outl, disp, live, nullptr, nullptr, H, W, s);
   }
-  dim3 grid((W + IRV_TILE - 1) / IRV_TILE, H);
-  irv_rowspan_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)disp, (const uint8_t*)outl, (const int*)left,
-      (const int*)right, need != nullptr ? (const uint16_t*)live : nullptr,
-      (uint8_t*)cnt, H, W, B, zd, reach);
-  return (int)cudaGetLastError();
+  const void* lv = need != nullptr ? live : nullptr;
+  const int blocks = H * nseg;
+  // One lane group (C <= 129, every preset), or one kernel of 8 that runs
+  // the GJ this B has (fewer kernels to build).
+  return (int)(GJ == 1
+      ? irv_rowspan_launch<1>(blocks, smem, s, disp, outl, left, right, lv,
+                              cnt, H, W, B, zd, reach, S, nseg, N)
+      : irv_rowspan_launch<8>(blocks, smem, s, disp, outl, left, right, lv,
+                              cnt, H, W, B, zd, reach, S, nseg, N));
 }
 
 // ---- B9: the vote ------------------------------------------------------
 
 #define IRV_SEG (4 * IRV_TILE)   // rows of a vote block's segment
 #define IRV_VOTE_WARPS 2         // columns (one warp each) of a vote block
-#define IRV_SMEM_MAX (227 * 1024)
 
 // Rows of a batch for GJ word groups a lane (<= 32: lane k loads row k's
 // planes); the raw words of two batches live in registers.

@@ -20,6 +20,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -86,29 +88,34 @@ def _lib_path(name: str) -> Path:
 
 def build_kernels() -> dict:
     """Compile every missing library in parallel; returns {name: nvcc
-    output} for the sources built now (ptxas register/shared-memory
-    report included).  Raises if any build fails."""
+    output} for the sources built now, its first line "nvcc <s> s" (the
+    seconds that source took), then the ptxas register/shared-memory
+    report.  Raises if any build fails."""
     BUILD.mkdir(exist_ok=True)
     todo = {n: _lib_path(n) for n in SOURCES if not _lib_path(n).exists()}
     if not todo:
         return {}
     nvcc = nvcc_path()
-    procs = {}
-    for name, path in todo.items():
+
+    def build(name, path):
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, path)
-    logs, failed = {}, []
-    for name, (proc, tmp, path) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
-        if proc.returncode != 0:
-            failed.append(name)
-        else:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        out = f"nvcc {time.perf_counter() - t0:.1f} s\n" + proc.stdout
+        if proc.returncode == 0:
             os.replace(tmp, path)
+        return out, proc.returncode == 0
+
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        done = {n: pool.submit(build, n, p) for n, p in todo.items()}
+    logs, failed = {}, []
+    for name, fut in done.items():
+        logs[name], ok = fut.result()
+        if not ok:
+            failed.append(name)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))

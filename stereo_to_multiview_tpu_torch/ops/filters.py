@@ -11,6 +11,8 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -68,6 +70,18 @@ def _bilateral_constants(radius: int, sigma_color: float,
     lut_scale = f32(1.0 / float(np.sqrt(2 * np.pi * var)))
     inv_2var = f32(1.0 / (2.0 * var))
     return sk, inv_2var, lut_scale
+
+
+@functools.lru_cache(maxsize=16)
+def _bilateral_host_args(radius: int, sigma_color: float,
+                         sigma_spatial: float):
+    """B10's host arguments (the spatial taps as a host float32 array,
+    inv_2var, lut_scale), built once for each setting: the kernel copies
+    the taps at each call, so one array serves every call."""
+    sk, inv_2var, lut_scale = _bilateral_constants(radius, sigma_color,
+                                                   sigma_spatial)
+    return (kernels.host_f32(sk.reshape(-1)), float(inv_2var),
+            float(lut_scale))
 
 
 def _bilateral_sum(img: torch.Tensor, radius: int, sk, inv_2var,
@@ -141,13 +155,13 @@ def filter_bilateral(img: torch.Tensor, radius: int, sigma_color: float,
     kernels.require(img, "img", F32, 2, img.device)
     if radius < 0:
         raise ValueError("filter_bilateral: radius must be >= 0")
-    sk, inv_2var, lut_scale = _bilateral_constants(radius, sigma_color,
-                                                   sigma_spatial)
+    taps, inv_2var, lut_scale = _bilateral_host_args(
+        radius, float(sigma_color), float(sigma_spatial))
     h, w = img.shape
     out = torch.empty_like(img)
     rc = kernels.lib("bilateral").stm_bilateral(
-        img.data_ptr(), out.data_ptr(), kernels.host_f32(sk.reshape(-1)), h,
-        w, radius, float(inv_2var), float(lut_scale), kernels.stream_of(out))
+        img.data_ptr(), out.data_ptr(), taps, h, w, radius, inv_2var,
+        lut_scale, kernels.stream_of(out))
     kernels.check_launch(rc, "filter_bilateral")
     filter_bilateral.launches += 1
     return out

@@ -56,7 +56,7 @@ def span_sum_inclusive(vol: torch.Tensor, arm_neg: torch.Tensor,
     return cs.gather(axis, hi) - cs.gather(axis, lo)
 
 
-TILE = 64        # rows of a vote tile / columns of a row-span block
+TILE = 64        # rows of a vote tile (the live map's grain)
 
 
 def irv_rowspan_plain(disp, outliers, left, right, num_disp: int,
@@ -125,13 +125,12 @@ def irv_rowspan(disp: torch.Tensor, outliers: torch.Tensor,
     """(H, W, B + 1) u8 row spans of one IRV round: channel b < B counts
     the reliable pixels of bin b (trunc(disp) + zero_disp == b) in
     [x - LEFT, x + RIGHT], channel B every reliable pixel there.  With a
-    `need` plane (bool or u8) the kernel computes only the spans that a
-    vote at an outlying need pixel may read, at the grain of the kernels'
-    gating (TILE-row tiles of a column for a vote, TILE columns of a row
-    for a span);
-    the others are left undefined, and `irv_vote` with the same `need`
-    never reads them.
-    Kernel B8 (csrc/irv.cu)."""
+    `need` plane (bool or u8) the kernel computes at least the spans that
+    `irv_vote` with the same `need` streams: in each column, the rows
+    from the first voting row (an outlier at a need pixel) of a TILE-row
+    tile minus `usd` to its last plus `usd`.  The others may be left
+    undefined; that vote never reads them.
+    Kernel B8 (csrc/irv.cu): a warp streams each row segment."""
     if kernels.on_cpu(disp):
         return irv_rowspan_plain(disp, outliers, left, right, num_disp,
                                  zero_disp, usd)

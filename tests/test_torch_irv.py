@@ -24,15 +24,19 @@ from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
 torch.set_num_threads(1)
 
 
-def _chip_smoke():
-    """chip_smoke.py as a module: it holds the mirrors of the gated
-    kernels' block rules that its comparisons on the card are masked by."""
+def _load(name, *parts):
     path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        os.path.abspath(__file__))), *parts)
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: it holds the mirrors of the gated
+    kernels' rules that its comparisons on the card are masked by."""
+    return _load("chip_smoke", "chip_smoke.py")
 
 
 def _t(a):
@@ -98,8 +102,11 @@ def test_rowspan_live_covers_every_needed_vote():
     """The row spans the gated kernel computes (chip_smoke's
     `rowspan_live`, which masks its comparison on the card) include
     every span a vote at an outlying need pixel reads: its column, rows
-    y - usd .. y + usd.  Rows it skips are read by no such vote."""
+    y - usd .. y + usd.  Rows it skips are read by no such vote.  The
+    mirror is exactly the set of rows the gated B9 streams (its runs,
+    replayed by tests/test_torch_irvstream.py)."""
     smoke = _chip_smoke()
+    stream = _load("irvstream", "tests", "test_torch_irvstream.py")
     rng = np.random.default_rng(7)
     h, w, usd = 200, 150, 9
     need = rng.random((h, w)) < 0.002
@@ -109,6 +116,11 @@ def test_rowspan_live_covers_every_needed_vote():
     assert len(ys) > 10 and not live.all()
     for y, x in zip(ys, xs):
         assert live[max(y - usd, 0):y + usd + 1, x].all()
+    voter = need & (outl != 0)
+    for reach in (usd, 0, 40, 127):
+        np.testing.assert_array_equal(
+            smoke.rowspan_live(_t(need), _t(outl), reach).numpy(),
+            stream.b9_streamed_rows(voter, reach))
     cells = smoke.vote_cells(_t(need), _t(outl)).numpy()
     assert cells.shape == (4, w)
     assert cells.sum() == len({(y // tirv.TILE, x) for y, x in zip(ys, xs)})

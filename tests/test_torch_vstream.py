@@ -12,6 +12,9 @@ emulation follows its kernel line for line, vectorised over the threads
 (B5) or the lanes (B9).
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -293,17 +296,15 @@ def emulate_irv_vote(cnt, disp, outl, up, down, thresh_s, thresh_h, zd,
     return disp_out, outl_out, read
 
 
-def _rowspan_rows(voter, reach, tile):
-    """(H, W) bool: the span rows the gated B8 computes in each column
-    (the rows of a live tile plus reach either side).  The kernel also
-    computes the rest of each 64-column block; this is the least it
-    writes."""
-    h, w = voter.shape
-    rows = np.zeros((h, w), bool)
-    for t in range(-(-h // tile)):
-        cols = voter[t * tile:(t + 1) * tile].any(axis=0)
-        rows[max(t * tile - reach, 0):(t + 1) * tile + reach, cols] = True
-    return rows
+def _irvstream():
+    """tests/test_torch_irvstream.py as a module: its `rowspan_mirror` is
+    the set of span rows the gated B8 writes."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "test_torch_irvstream.py")
+    spec = importlib.util.spec_from_file_location("irvstream", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _irv_inputs(h, w, nd, zd, reach, seed):
@@ -354,7 +355,8 @@ def test_irv_vote_stream_matches_plain(h, w, nd, zd, reach, tile, seg,
     fed = cnt
     allowed = np.ones((h, w), bool)
     if gated:
-        allowed = _rowspan_rows((outl != 0) & need, reach, tile)
+        allowed = _irvstream().rowspan_mirror((outl != 0) & need, reach,
+                                                tile)
         fed = np.where(allowed[:, :, None], cnt, np.uint8(255))
     got_d, got_o, read = emulate_irv_vote(
         fed, disp, outl, arms[UP], arms[DOWN], thresh_s, thresh_h, zd,
