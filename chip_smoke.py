@@ -31,7 +31,12 @@
    with windows of 255 in one bin), and with B9 in each round of the early-
    stop IRV on the 1080p frame; B10 at radii 0, 1, 7 and 8, on 37 rows,
    on fractional values past its range-weight table and where |a - s|
-   falls on integers and one ulp below them.  The
+   falls on integers and one ulp below them.  B1 on both eyes in one
+   launch, also at thresholds that bf16 would round up (5.99, 19.97),
+   past 255 and below 0, at usd = lsd and at usd above a 37-row crop's
+   height; B2 with the census computed in the kernel, on the whole frame,
+   at D=130 and on the 4K preset's third row chunk of the whole frame
+   (rows 1012-1691, whose census reads rows outside the chunk).  The
    entry points beside process_frame run on the 1080p
    frame's own stages, each as a path with its launch counts checked:
    `dr_irv_band_lr` (B15, 5 fixed rounds) equal to the fixed-round
@@ -69,9 +74,10 @@ the four preset paths (HD1080_D128, HSLO_4K, LOWRES, UHD4K_16V) and the
 two dial paths (where that package has the dials), N frames each, on the
 package under DIR: the way to compare two commits' frame and stage times
 within one call.  `--stream-checks [--package-root DIR]` only holds the
-streamed kernels B4, B5, B6, B8 and B9 and B10 (and the kernels that feed
-them; B8, B9 and B10 at their edges and in each IRV round too), then
-the dials' modes of B2-B4 and B6, against their plain versions, on the
+staged kernels B1 and B2 (at their edges too), the streamed kernels B4,
+B5, B6, B8 and B9 and B10 (and the kernels that feed them; B8, B9 and
+B10 at their edges and in each IRV round too), then the dials' modes of
+B2-B4 and B6, against their plain versions, on the
 package under DIR: the way to show that a deliberately broken copy of
 one fails.
 
@@ -109,7 +115,7 @@ DM, DM_CHUNKED, DM_4K = (
     "band_stereo_core_dm HD1080_D128 band_row_chunk=540",
     "band_stereo_core_dm UHD4K_16V")
 KERNELS = {
-    "B1 cross_arms": ("cross_arms", _SRC + "arms.cu",
+    "B1 cross_arms": ("cross_arms_eyes", _SRC + "arms.cu",
                       _TPU + "postkern.py:80", MAIN),
     "B2 cost_pair": ("cost_pair", _SRC + "cost.cu",
                      _TPU + "costkern.py:279", MAIN),
@@ -206,6 +212,29 @@ for _suffix, _names in ((AT_D126, ("B2 cost_pair", "B3 shear_right")),
                                       "B14 warp_views"))):
     for _name in _names:
         KERNELS[_name + _suffix] = KERNELS[_name]
+# B1 on both eyes where its threshold compare and its staged cross meet
+# their edges: fractional thresholds that bf16 would round up (the JAX
+# Pallas kernel's difference from the reference), thresholds past 255 (no
+# step fails) and below 0 (every step fails), usd = lsd (no second tier),
+# and usd above a crop's height (the walks stop at both borders)
+B1_EDGES = {
+    " (ucd 5.99, lcd 19.97: thresholds bf16 rounds up)": (5.99, 19.97, None),
+    " (ucd 255, lcd 300: no step fails)": (255.0, 300.0, None),
+    " (ucd -1, lcd -0.5: every step fails)": (-1.0, -0.5, None),
+    " (usd = lsd = 34)": (None, None, 34),
+}
+B1_SHORT = " (37x1001, usd 40 above the height)"
+for _suffix in (*B1_EDGES, B1_SHORT):
+    KERNELS["B1 cross_arms" + _suffix] = KERNELS["B1 cross_arms"]
+# B2 on row ranges of a frame, whose census must clamp at the frame's
+# edges only: the third row chunk of the 4K preset's stereo core (rows
+# 1012-1691 of 2160, as band_stereo_core_chunked stages it); and B2 at a
+# D above 128 (9 groups of 16 disparities), and one eye at D=126 (the
+# scalar stores, both signs)
+B2_CHUNK4K = " (UHD4K_16V frame rows 1012-1691: the third chunk)"
+B2_D130 = " (37x1001, D=130)"
+KERNELS["B2 cost_pair" + B2_CHUNK4K] = (*KERNELS["B2 cost_pair"][:3], UHD4K)
+KERNELS["B2 cost_pair" + B2_D130] = KERNELS["B2 cost_pair"]
 # the disparity-major core, whole-frame and at a 540-row chunk's extent
 AT_CHUNK = " (680-row chunk)"
 DM_KERNELS = {
@@ -321,6 +350,9 @@ for _suffix in (AT_SHORT, AT_D126):
 for _label, _path in DIAL_PAIRS.items():
     KERNELS[f"B2 cost_pair (pair, {_label})" + AT_D126] = (*B2_SRC, _path)
     KERNELS[f"B3 shear_right ({_label})" + AT_D126] = (*B3_SRC, _path)
+for _side in ("left", "right"):
+    KERNELS[f"B2 cost_pair ({_side} eye u8, direct)" + AT_D126] = (
+        *B2_SRC, XM_EYES["u8"])
 KERNELS[B4I + AT_I16MAX] = (*B4I_SRC, QSCALE510)
 KERNELS[B6L + AT_TIES] = (*B6L_SRC, LOSSY)
 # B8 where its row streams end and its byte prefixes wrap, full and gated:
@@ -377,16 +409,22 @@ for _path in (DIGITS2, DIGITS1, UHD4K, QSCALE510, LOSSY):
 # on every path, and pass 4 without the WTA (int32, both eyes) where the
 # scanline optimisation runs.  The exact count shows that both launched.
 # `vv_pass` launches its kernel once a call: once an eye and row chunk.
+# B1 launches once a frame for both eyes, B2 once a row chunk with the
+# whole frame's images (it computes the census: no torch census runs).
 EXACT_LAUNCHES = {
     MAIN: {"h_pass_sum": 2, "vv_pass": 2},
     HSLO4K: {"h_pass_sum": 4, "vv_pass": 2},
     LOWRES: {"h_pass_sum": 2, "vv_pass": 2},
     DIGITS2: {"h_pass_sum": 2, "vv_pass": 2},
     DIGITS1: {"h_pass_sum": 2, "vv_pass": 2},
-    UHD4K: {"h_pass_sum": 8, "vv_pass": 8},     # 4 row chunks x 2 eyes
+    UHD4K: {"h_pass_sum": 8, "vv_pass": 8,      # 4 row chunks x 2 eyes
+            "cost_pair": 4},
     QSCALE510: {"h_pass_sum": 2, "vv_pass": 2},
     LOSSY: {"h_pass_sum": 2, "vv_pass": 2},
 }
+for _path, _counts in EXACT_LAUNCHES.items():
+    _counts["cross_arms_eyes"] = 1
+    _counts.setdefault("cost_pair", 1)
 
 
 class SmokeFailure(Exception):
@@ -505,6 +543,48 @@ class KernelChecks:
               f"{b_by}, library {r['library_ms']})", flush=True)
 
 
+def record_arms(chk, name, img_l, img_r, arm_args):
+    """One B1 entry: both eyes in one launch (`cross_arms_lr`) against the
+    plain version of each.  Bound: each walked step takes two 3-channel
+    max-abs-diffs and the tests (~14 integer operations), and a walk ends
+    at its arm's end or one past it.  Returns the kernel's arms."""
+    from stereo_to_multiview_tpu_torch.ops import cross
+    h, w = img_l.shape[:2]
+    got = cross.cross_arms_lr(img_l, img_r, *arm_args)
+    plain = lambda: tuple(cross.cross_arms_plain(t, *arm_args)
+                          for t in (img_l, img_r))
+    chk.record(name, got, plain(),
+               lambda: cross.cross_arms_lr(img_l, img_r, *arm_args), plain,
+               nbytes=2 * (h * w * 3 + 4 * h * w * 4),
+               ops=14 * (float(got[0].sum()) + float(got[1].sum())
+                         + 8 * h * w))
+    return got
+
+
+def check_arms_edges(chk, img_l, img_r, cfg):
+    """B1 (both eyes) at the edges of its threshold compare and of its
+    staged cross, on a frame (`B1_EDGES`) and on a 37x1001 crop of its
+    middle rows at usd 40."""
+    import torch
+    for suffix, (ucd, lcd, usd) in B1_EDGES.items():
+        args = (cfg.ucd if ucd is None else ucd,
+                cfg.lcd if lcd is None else lcd,
+                cfg.usd if usd is None else usd,
+                cfg.lsd if usd is None else usd)
+        arms = record_arms(chk, "B1 cross_arms" + suffix, img_l, img_r, args)
+        print(f"  B1{suffix}: mean arm {float(arms[0].float().mean()):.2f}",
+              flush=True)
+        del arms
+    y0 = img_l.shape[0] // 2
+    crop = [t[y0:y0 + 37, :1001].contiguous() for t in (img_l, img_r)]
+    arms = record_arms(chk, "B1 cross_arms" + B1_SHORT, *crop,
+                       (cfg.ucd, cfg.lcd, 40, cfg.lsd))
+    print(f"  B1{B1_SHORT}: longest DOWN arm {int(arms[0][1].max())} of 36",
+          flush=True)
+    del arms
+    torch.cuda.empty_cache()
+
+
 def check_core_kernels(chk, img_l, img_r, cfg, hslo=True):
     """B1-B6 on the left eye of a path's whole-frame stereo core and, with
     `hslo`, the scanline-optimisation route (pass 4 as a volume, B13 on
@@ -517,17 +597,9 @@ def check_core_kernels(chk, img_l, img_r, cfg, hslo=True):
 
     h, w = img_l.shape[:2]
     nd, zd, usd = cfg.num_disp, cfg.zero_disp, cfg.usd
-    arm_args = (cfg.ucd, cfg.lcd, usd, cfg.lsd)
-    arms = cross.cross_arms(img_l, *arm_args)
-    arms_r = cross.cross_arms(img_r, *arm_args)
+    arms, arms_r = record_arms(chk, "B1 cross_arms", img_l, img_r,
+                               (cfg.ucd, cfg.lcd, usd, cfg.lsd))
     hw, hwd = h * w, h * w * nd
-    # each walked step: two 3-channel max-abs-diffs and the tests (~14
-    # integer operations); the walk ends at the arm's end or one past it
-    chk.record("B1 cross_arms", arms, cross.cross_arms_plain(img_l, *arm_args),
-               lambda: cross.cross_arms(img_l, *arm_args),
-               lambda: cross.cross_arms_plain(img_l, *arm_args),
-               nbytes=hw * 3 + 4 * hw * 4,
-               ops=14 * (float(arms.sum()) + 4 * hw))
 
     m = costkern.pair_margin(nd, zd)
     s1, s2, s3 = band.agg_rescale_shifts(usd, cfg.band_digits)
@@ -1065,36 +1137,36 @@ def record_hpass(chk, name, vol, arms, usd, shift=0, zd=None, lossy=False):
 
 def cost_args(img_l, img_r, cfg):
     """The arguments of `cost_pair` for a pair of images under `cfg`:
-    images, census codes, coefficients, D and zero_disp."""
-    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
-    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
-    return (img_l, img_r, census_transform_9x7(mux_average(img_l)),
-            census_transform_9x7(mux_average(img_r)), cfg.ad_coeff,
-            cfg.census_coeff, cfg.num_disp, cfg.zero_disp)
+    images, coefficients, D and zero_disp."""
+    return (img_l, img_r, cfg.ad_coeff, cfg.census_coeff, cfg.num_disp,
+            cfg.zero_disp)
 
 
-def record_cost(chk, name, cargs, qscale=127.0, quant=True, eye="pair"):
-    """One B2 entry: `cost_pair` in one of its modes against its plain
-    version (the host-built table of the same dtype).  Returns the
-    kernel's volume."""
+def record_cost(chk, name, cargs, qscale=127.0, quant=True, eye="pair",
+                rows=None):
+    """One B2 entry: `cost_pair` in one of its modes, over the frame rows
+    `rows` (every row by default), against its plain version (the
+    host-built table of the same dtype).  Returns the kernel's volume."""
     import torch
     from stereo_to_multiview_tpu_torch.ops import costkern
-    img_l, img_r, cen_l, cen_r, ad, cen, nd, zd = cargs
+    img_l, img_r, ad, cen, nd, zd = cargs
     table = costkern.device_cost_table(ad, cen, img_l.device, qscale, quant)
-    pargs = (img_l, img_r, cen_l, cen_r, table, nd, zd, eye)
-    kw = dict(qscale=qscale, quant=quant, eye=eye)
+    pargs = (img_l, img_r, table, nd, zd, eye, rows)
+    kw = dict(qscale=qscale, quant=quant, eye=eye, rows=rows)
     out = costkern.cost_pair(*cargs, **kw)
-    hw = img_l.shape[0] * img_l.shape[1]
-    # bytes: the packed images and census codes read once, the u8 table or
-    # the two float32 term tables, the volume written once; ~10 integer
-    # operations an element
-    tab_bytes = (table.numel() if table.dtype == torch.uint8
-                 else (costkern.AD_VALUES + costkern.HAM_VALUES) * 4)
+    h, w = img_l.shape[:2]
+    start, count = (0, h) if rows is None else rows
+    read = min(h, start + count + 3) - max(0, start - 3)
+    # bytes: the images' rows within the census' reach read once, the two
+    # float32 term tables, the volume written once; ~10 integer operations
+    # an element and two 48-compare census codes a pixel
+    tab_bytes = (costkern.AD_VALUES + costkern.HAM_VALUES) * 4
     chk.record(name, out, costkern.cost_pair_plain(*pargs),
                lambda: costkern.cost_pair(*cargs, **kw),
                lambda: costkern.cost_pair_plain(*pargs),
-               nbytes=2 * hw * 3 + 2 * hw * 8 + tab_bytes
-               + out.numel() * out.element_size(), ops=10 * out.numel())
+               nbytes=2 * read * w * 3 + tab_bytes
+               + out.numel() * out.element_size(),
+               ops=10 * out.numel() + 2 * 48 * count * w)
     return out
 
 
@@ -1153,6 +1225,9 @@ def check_hstream_edges(chk, img_l, img_r, cfg):
         if b23:
             pair = record_cost(chk, "B2 cost_pair", cargs)
             record_shear(chk, "B3 shear_right", pair, zd)
+            for eye, side in (("l", "left"), ("r", "right")):
+                record_cost(chk, f"B2 cost_pair ({side} eye u8, direct)",
+                            cargs, eye=eye)
         else:
             pair = costkern.cost_pair(*cargs)
         m = costkern.pair_margin(nd, zd)
@@ -1198,6 +1273,31 @@ def check_hstream_edges(chk, img_l, img_r, cfg):
         raise SmokeFailure("B6 ties: too few ties to test the first-min "
                            "rule")
     chk.suffix = ""
+
+
+def check_cost_d130(chk, img_l, img_r, cfg):
+    """B2's pair at D=130 (nine groups of 16 disparities, the scalar
+    stores) on a 37x1001 crop of the frame's middle rows."""
+    y0 = img_l.shape[0] // 2
+    l, r = (t[y0:y0 + 37, :1001].contiguous() for t in (img_l, img_r))
+    record_cost(chk, "B2 cost_pair" + B2_D130,
+                cost_args(l, r, cfg.replace(num_disp=130, zero_disp=65)))
+
+
+def check_cost_chunk(chk, img_l, img_r, cfg):
+    """B2 on the third row chunk of the 4K preset's stereo core, given the
+    whole frame's images: the census of its first and last rows reads
+    rows outside the chunk, which a kernel that clamped at the chunk's
+    edges would get wrong."""
+    from stereo_to_multiview_tpu_torch.ops import band
+    ext, bounds = band.chunk_bounds(cfg.num_rows, cfg.band_row_chunk,
+                                    2 * cfg.usd)
+    start = bounds[2][0]
+    if (start, ext) != (1012, 680):
+        raise SmokeFailure(f"the 4K preset's third chunk is rows "
+                           f"[{start}, {start + ext}), not [1012, 1692)")
+    record_cost(chk, "B2 cost_pair" + B2_CHUNK4K,
+                cost_args(img_l, img_r, cfg), rows=(start, ext))
 
 
 def check_many_views(chk, img_l, img_r, bl, br, cfg):
@@ -2294,11 +2394,13 @@ def print_ptxas(logs: dict):
 
 def stream_checks(root: str) -> int:
     """`--stream-checks [--package-root DIR]`: only the checks that hold
-    the streamed B4, B5, B6, B8 and B9 and B10 against their plain
-    versions (the stereo core's, the IRV kernels in each round and B10 at
-    1080p, then the edge frames, then
-    the dials' modes of B2-B4 and B6), on the package under DIR.  Exit 1 if one fails: a deliberately broken
-    copy of a kernel must."""
+    the staged B1 and B2 and the streamed B4, B5, B6, B8, B9 and B10
+    against their plain versions (the stereo core's at 1080p, B1 at its
+    thresholds' and crops' edges, B2 at D=130 and on the 4K preset's third
+    row chunk, the IRV kernels in each round and B10, then the edge
+    frames, then the dials' modes of B2-B4 and B6), on the package under
+    DIR.  Exit 1 if one fails: a deliberately broken copy of a kernel
+    must."""
     import torch
     sys.path.insert(0, root)
     from stereo_to_multiview_tpu_torch import config, kernels
@@ -2314,6 +2416,14 @@ def stream_checks(root: str) -> int:
     try:
         arms_l, arms_r = check_core_kernels(chk, img_l, img_r, cfg,
                                             hslo=False)
+        check_arms_edges(chk, img_l, img_r, cfg)
+        check_cost_d130(chk, img_l, img_r, cfg)
+        cfg4k = config.UHD4K_16V
+        sbs4k = torch.from_numpy(stereo_sbs(cfg4k.num_rows, cfg4k.num_cols))
+        check_cost_chunk(chk, *(t.contiguous() for t in pipeline.demux_sbs(
+            sbs4k.to(torch.device("cuda")))), cfg4k)
+        del sbs4k
+        torch.cuda.empty_cache()
         check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_rowspan_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
@@ -2333,8 +2443,8 @@ def main() -> int:
                     help="time only the preset and dial paths, this many "
                          "frames each, and print no result line")
     ap.add_argument("--stream-checks", action="store_true",
-                    help="only hold B4, B5, B6, B8, B9 and B10 (and the "
-                         "dials' modes) against their plain "
+                    help="only hold B1, B2, B4, B5, B6, B8, B9 and B10 (and "
+                         "the dials' modes) against their plain "
                          "versions and print no result line")
     ap.add_argument("--package-root", default=HERE,
                     help="with --frames or --stream-checks: the checkout "
@@ -2386,6 +2496,8 @@ def main() -> int:
         paths = {}
         arms_l, arms_r = check_core_kernels(chk, img_l, img_r, cfg)
         torch.cuda.empty_cache()
+        check_arms_edges(chk, img_l, img_r, cfg)
+        check_cost_d130(chk, img_l, img_r, cfg)
         bl, br = check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_rowspan_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
@@ -2498,6 +2610,7 @@ def main() -> int:
         check_outputs(UHD4K, out, cfg4k, pipeline.synth_disp_bounds(cfg4k))
         img_l, img_r = (t.contiguous() for t in
                         pipeline.demux_sbs(torch.from_numpy(sbs4k).to(dev)))
+        check_cost_chunk(chk, img_l, img_r, cfg4k)
         chk.suffix = AT_4K
         core_rows = band.chunk_bounds(cfg4k.num_rows, cfg4k.band_row_chunk,
                                       2 * cfg4k.usd)[0]

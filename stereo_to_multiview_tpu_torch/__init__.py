@@ -7,8 +7,10 @@ its module names, so each counterpart is easy to find:
 
   config         -- PipelineConfig (same fields), config_from_dict
   ops            -- one function per pipeline stage, on torch tensors
-  ops.cross      -- kernel B1 (cross arms)
-  ops.costkern   -- kernels B2 (cost pair volume or one eye; u8, int16
+  ops.cross      -- kernel B1 (cross arms; both eyes in one launch,
+                    `cross_arms_lr`)
+  ops.costkern   -- kernels B2 (cost pair volume or one eye of a row
+                    range, the census computed in the kernel; u8, int16
                     or float32), B3 (right-eye shear), B16 (`cost_dm`:
                     both eyes or one, disparity-major) and B17
                     (`shear_right_dm`: the right eye by per-plane

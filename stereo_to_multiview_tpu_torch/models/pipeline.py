@@ -2,9 +2,10 @@
 interlaced) out.
 
 Stage order, with the hand-written CUDA kernel of each stage:
-  demux_sbs -> cross arms (B1) -> stereo core (cost init B2/B3, H,V,V,H
-  aggregation B4/B5, WTA B6; with use_hslo the pass-4 volume and the
-  scanline optimisation + WTA, B13) -> dcc (B7) -> irv (B8/B9 per round,
+  demux_sbs -> cross arms of both eyes (B1, one launch) -> stereo core
+  (cost init with the census B2, shear B3, H,V,V,H aggregation B4/B5,
+  WTA B6; with use_hslo the pass-4 volume and the scanline
+  optimisation + WTA, B13) -> dcc (B7) -> irv (B8/B9 per round,
   stopping at the fixpoint; over row chunks with cfg.irv_row_chunk)
   -> [median] -> bilateral (B10)
   -> occlusion hits (B7) -> bleed + mask (B11) -> feather
@@ -38,7 +39,7 @@ import torch
 from stereo_to_multiview_tpu_torch.config import PipelineConfig
 from stereo_to_multiview_tpu_torch.ops.band import band_stereo_core_chunked
 from stereo_to_multiview_tpu_torch.ops.costkern import cost_dtype
-from stereo_to_multiview_tpu_torch.ops.cross import cross_arms
+from stereo_to_multiview_tpu_torch.ops.cross import cross_arms_lr
 from stereo_to_multiview_tpu_torch.ops.dcc import dr_dcc
 from stereo_to_multiview_tpu_torch.ops.demux import demux_sbs
 from stereo_to_multiview_tpu_torch.ops.dibr import (
@@ -84,8 +85,8 @@ def raw_disparities(img_l, img_r, cfg: PipelineConfig,
     before the median and bilateral filters, plus the outlier labels
     (u8)."""
     with stage_scope("ca_cross_arms", timer):
-        arms_l = cross_arms(img_l, cfg.ucd, cfg.lcd, cfg.usd, cfg.lsd)
-        arms_r = cross_arms(img_r, cfg.ucd, cfg.lcd, cfg.usd, cfg.lsd)
+        arms_l, arms_r = cross_arms_lr(img_l, img_r, cfg.ucd, cfg.lcd,
+                                       cfg.usd, cfg.lsd)
     with stage_scope("stereo_core", timer):
         disp_l, disp_r = band_stereo_core_chunked(img_l, img_r, arms_l,
                                                   arms_r, cfg)

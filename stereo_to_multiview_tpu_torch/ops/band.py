@@ -290,8 +290,10 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
     """Cost init + 4-pass quantized aggregation + WTA for both eyes, over
     row chunks of cfg.band_row_chunk output rows (0 = whole frame).  Each
     chunk recomputes a halo of 2*usd rows (the reach of the two V
-    passes); the census codes come from the whole frame.  Exact integer
-    aggregation makes the result independent of the chunking.
+    passes); B2 takes the whole frame's images and the chunk's rows and
+    computes the census itself, clamped at the frame's edges only, so it
+    is the whole frame's.  Exact integer aggregation makes the result
+    independent of the chunking.
 
     cfg.use_hslo puts the horizontal scanline optimisation (kernel B13)
     between the aggregation and the WTA, its penalties scaled into the
@@ -308,18 +310,15 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
     chunk = cfg.band_row_chunk or h
     ext, bounds = chunk_bounds(h, chunk, 2 * usd)
     margin = pair_margin(nd, zd)
-    gray_l, gray_r = mux_average(img_l), mux_average(img_r)
-    cen_l = census_transform_9x7(gray_l)
-    cen_r = census_transform_9x7(gray_r)
     if cfg.use_hslo:
+        gray_l, gray_r = mux_average(img_l), mux_average(img_r)
         kappa = agg_cost_scale(usd, cfg.band_digits, cfg.band_qscale)
 
     parts_l, parts_r = [], []
     for start, lo in bounds:
         sl = slice(start, start + ext)
-        pair = cost_pair(img_l[sl], img_r[sl], cen_l[sl], cen_r[sl],
-                         cfg.ad_coeff, cfg.census_coeff, nd, zd,
-                         cfg.band_qscale)
+        pair = cost_pair(img_l, img_r, cfg.ad_coeff, cfg.census_coeff, nd,
+                         zd, cfg.band_qscale, rows=(start, ext))
         cost_l = pair[:, margin:margin + w]
         cost_r = shear_right(pair, zd)
         n_valid = min(chunk, h - (start + lo))

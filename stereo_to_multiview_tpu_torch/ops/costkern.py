@@ -13,9 +13,12 @@ directly (margin 0, the other eye's reads at x + sign * (d - zd)), the
 JAX package's per-eye mode.  C is the quantized cost rint(qscale *
 (a[AD] + c[H])) of the two float32 `cost_terms`: u8 while round(2 *
 qscale) <= 255, int16 above (the band_qscale dial), or the float32 sum
-itself (quant=False).  The plain version looks it up in `cost_table`;
-the kernel computes it from the terms with the same float32 operations,
-so the two agree by construction.
+itself (quant=False).  The plain version looks it up in `cost_table`,
+and so does B2 for u8 and int16; its float32 costs are the terms' sum,
+as the table's.  B2 takes the two images of the whole
+frame and a row range, and computes the grayscale and the 9x7 census of
+the columns it stages itself (clamped at the frame's edges only); its
+plain version computes them with `census_transform_9x7(mux_average)`.
 
 Layout: (H, W, D) with D innermost, the layout the lane-major
 aggregation reads.
@@ -134,13 +137,37 @@ def _pair_geometry(eye: str, num_disp: int, zero_disp: int):
     return 0, (1 if eye == "l" else -1), eye == "r"
 
 
-def cost_pair_plain(img_l, img_r, cen_l, cen_r, table, num_disp: int,
-                    zero_disp: int, eye: str = "pair") -> torch.Tensor:
-    """Plain version of `cost_pair`: one disparity plane at a time, each
-    cost looked up in `table` (its dtype is the volume's)."""
+def _row_range(rows, h: int):
+    """(start, count) of a `cost_pair` row range: every row by default."""
+    start, count = (0, h) if rows is None else rows
+    if not (0 <= start and 0 < count and start + count <= h):
+        raise ValueError(f"cost_pair: rows {rows} are not inside the "
+                         f"frame's {h} rows")
+    return start, count
+
+
+def census_rows(img: torch.Tensor, start: int, count: int) -> torch.Tensor:
+    """The census codes (count, W, 2) of the frame rows [start, start +
+    count) of an (H, W, 3) u8 image, equal to those rows of
+    `census_transform_9x7(mux_average(img))`: computed on the rows within
+    the census' reach (3), so the reads clamp at the frame's edges only
+    (the JAX band engine's i0 = max(0, start - 3) slice)."""
+    i0, i1 = max(0, start - 3), min(img.shape[0], start + count + 3)
+    cen = census_transform_9x7(mux_average(img[i0:i1]))
+    return cen[start - i0:start - i0 + count]
+
+
+def cost_pair_plain(img_l, img_r, table, num_disp: int, zero_disp: int,
+                    eye: str = "pair", rows=None) -> torch.Tensor:
+    """Plain version of `cost_pair`: the census of the rows by
+    `census_rows`, then one disparity plane at a time, each cost looked
+    up in `table` (its dtype is the volume's)."""
     h, w = img_l.shape[:2]
+    start, count = _row_range(rows, h)
     dev = img_l.device
     margin, sign, swap = _pair_geometry(eye, num_disp, zero_disp)
+    cen_l, cen_r = (census_rows(x, start, count) for x in (img_l, img_r))
+    img_l, img_r = img_l[start:start + count], img_r[start:start + count]
     own, oth, own_c, oth_c = ((img_r, img_l, cen_r, cen_l) if swap
                               else (img_l, img_r, cen_l, cen_r))
     xs = torch.arange(-margin, w + margin, device=dev)
@@ -149,7 +176,7 @@ def cost_pair_plain(img_l, img_r, cen_l, cen_r, table, num_disp: int,
     oc = own_c[:, xo]
     rv = oth.to(torch.int32)
     tab = table.to(dev)
-    out = torch.empty((h, w + 2 * margin, num_disp), dtype=table.dtype,
+    out = torch.empty((count, w + 2 * margin, num_disp), dtype=table.dtype,
                       device=dev)
     for d in range(num_disp):
         xr = (xs + sign * (d - zero_disp)).clamp(0, w - 1)
@@ -165,50 +192,42 @@ def pack_bgr(img: torch.Tensor) -> torch.Tensor:
     return c[:, :, 0] | (c[:, :, 1] << 8) | (c[:, :, 2] << 16)
 
 
-def _check_pair_inputs(what, img_l, img_r, cen_l, cen_r):
-    h, w = img_l.shape[:2]
-    for name, t, dt in (("img_l", img_l, torch.uint8),
-                        ("img_r", img_r, torch.uint8),
-                        ("cen_l", cen_l, torch.int32),
-                        ("cen_r", cen_r, torch.int32)):
-        kernels.require(t, name, dt, 3, img_l.device, contiguous=False)
-    if (img_r.shape != img_l.shape or img_l.shape[2] != 3
-            or cen_l.shape != (h, w, 2) or cen_r.shape != (h, w, 2)):
-        raise ValueError(f"{what}: inconsistent input shapes")
-
-
 @kernels.kernel_wrapper
-def cost_pair(img_l: torch.Tensor, img_r: torch.Tensor, cen_l: torch.Tensor,
-              cen_r: torch.Tensor, ad_coeff: float, census_coeff: float,
-              num_disp: int, zero_disp: int, qscale: float = QSCALE,
-              quant: bool = True, eye: str = "pair") -> torch.Tensor:
-    """AD-census cost of two (H, W, 3) u8 images and their (H, W, 2)
-    int32 census codes, as `cost_dtype(qscale, quant)`.  eye="pair": the
-    pair volume P (H, W + 2*M, D), M = pair_margin(D, zd); eye="l" or "r":
-    that eye's (H, W, D) volume directly.  Kernel B2 (csrc/cost.cu)."""
+def cost_pair(img_l: torch.Tensor, img_r: torch.Tensor, ad_coeff: float,
+              census_coeff: float, num_disp: int, zero_disp: int,
+              qscale: float = QSCALE, quant: bool = True, eye: str = "pair",
+              rows=None) -> torch.Tensor:
+    """AD-census cost of two (H, W, 3) u8 images of the whole frame, as
+    `cost_dtype(qscale, quant)`, over the frame rows rows=(start, count)
+    (every row by default); the census of each eye is that of the whole
+    frame (`census_rows`).  eye="pair": the pair volume P (count, W +
+    2*M, D), M = pair_margin(D, zd); eye="l" or "r": that eye's (count, W,
+    D) volume directly.  Kernel B2 (csrc/cost.cu), which computes the
+    grayscale and the census itself."""
     dev = img_l.device
     table = device_cost_table(ad_coeff, census_coeff, dev, qscale, quant)
     if kernels.on_cpu(img_l):
-        return cost_pair_plain(img_l, img_r, cen_l, cen_r, table, num_disp,
-                               zero_disp, eye)
-    _check_pair_inputs("cost_pair", img_l, img_r, cen_l, cen_r)
+        return cost_pair_plain(img_l, img_r, table, num_disp, zero_disp,
+                               eye, rows)
+    for name, t in (("img_l", img_l), ("img_r", img_r)):
+        kernels.require(t, name, torch.uint8, 3, dev, contiguous=False)
+    if img_r.shape != img_l.shape or img_l.shape[2] != 3:
+        raise ValueError("cost_pair: expected two (H, W, 3) images of one "
+                         "shape")
     if not 0 <= zero_disp <= num_disp:
         raise ValueError("cost_pair: need 0 <= zero_disp <= num_disp")
     h, w = img_l.shape[:2]
+    start, count = _row_range(rows, h)
     margin, sign, swap = _pair_geometry(eye, num_disp, zero_disp)
-    packed = [pack_bgr(img_l), pack_bgr(img_r)]
-    cens = [cen_l.contiguous(), cen_r.contiguous()]
-    if swap:
-        packed.reverse()
-        cens.reverse()
+    own, oth = (t.contiguous() for t in ((img_r, img_l) if swap
+                                         else (img_l, img_r)))
     a, c = device_cost_terms(ad_coeff, census_coeff, dev)
-    out = torch.empty((h, w + 2 * margin, num_disp), dtype=table.dtype,
+    out = torch.empty((count, w + 2 * margin, num_disp), dtype=table.dtype,
                       device=dev)
     rc = kernels.lib("cost").stm_cost_pair(
-        packed[0].data_ptr(), packed[1].data_ptr(), cens[0].data_ptr(),
-        cens[1].data_ptr(), a.data_ptr(), c.data_ptr(), float(qscale),
-        out.data_ptr(), h, w, num_disp, zero_disp, margin, sign,
-        out.element_size(), kernels.stream_of(out))
+        own.data_ptr(), oth.data_ptr(), table.data_ptr(), a.data_ptr(),
+        c.data_ptr(), out.data_ptr(), h, w, num_disp, zero_disp, margin,
+        sign, start, count, out.element_size(), kernels.stream_of(out))
     kernels.check_launch(rc, "cost_pair")
     cost_pair.launches += 1
     return out
@@ -496,9 +515,8 @@ def ci_adcensus_kern_xm(img_l: torch.Tensor, img_r: torch.Tensor,
     h, w = img_l.shape[:2]
     if out_rows is not None and out_rows > -(-h // 128) * 128:
         raise ValueError("out_rows exceeds the kernel's padded height")
-    args = (img_l, img_r, census_transform_9x7(mux_average(img_l)),
-            census_transform_9x7(mux_average(img_r)), ad_coeff,
-            census_coeff, num_disp, zero_disp, qscale, quant)
+    args = (img_l, img_r, ad_coeff, census_coeff, num_disp, zero_disp,
+            qscale, quant)
     m = pair_margin(num_disp, zero_disp)
     if shear and m <= 64:
         pair = cost_pair(*args)

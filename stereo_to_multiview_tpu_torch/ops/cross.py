@@ -2,11 +2,15 @@
 PyTorch version.
 
 Arm order: UP, DOWN, LEFT, RIGHT.  The aggregation over the arms is the
-band engine's (ops.band).  The wrapper takes the plain version only for
-a CPU tensor; on a CUDA tensor it launches the kernel or raises.
+band engine's (ops.band).  `cross_arms` (one eye) and `cross_arms_lr`
+(both eyes, one launch) go through the one wrapper `cross_arms_eyes`,
+which takes the plain version only for a CPU tensor; on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -67,23 +71,62 @@ def cross_arms_plain(img: torch.Tensor, ucd: float, lcd: float, usd: int,
     ])
 
 
+def arm_threshold(t: float) -> int:
+    """The integer c with (a > float32(t)) == (a >= c) for every integer
+    a in 0..255: floor(t) + 1 clamped to [0, 256] (256 for NaN: no step
+    fails; 0 below zero: every step fails).  Exact, with no rounding of
+    t, as the reference's float32 compare (d_ca_cross.cu:41-69).  The
+    JAX Pallas kernel compares with bf16(t) instead (postkern.py:138,
+    144), which moves a threshold such as 5.99 up to 6."""
+    t = float(f32(t))
+    if math.isnan(t) or t >= 255.0:
+        return 256
+    return 0 if t < 0.0 else math.floor(t) + 1
+
+
 @kernels.kernel_wrapper
+def cross_arms_eyes(imgs, ucd: float, lcd: float, usd: int,
+                    lsd: int) -> tuple:
+    """(4, H, W) int32 arm lengths (UP, DOWN, LEFT, RIGHT) of each of one
+    or two (H, W, 3) uint8 images of one shape, in one launch of kernel
+    B1 (csrc/arms.cu).  Every arm stops at its image's border.  The
+    kernel stages a block's cross in shared memory, which bounds the
+    reach: min(usd, H - 1) and min(usd, W - 1) up to 281 (the band
+    engine takes usd <= 64); beyond it the launch fails and this
+    raises."""
+    if not 1 <= len(imgs) <= 2:
+        raise ValueError("cross_arms: one or two images")
+    if kernels.on_cpu(imgs[0]):
+        return tuple(cross_arms_plain(img, ucd, lcd, usd, lsd)
+                     for img in imgs)
+    for name, img in zip(("img_l", "img_r"), imgs):
+        kernels.require(img, name, torch.uint8, 3, imgs[0].device)
+        if img.shape != imgs[0].shape or img.shape[2] != 3:
+            raise ValueError(f"cross_arms: expected (H, W, 3) images of "
+                             f"one shape, got {tuple(img.shape)}")
+    h, w = imgs[0].shape[:2]
+    outs = [torch.empty((4, h, w), dtype=torch.int32, device=img.device)
+            for img in imgs]
+    last = len(imgs) - 1
+    rc = kernels.lib("arms").stm_cross_arms(
+        imgs[0].data_ptr(), imgs[last].data_ptr(), outs[0].data_ptr(),
+        outs[last].data_ptr(), len(imgs), h, w, arm_threshold(ucd),
+        arm_threshold(lcd), usd, lsd, kernels.stream_of(outs[0]))
+    kernels.check_launch(rc, "cross_arms")
+    cross_arms_eyes.launches += 1
+    return tuple(outs)
+
+
 def cross_arms(img: torch.Tensor, ucd: float, lcd: float, usd: int,
                lsd: int) -> torch.Tensor:
     """(4, H, W) int32 arm lengths (UP, DOWN, LEFT, RIGHT) of an (H, W, 3)
     uint8 image.  Every arm stops at the image border.  Kernel B1
-    (csrc/arms.cu)."""
-    if kernels.on_cpu(img):
-        return cross_arms_plain(img, ucd, lcd, usd, lsd)
-    kernels.require(img, "img", torch.uint8, 3, img.device)
-    h, w, ch = img.shape
-    if ch != 3:
-        raise ValueError(f"cross_arms: expected (H, W, 3), got "
-                         f"{tuple(img.shape)}")
-    out = torch.empty((4, h, w), dtype=torch.int32, device=img.device)
-    rc = kernels.lib("arms").stm_cross_arms(
-        img.data_ptr(), out.data_ptr(), h, w, float(f32(ucd)),
-        float(f32(lcd)), usd, lsd, kernels.stream_of(out))
-    kernels.check_launch(rc, "cross_arms")
-    cross_arms.launches += 1
-    return out
+    (csrc/arms.cu), one eye."""
+    return cross_arms_eyes((img,), ucd, lcd, usd, lsd)[0]
+
+
+def cross_arms_lr(img_l: torch.Tensor, img_r: torch.Tensor, ucd: float,
+                  lcd: float, usd: int, lsd: int):
+    """(arms_l, arms_r), each equal to `cross_arms` of its image, in one
+    launch of kernel B1: the JAX package's `cross_arms_kern_lr`."""
+    return cross_arms_eyes((img_l, img_r), ucd, lcd, usd, lsd)

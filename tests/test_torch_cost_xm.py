@@ -20,8 +20,6 @@ from stereo_to_multiview_tpu.ops import fastmath as jfm
 
 from stereo_to_multiview_tpu_torch.ops import costkern as tck
 from stereo_to_multiview_tpu_torch.ops import fastmath as tfm
-from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
-from stereo_to_multiview_tpu_torch.ops.mux import mux_average
 
 torch.set_num_threads(1)
 
@@ -112,12 +110,61 @@ def test_ci_adcensus_kern_xm_falls_back_per_eye(stereo_pair):
         for a, b in zip(ref, got):
             assert b.shape == (30, W, nd)
             np.testing.assert_array_equal(_np(a), _np(b))
-    pair = tck.cost_pair(tl, tr, *(census_transform_9x7(mux_average(x))
-                                   for x in (tl, tr)), 10.0, 30.0, nd, zd,
-                         510.0)
+    pair = tck.cost_pair(tl, tr, 10.0, 30.0, nd, zd, 510.0)
     m = tck.pair_margin(nd, zd)
     assert torch.equal(pair[:30, m:m + W], got[0])
     assert torch.equal(tck.shear_right(pair, zd)[:30], got[1])
+
+
+@pytest.mark.parametrize("mode", ["u8", "int16"])
+@pytest.mark.parametrize("rows", [(10, 20), (21, 15)])
+def test_cost_pair_row_range_is_the_frames(stereo_pair, rows, mode):
+    """B2 on a row range of the whole frame's images (a chunk starting
+    below row 0, one ending at the frame's last row): the census clamps
+    at the frame's edges only, so the volume is those rows of the
+    whole-frame volume, and its eyes equal JAX ci_adcensus_kern_xm on the
+    JAX band engine's i0:i1 slice (band.py:1148-1155), rows c_lo on."""
+    (jl, jr), (tl, tr) = _xm_inputs(stereo_pair)
+    start, count = rows
+    q = 510.0 if mode == "int16" else 127.0
+    nd, zd = 12, 6
+    whole = tck.cost_pair(tl, tr, 10.0, 30.0, nd, zd, q)
+    pair = tck.cost_pair(tl, tr, 10.0, 30.0, nd, zd, q, rows=rows)
+    assert torch.equal(pair, whole[start:start + count])
+    i0, i1 = max(0, start - 3), min(H, start + count + 3)
+    ref = jck.ci_adcensus_kern_xm(jl[i0:i1], jr[i0:i1], 10.0, 30.0, nd, zd,
+                                  qscale=q, interpret=True)
+    m = tck.pair_margin(nd, zd)
+    got = pair[:, m:m + W], tck.shear_right(pair, zd)
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(
+            _np(a)[start - i0:start - i0 + count], _np(b))
+    # the census of the rows alone would clamp at the range's edges
+    cut = tck.cost_pair(tl[start:start + count], tr[start:start + count],
+                        10.0, 30.0, nd, zd, q)
+    assert not torch.equal(cut, pair)
+
+
+@pytest.mark.parametrize("eye", ["l", "r"])
+def test_cost_pair_row_range_one_eye(stereo_pair, eye):
+    """One eye directly over a row range equals those rows of the eye's
+    whole-frame volume, and of the pair's eye."""
+    _, (tl, tr) = _xm_inputs(stereo_pair)
+    rows = (7, 22)
+    got = tck.cost_pair(tl, tr, 10.0, 30.0, 12, 6, eye=eye, rows=rows)
+    whole = tck.cost_pair(tl, tr, 10.0, 30.0, 12, 6, eye=eye)
+    assert torch.equal(got, whole[7:29])
+    pair = tck.cost_pair(tl, tr, 10.0, 30.0, 12, 6, rows=rows)
+    m = tck.pair_margin(12, 6)
+    want = pair[:, m:m + W] if eye == "l" else tck.shear_right(pair, 6)
+    assert torch.equal(got, want)
+
+
+def test_cost_pair_refuses_rows_outside_the_frame(stereo_pair):
+    _, (tl, tr) = _xm_inputs(stereo_pair)
+    for rows in ((-1, 4), (30, 7), (0, 0)):
+        with pytest.raises(ValueError, match="rows"):
+            tck.cost_pair(tl, tr, 10.0, 30.0, 12, 6, rows=rows)
 
 
 def test_ci_adcensus_kern_xm_refuses_what_jax_refuses(stereo_pair):

@@ -29,7 +29,21 @@ from stereo_to_multiview_tpu_torch.ops import costkern as tck
 from stereo_to_multiview_tpu_torch.ops.cross import (
     UP, DOWN, LEFT, RIGHT, cross_arms)
 
+from conftest import _textured
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def stereo_pair():
+    """conftest's pair (its recipe and seed, drawn first) from a generator
+    of this module's own.  The session fixture draws from the session's
+    shared `rng`, so under xdist's --dist loadfile its values follow the
+    tests a worker ran before; after tests/test_band.py's it is a pair
+    whose right eye is one exact shift of the left, whose disparities are
+    constant, and `test_band_stereo_core_dm`'s check that they are not
+    fails for the data, not the code (both cores still agree)."""
+    return _textured(np.random.default_rng(1234), 36, 52)
 
 
 def _t(a):
@@ -89,7 +103,7 @@ def test_stacked_cost_equals_the_lane_major_volumes(stereo_pair):
     nd, zd = 12, 6
     cen_l = census_transform_9x7(mux_average(left))
     cen_r = census_transform_9x7(mux_average(right))
-    pair = tck.cost_pair(left, right, cen_l, cen_r, 10.0, 30.0, nd, zd)
+    pair = tck.cost_pair(left, right, 10.0, 30.0, nd, zd)
     m = tck.pair_margin(nd, zd)
     vol = tck.cost_dm(left, right, cen_l, cen_r, 10.0, 30.0, nd, zd)
     assert torch.equal(vol[:nd].permute(1, 2, 0),

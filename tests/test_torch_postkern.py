@@ -6,6 +6,8 @@ wrapper takes its plain version, which chip_smoke.py holds bit-equal to
 the CUDA kernel on the card.
 """
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -13,9 +15,10 @@ import torch
 
 from stereo_to_multiview_tpu import ops as jops
 from stereo_to_multiview_tpu.ops.irvkern import irv_round_kern
+from stereo_to_multiview_tpu.golden import stages as golden
 from stereo_to_multiview_tpu.ops.postkern import (
-    cross_arms_kern, dcc_occl_kern, filter_bilateral_kern,
-    filter_bleed_mask_kern)
+    cross_arms_kern, cross_arms_kern_lr, dcc_occl_kern,
+    filter_bilateral_kern, filter_bleed_mask_kern)
 from stereo_to_multiview_tpu.ops.warpkern import (
     dibr_warp_merge_views_kern_xm)
 
@@ -24,6 +27,7 @@ from stereo_to_multiview_tpu_torch.ops import (
     cross as tcross, dcc as tdcc, dibr as tdibr, filters as tfilters,
     irv as tirv)
 from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+from stereo_to_multiview_tpu_torch.utils.bmp import read_bmp
 
 torch.set_num_threads(1)
 
@@ -56,6 +60,104 @@ def test_cross_arms_matches_arms_kern(stereo_pair, eye, arm_params):
     ref = cross_arms_kern(jnp.asarray(img), *arm_params, interpret=True)
     got = tcross.cross_arms(_t(img), *arm_params)
     np.testing.assert_array_equal(_np(ref), _np(got))
+
+
+@pytest.mark.parametrize("arm_params", [(6.0, 20.0, 9, 4),
+                                        (6.0, 20.0, 34, 17)])
+def test_cross_arms_lr_matches_arms_kern_lr(stereo_pair, arm_params):
+    """B1 on both eyes in one launch: the contract of cross_arms_kern_lr,
+    each eye equal to its own cross_arms."""
+    jl, jr = (jnp.asarray(x) for x in stereo_pair)
+    ref = cross_arms_kern_lr(jl, jr, *arm_params, interpret=True)
+    got = tcross.cross_arms_lr(*(_t(x) for x in stereo_pair), *arm_params)
+    assert len(got) == 2
+    for a, b, img in zip(ref, got, stereo_pair):
+        np.testing.assert_array_equal(_np(a), _np(b))
+        assert torch.equal(b, tcross.cross_arms(_t(img), *arm_params))
+
+
+@pytest.fixture(scope="module")
+def bud_crop():
+    """A 40x96 crop of the bundled bud pair (bud_2 left, bud_3 right):
+    real edges, whose channel differences hit the thresholds' integers."""
+    data = os.path.join(os.path.dirname(__file__), "data")
+    return tuple(read_bmp(os.path.join(data, f"bud_{i}.bmp"))
+                 [150:190, 300:396].copy() for i in (2, 3))
+
+
+@pytest.mark.parametrize("ucd, lcd, moved", [(5.99, 19.97, True),
+                                             (6.0, 20.0, False),
+                                             (6.3, 19.6, False),
+                                             (6.02, 20.03, False)])
+def test_arm_thresholds_follow_the_golden_not_the_bf16_kernel(
+        bud_crop, ucd, lcd, moved):
+    """The reference compares each step's channel difference a (an
+    integer) with the float thresholds: a > 5.99 fails at a = 6.  The
+    golden (stages.py:171-200), the JAX XLA cross_arms and the port do so
+    in float32.  The JAX Pallas kernel compares with bf16(t)
+    (postkern.py:138, 144), and bf16 rounds 5.99 up to 6.0 and 19.97 up
+    to 20.0 (spacing 1/32 and 1/8 there): at (5.99, 19.97) its steps with
+    a = 6 beyond lsd or a = 20 within lsd do not fail, so those arms run
+    on, never shorter than the golden's.  Where bf16 moves no threshold
+    across an integer, at integer thresholds and at (6.3, 19.6) and
+    (6.02, 20.03), all agree.  The port follows the golden."""
+    img = bud_crop[0]
+    args = (ucd, lcd, 34, 17)
+    gold = golden.cross_arms(img, *args)
+    np.testing.assert_array_equal(
+        gold, _np(jops.cross_arms(jnp.asarray(img), *args)))
+    port = tcross.cross_arms(_t(img), *args)
+    np.testing.assert_array_equal(gold, _np(port))
+    pallas = _np(cross_arms_kern(jnp.asarray(img), *args, interpret=True))
+    diff = pallas != gold
+    if not moved:
+        assert not diff.any()
+        return
+    # every direction has arms that differ, each one longer in the kernel
+    assert all(diff[k].sum() > 100 for k in range(4)), diff.sum((1, 2))
+    assert np.all(pallas[diff] > gold[diff])
+    # at integer thresholds one above the float ones the golden is the
+    # kernel's: the bf16 rounding is the whole difference
+    np.testing.assert_array_equal(
+        pallas, golden.cross_arms(img, 6.0, 20.0, 34, 17))
+
+
+def test_cross_arms_lr_follows_the_golden_at_fractional_thresholds(
+        bud_crop):
+    """Both eyes in one launch at (5.99, 19.97), equal to the golden's
+    float compare (not the bf16 kernel's)."""
+    got = tcross.cross_arms_lr(*(_t(x) for x in bud_crop), 5.99, 19.97, 34,
+                               17)
+    for img, arms in zip(bud_crop, got):
+        np.testing.assert_array_equal(
+            golden.cross_arms(img, 5.99, 19.97, 34, 17), _np(arms))
+
+
+def test_cross_arms_on_a_crop_shorter_than_usd(bud_crop):
+    """usd = 34 on 12 rows: the vertical arms stop at the crop's border,
+    every walk of a column reaches both ends."""
+    crop = tuple(x[:12] for x in bud_crop)
+    got = tcross.cross_arms_lr(*(_t(x) for x in crop), 6.0, 20.0, 34, 17)
+    for img, arms in zip(crop, got):
+        np.testing.assert_array_equal(
+            _np(jops.cross_arms(jnp.asarray(img), 6.0, 20.0, 34, 17)),
+            _np(arms))
+        assert int(arms[UP].max()) <= 11 and int(arms[DOWN].max()) <= 11
+
+
+@pytest.mark.parametrize("t, c", [(5.99, 6), (6.0, 7), (19.97, 20),
+                                  (20.0, 21), (0.0, 1), (-0.0, 1),
+                                  (-0.5, 0), (-3.0, 0), (254.9, 255),
+                                  (255.0, 256), (1e9, 256),
+                                  (float("nan"), 256), (float("inf"), 256),
+                                  (float("-inf"), 0)])
+def test_arm_threshold_is_the_float32_compare(t, c):
+    """B1's integer threshold: a > float32(t) == a >= c for every byte a,
+    with no rounding of t."""
+    assert tcross.arm_threshold(t) == c
+    a = torch.arange(256, dtype=torch.float32)
+    tf = torch.tensor(t, dtype=torch.float32)
+    assert torch.equal(a > tf, a >= c)
 
 
 def test_dcc_labels_match_dcc_occl_kern(disps):
@@ -186,6 +288,8 @@ def _meta_calls():
     return {
         "cross_arms": lambda: tcross.cross_arms(m(4, 8, 3, dtype=u8), 6.0,
                                                 20.0, 2, 1),
+        "cross_arms_lr": lambda: tcross.cross_arms_lr(
+            m(4, 8, 3, dtype=u8), m(4, 8, 3, dtype=u8), 6.0, 20.0, 2, 1),
         "dr_dcc": lambda: tdcc.dr_dcc(m(4, 8), m(4, 8)),
         "dibr_occl": lambda: tdibr.dibr_occl(m(4, 8), m(4, 8)),
         "irv_rowspan": lambda: tirv.irv_rowspan(

@@ -20,10 +20,8 @@ from stereo_to_multiview_tpu.ops.costkern import ci_adcensus_kern_xm
 from stereo_to_multiview_tpu_torch.config import config_from_dict
 from stereo_to_multiview_tpu_torch.ops import band as tband
 from stereo_to_multiview_tpu_torch.ops import costkern as tck
-from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
 from stereo_to_multiview_tpu_torch.ops.cross import (
-    UP, DOWN, LEFT, RIGHT, cross_arms)
-from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+    UP, DOWN, LEFT, RIGHT, cross_arms, cross_arms_lr)
 
 torch.set_num_threads(1)
 
@@ -39,10 +37,8 @@ def _np(x):
 def _port_costs(left, right, nd, zd, ad=10.0, cen=30.0):
     """(cost_l, cost_r) u8 through the port's B2 + B3 wrappers."""
     l, r = _t(left), _t(right)
-    cen_l = census_transform_9x7(mux_average(l))
-    cen_r = census_transform_9x7(mux_average(r))
     m = tck.pair_margin(nd, zd)
-    pair = tck.cost_pair(l, r, cen_l, cen_r, ad, cen, nd, zd)
+    pair = tck.cost_pair(l, r, ad, cen, nd, zd)
     w = left.shape[1]
     return pair[:, m:m + w], tck.shear_right(pair, zd)
 
@@ -199,6 +195,31 @@ def test_band_stereo_core_chunked(stereo_pair, row_chunk):
     got = tband.band_stereo_core_chunked(
         tl, tr, cross_arms(tl, 6.0, 20.0, 5, 2),
         cross_arms(tr, 6.0, 20.0, 5, 2),
+        config_from_dict(dataclasses.asdict(cfg)))
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(_np(a), _np(b))
+
+
+def test_band_stereo_core_chunks_start_mid_frame(stereo_pair):
+    """A 72-row frame in 16-row chunks (usd 5: 40 rows each, from rows 0,
+    6, 22 and 32, the last ending at the frame's last row): B2 computes
+    each chunk's census from the whole frame's images, so the core equals
+    the JAX band core, whose cost entry sees a slice widened by the
+    census' reach."""
+    left, right = (np.concatenate([x, x[::-1, ::-1]]) for x in stereo_pair)
+    h, w = left.shape[:2]
+    cfg = JaxConfig(num_rows=h, num_cols=w, num_rows_out=h, num_cols_out=w,
+                    num_disp=12, zero_disp=6, usd=5, lsd=2, num_views=4,
+                    engine="band", band_row_chunk=16)
+    assert [b[0] for b in tband.chunk_bounds(h, 16, 10)[1]] == [0, 6, 22,
+                                                                32, 32]
+    l, r = jnp.asarray(left), jnp.asarray(right)
+    ref = jband.band_stereo_core_chunked(
+        l, r, jops.cross_arms(l, 6.0, 20.0, 5, 2),
+        jops.cross_arms(r, 6.0, 20.0, 5, 2), cfg, interpret=True)
+    tl, tr = _t(left), _t(right)
+    got = tband.band_stereo_core_chunked(
+        tl, tr, *cross_arms_lr(tl, tr, 6.0, 20.0, 5, 2),
         config_from_dict(dataclasses.asdict(cfg)))
     for a, b in zip(ref, got):
         np.testing.assert_array_equal(_np(a), _np(b))
