@@ -31,7 +31,12 @@
    with windows of 255 in one bin), and with B9 in each round of the early-
    stop IRV on the 1080p frame; B10 at radii 0, 1, 7 and 8, on 37 rows,
    on fractional values past its range-weight table and where |a - s|
-   falls on integers and one ulp below them.  B1 on both eyes in one
+   falls on integers and one ulp below them.  B13 on both eyes in one
+   launch (against two one-eye launches too), on a 37-row crop, at W =
+   1, 15, 17, D = 30, 126, 130 on both signs, on equal costs and on ties,
+   at zero penalties and above every cost; B3 streamed at zd = 0 and
+   zd = D, W below one ring tile, D = 130 and 132, on the 4K preset's
+   third row chunk, in int16 and float32.  B1 on both eyes in one
    launch, also at thresholds that bf16 would round up (5.99, 19.97),
    past 255 and below 0, at usd = lsd and at usd above a 37-row crop's
    height; B2 with the census computed in the kernel, on the whole frame,
@@ -74,12 +79,12 @@ the four preset paths (HD1080_D128, HSLO_4K, LOWRES, UHD4K_16V) and the
 two dial paths (where that package has the dials), N frames each, on the
 package under DIR: the way to compare two commits' frame and stage times
 within one call.  `--stream-checks [--package-root DIR]` only holds the
-staged kernels B1 and B2 (at their edges too), the streamed kernels B4,
-B5, B6, B8 and B9 and B10 (and the kernels that feed them; B8, B9 and
-B10 at their edges and in each IRV round too), then the dials' modes of
-B2-B4 and B6, against their plain versions, on the
-package under DIR: the way to show that a deliberately broken copy of
-one fails.
+staged kernels B1 and B2 (at their edges too), the streamed kernels B3,
+B4, B5, B6, B8, B9, B10 and B13 (and the kernels that feed them; B3,
+B8, B9, B10 and B13 at their edges and B8 and B9 in each IRV round
+too), then the dials' modes of B2-B4 and B6, against their plain
+versions, on the package under DIR: the way to show that a deliberately
+broken copy of one fails, and to time two commits' kernels in turns.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
 a `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -147,10 +152,11 @@ KERNELS = {
                             _TPU + "postkern.py:442", MAIN),
     "B12 warp_merge_views": ("warp_merge_views", _SRC + "warp.cu",
                              _TPU + "warpkern.py:340", MAIN),
-    "B13 dc_hslo_wta": ("dc_hslo_wta", _SRC + "hslo.cu",
+    "B13 dc_hslo_wta": ("dc_hslo_wta_eyes", _SRC + "hslo.cu",
                         _TPU + "hslokern.py:55", HSLO4K),
     "B13 dc_hslo_wta (right eye, strong penalties)": (
-        "dc_hslo_wta", _SRC + "hslo.cu", _TPU + "hslokern.py:55", HSLO4K),
+        "dc_hslo_wta_eyes", _SRC + "hslo.cu", _TPU + "hslokern.py:55",
+        HSLO4K),
     "B14 warp_views": ("warp_views", _SRC + "warp.cu",
                        _TPU + "warpkern.py:290", HSLO4K),
 }
@@ -235,6 +241,37 @@ B2_CHUNK4K = " (UHD4K_16V frame rows 1012-1691: the third chunk)"
 B2_D130 = " (37x1001, D=130)"
 KERNELS["B2 cost_pair" + B2_CHUNK4K] = (*KERNELS["B2 cost_pair"][:3], UHD4K)
 KERNELS["B2 cost_pair" + B2_D130] = KERNELS["B2 cost_pair"]
+# B13 where its segments, ring and lanes meet their edges: both eyes in
+# one launch (as the HSLO path calls it) against the plain version and two
+# one-eye launches; a 37x1001 crop of the frame's own pass-4 volume, and
+# widths of one column, below two segments and one column past them; D=30
+# (one d a lane), D=126 (no multiple of 4: scalar copies) and D=130 (eight
+# d a lane) on both signs; a volume of equal costs (the first-min rule on
+# ties everywhere) and one of 0/7 costs (ties after the scan); penalties
+# of zero and above every cost
+B13_LR = " (both eyes, one launch)"
+B13_EDGES = (" (37x1001 crop)", " (37x1, W=1)", " (37x15, W=15)",
+             " (37x17, W=17)", " (200x1001, D=30, right eye)",
+             " (200x1001, D=126, right eye)", " (37x1001, D=130)",
+             " (37x1001, D=130, right eye)", " (200x1001, equal costs)",
+             " (200x1001, 0/7 costs: ties)",
+             " (200x1001, zero penalties)",
+             " (200x1001, penalties above every cost)")
+for _suffix in (B13_LR, *B13_EDGES):
+    KERNELS["B13 dc_hslo_wta" + _suffix] = KERNELS["B13 dc_hslo_wta"]
+# B3 where its streamed ring meets its edges: zd = 0 and zd = D (the ring
+# reaches to one side only), W below one ring tile, D=130 (scalar path,
+# two chunks) and D=132 (streamed, a second chunk of 4 d), the 4K preset's
+# third row chunk, and int16 and float32 at zd = 0 and W below one tile
+B3_EDGES = (" (200x1001, zd=0)", " (200x1001, zd=D)", " (37x20, W < one tile)",
+            " (37x1001, D=130: scalar path)",
+            " (37x1001, D=132: a second chunk of 4 d)",
+            " (int16, 200x1001, zd=0)", " (int16, 37x20, W < one tile)",
+            " (float32, 200x1001, zd=D)", " (float32, 37x20, W < one tile)")
+for _suffix in B3_EDGES:
+    KERNELS["B3 shear_right" + _suffix] = KERNELS["B3 shear_right"]
+KERNELS["B3 shear_right" + B2_CHUNK4K] = (*KERNELS["B3 shear_right"][:3],
+                                          UHD4K)
 # the disparity-major core, whole-frame and at a 540-row chunk's extent
 AT_CHUNK = " (680-row chunk)"
 DM_KERNELS = {
@@ -398,10 +435,13 @@ LANE_CORE_WRAPPERS = {"cost_pair", "shear_right", "h_pass_sum", "vv_pass",
                       "h_pass_wta"}
 SIDE_WRAPPERS = {"band_span_sum_h", "band_span_sum_v", "shear_right_dm",
                  "dibr_warp_views_kern", "dibr_warp_pair_kern"}
+# (B13's wrapper is `dc_hslo_wta_eyes`; `dc_hslo_wta` is its name in an
+# older checkout's package, which `--frames` may time)
+HSLO_WRAPPERS = {"dc_hslo_wta_eyes", "dc_hslo_wta"}
 NOT_ON_PATH = {
-    MAIN: {"dc_hslo_wta", "warp_views"} | DM_WRAPPERS | SIDE_WRAPPERS,
+    MAIN: {"warp_views"} | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
     HSLO4K: {"h_pass_wta", "warp_merge_views"} | DM_WRAPPERS | SIDE_WRAPPERS,
-    LOWRES: {"dc_hslo_wta", "warp_views"} | DM_WRAPPERS | SIDE_WRAPPERS,
+    LOWRES: {"warp_views"} | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
 }
 for _path in (DIGITS2, DIGITS1, UHD4K, QSCALE510, LOSSY):
     NOT_ON_PATH[_path] = NOT_ON_PATH[MAIN]
@@ -410,10 +450,11 @@ for _path in (DIGITS2, DIGITS1, UHD4K, QSCALE510, LOSSY):
 # scanline optimisation runs.  The exact count shows that both launched.
 # `vv_pass` launches its kernel once a call: once an eye and row chunk.
 # B1 launches once a frame for both eyes, B2 once a row chunk with the
-# whole frame's images (it computes the census: no torch census runs).
+# whole frame's images (it computes the census: no torch census runs),
+# B13 once a row chunk for both eyes.
 EXACT_LAUNCHES = {
     MAIN: {"h_pass_sum": 2, "vv_pass": 2},
-    HSLO4K: {"h_pass_sum": 4, "vv_pass": 2},
+    HSLO4K: {"h_pass_sum": 4, "vv_pass": 2, "dc_hslo_wta_eyes": 1},
     LOWRES: {"h_pass_sum": 2, "vv_pass": 2},
     DIGITS2: {"h_pass_sum": 2, "vv_pass": 2},
     DIGITS1: {"h_pass_sum": 2, "vv_pass": 2},
@@ -642,15 +683,15 @@ def check_core_kernels(chk, img_l, img_r, cfg, hslo=True):
                lambda: hslokern.dc_hslo_wta_plain(*hargs),
                nbytes=hwd * 4 + 2 * hw + hw * 4, ops=2 * 12 * hwd,
                plain_once=True)
-    moved_ms = 4 * hwd * 4 / PEAK_BYTES_PER_S * 1e3
+    moved = 2.25 * hwd * 4
     wta = (torch.argmin(a4, dim=2) - zd).to(torch.float32)
-    print(f"  B13 moves 4 volumes ({4 * hwd * 4 / 1e9:.2f} GB, "
-          f"{moved_ms:.3f} ms at the peak rate) along {2 * w} dependent "
-          f"steps per row; at the configuration's penalties the "
-          f"optimisation changes "
+    print(f"  B13 moves 2.25 volumes ({moved / 1e9:.2f} GB, "
+          f"{moved / PEAK_BYTES_PER_S * 1e3:.3f} ms at the peak rate) and "
+          f"takes ~2.9 x {w} dependent steps per row; at the "
+          f"configuration's penalties the optimisation changes "
           f"{float((sdisp != wta).float().mean()):.4f} of the left eye's "
           f"WTA disparities", flush=True)
-    del a4, sdisp, wta, hargs
+    del sdisp, wta
 
     # The configuration's penalties are small beside this frame's sums, so
     # few argmins move and a wrong tier, neighbour or edge would hardly
@@ -681,7 +722,41 @@ def check_core_kernels(chk, img_l, img_r, cfg, hslo=True):
     if moved < 0.02:
         raise SmokeFailure("B13: the strong penalties move too few "
                            "disparities to test the recurrence")
+    del wta, rdisp
+    record_hslo_lr(chk, a4, b4, img_l, img_r, hargs[3:-1])
     return arms, arms_r
+
+
+def record_hslo_lr(chk, a4, b4, img_l, img_r, args):
+    """B13 on both eyes in one launch (`dc_hslo_wta_lr`, as the HSLO path
+    calls it) against the plain version of each eye, and against two
+    one-eye launches; `args` = (D, zd, T, H1, H2).  A package without
+    the two-eye entry (an older checkout under --package-root) skips
+    it."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import hslokern
+    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+    if not hasattr(hslokern, "dc_hslo_wta_lr"):
+        print("  B13: no two-eye entry in this package", flush=True)
+        return
+    gl, gr = mux_average(img_l), mux_average(img_r)
+    largs = (a4, b4, gl, gr, *args)
+    got = hslokern.dc_hslo_wta_lr(*largs)
+    plain = lambda: (hslokern.dc_hslo_wta_plain(a4, gl, gr, *args, +1),
+                     hslokern.dc_hslo_wta_plain(b4, gr, gl, *args, -1))
+    one = lambda: (hslokern.dc_hslo_wta(a4, gl, gr, *args, +1),
+                   hslokern.dc_hslo_wta(b4, gr, gl, *args, -1))
+    if not all(bool(torch.equal(g, o)) for g, o in zip(got, one())):
+        raise SmokeFailure("B13: the two-eye launch differs from two "
+                           "one-eye launches")
+    h, w, nd = a4.shape
+    hw = h * w
+    chk.record("B13 dc_hslo_wta" + B13_LR, got, plain(),
+               lambda: hslokern.dc_hslo_wta_lr(*largs), plain,
+               nbytes=2 * (hw * nd * 4 + 2 * hw + hw * 4),
+               ops=2 * 2 * 12 * hw * nd, plain_once=True)
+    print(f"  B13 two one-eye launches: {time_ms(one, chk.reps):.4f} ms",
+          flush=True)
 
 
 def vote_cells(need, outliers):
@@ -1296,8 +1371,119 @@ def check_cost_chunk(chk, img_l, img_r, cfg):
     if (start, ext) != (1012, 680):
         raise SmokeFailure(f"the 4K preset's third chunk is rows "
                            f"[{start}, {start + ext}), not [1012, 1692)")
-    record_cost(chk, "B2 cost_pair" + B2_CHUNK4K,
-                cost_args(img_l, img_r, cfg), rows=(start, ext))
+    pair = record_cost(chk, "B2 cost_pair" + B2_CHUNK4K,
+                       cost_args(img_l, img_r, cfg), rows=(start, ext))
+    record_shear(chk, "B3 shear_right" + B2_CHUNK4K, pair, cfg.zero_disp)
+
+
+def check_shear_edges(chk, img_l, img_r, cfg):
+    """B3 (`B3_EDGES`) on the pair volumes of crops of the frame's middle
+    rows: zd = 0 and zd = D, W below one ring tile, D=130 and D=132, and
+    int16 (qscale 510) and float32 pairs."""
+    from stereo_to_multiview_tpu_torch.ops import costkern
+    y0 = img_l.shape[0] // 2
+    nd = cfg.num_disp
+    for suffix, rows, cols, d, zd, qscale, quant in (
+            (B3_EDGES[0], 200, 1001, nd, 0, 127.0, True),
+            (B3_EDGES[1], 200, 1001, nd, nd, 127.0, True),
+            (B3_EDGES[2], 37, 20, nd, cfg.zero_disp, 127.0, True),
+            (B3_EDGES[3], 37, 1001, 130, 65, 127.0, True),
+            (B3_EDGES[4], 37, 1001, 132, 66, 127.0, True),
+            (B3_EDGES[5], 200, 1001, nd, 0, 510.0, True),
+            (B3_EDGES[6], 37, 20, nd, cfg.zero_disp, 510.0, True),
+            (B3_EDGES[7], 200, 1001, nd, nd, 127.0, False),
+            (B3_EDGES[8], 37, 20, nd, cfg.zero_disp, 127.0, False)):
+        l, r = (t[y0:y0 + rows, :cols].contiguous() for t in (img_l, img_r))
+        pair = costkern.cost_pair(l, r, cfg.ad_coeff, cfg.census_coeff, d,
+                                  zd, qscale=qscale, quant=quant)
+        record_shear(chk, "B3 shear_right" + suffix, pair, zd)
+
+
+def check_hslo_edges(chk, img_l, img_r, cfg):
+    """B13 (`B13_EDGES`) on the pass-4 volumes of crops of the frame's
+    middle rows (random volumes at D=30, 126 and 130, where the frame's
+    costs have no such D), at strong penalties (P2 a quarter of the
+    crop's median distance from a pixel's mean sum to its least, P1 = P2
+    / 3) unless the entry sets them."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band, costkern, cross
+    from stereo_to_multiview_tpu_torch.ops import hslo, hslokern
+    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+
+    dev = img_l.device
+    y0 = img_l.shape[0] // 2
+    usd, nd, zd, T = cfg.usd, cfg.num_disp, cfg.zero_disp, cfg.hslo_T
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def crop(rows, cols):
+        l, r = (t[y0:y0 + rows, :cols].contiguous() for t in (img_l, img_r))
+        return l, r, mux_average(l), mux_average(r)
+
+    def volume(l, r):
+        """The left eye's pass-4 volume of a crop's own pair."""
+        m = costkern.pair_margin(nd, zd)
+        pair = costkern.cost_pair(*cost_args(l, r, cfg))
+        arms = cross.cross_arms(l, cfg.ucd, cfg.lcd, usd, cfg.lsd)
+        return band.band_aggregate_q(pair[:, m:m + l.shape[1]], arms, usd,
+                                     None, cfg.band_digits, cfg.band_qscale)
+
+    def strong(vol):
+        f = vol.to(torch.float32)
+        h2 = max(1.0, float((f.mean(dim=2) - f.amin(dim=2)).median()) / 4.0)
+        return h2 / 3.0, h2
+
+    def rand(shape, hi):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def record(suffix, vol, ga, gb, d, z, pen, sign):
+        args = (vol, ga, gb, d, z, T, *pen, sign)
+        out = hslokern.dc_hslo_wta(*args)
+        h, w = ga.shape
+        chk.record("B13 dc_hslo_wta" + suffix, out,
+                   hslokern.dc_hslo_wta_plain(*args),
+                   lambda: hslokern.dc_hslo_wta(*args),
+                   lambda: hslokern.dc_hslo_wta_plain(*args),
+                   nbytes=h * w * d * 4 + 2 * h * w + h * w * 4,
+                   ops=2 * 12 * h * w * d, plain_once=True)
+        return out
+
+    l, r, gl, gr = crop(37, 1001)
+    vol = volume(l, r)
+    pen = strong(vol)
+    record(B13_EDGES[0], vol, gl, gr, nd, zd, pen, +1)
+    for suffix, cols in zip(B13_EDGES[1:4], (1, 15, 17)):
+        record(suffix, vol[:, :cols].contiguous(), gl[:, :cols].contiguous(),
+               gr[:, :cols].contiguous(), nd, zd, pen, +1)
+    l, r, gl, gr = crop(200, 1001)
+    for suffix, d, sign in ((B13_EDGES[4], 30, -1), (B13_EDGES[5], 126, -1)):
+        v = rand((200, 1001, d), 17_600)
+        record(suffix, v, gr, gl, d, d // 2, strong(v), sign)
+    gl37, gr37 = gl[:37].contiguous(), gr[:37].contiguous()
+    for suffix, sign in ((B13_EDGES[6], +1), (B13_EDGES[7], -1)):
+        v = rand((37, 1001, 130), 17_600)
+        ga, gb = (gl37, gr37) if sign > 0 else (gr37, gl37)
+        record(suffix, v, ga, gb, 130, 65, strong(v), sign)
+    vol = volume(l, r)
+    out = record(B13_EDGES[8], torch.full_like(vol, 1000), gl, gr, nd, zd,
+                 strong(vol), +1)
+    if not bool((out == -zd).all()):
+        raise SmokeFailure("B13 equal costs: not the first disparity")
+    ties = rand(vol.shape, 2) * 7
+    record(B13_EDGES[9], ties, gl, gr, nd, zd, (1.0, 3.0), +1)
+    a = hslo.dc_hslo_hwd(ties, gl, gr, nd, zd, T, 1.0, 3.0, +1)
+    last = nd - 1 - torch.argmin(a.flip(2), dim=2)
+    tied = float((last != torch.argmin(a, dim=2)).float().mean())
+    print(f"  B13 ties: the last minimum differs from the first at "
+          f"{tied:.4f} of the pixels", flush=True)
+    if tied < 0.01:
+        raise SmokeFailure("B13 ties: too few ties to test the first-min "
+                           "rule")
+    del a, ties
+    record(B13_EDGES[10], vol, gl, gr, nd, zd, (0.0, 0.0), +1)
+    big = float(vol.max()) * 4.0 + 1.0
+    record(B13_EDGES[11], vol, gl, gr, nd, zd, (big, big), +1)
+    torch.cuda.empty_cache()
 
 
 def check_many_views(chk, img_l, img_r, bl, br, cfg):
@@ -2394,13 +2580,14 @@ def print_ptxas(logs: dict):
 
 def stream_checks(root: str) -> int:
     """`--stream-checks [--package-root DIR]`: only the checks that hold
-    the staged B1 and B2 and the streamed B4, B5, B6, B8, B9 and B10
-    against their plain versions (the stereo core's at 1080p, B1 at its
-    thresholds' and crops' edges, B2 at D=130 and on the 4K preset's third
-    row chunk, the IRV kernels in each round and B10, then the edge
-    frames, then the dials' modes of B2-B4 and B6), on the package under
-    DIR.  Exit 1 if one fails: a deliberately broken copy of a kernel
-    must."""
+    the staged B1 and B2 and the streamed B3, B4, B5, B6, B8, B9, B10
+    and B13 against their plain versions (the stereo core's at 1080p
+    with the scanline optimisation's route, B13 and B3 at their edges, B1
+    at its thresholds' and crops' edges, B2 at D=130 and B2 and B3 on the
+    4K preset's third row chunk, the IRV kernels in each round and B10,
+    then the edge frames, then the dials' modes of B2-B4 and B6), on the
+    package under DIR.  Exit 1 if one fails: a deliberately broken copy
+    of a kernel must."""
     import torch
     sys.path.insert(0, root)
     from stereo_to_multiview_tpu_torch import config, kernels
@@ -2414,8 +2601,24 @@ def stream_checks(root: str) -> int:
                     pipeline.demux_sbs(sbs.to(torch.device("cuda"))))
     chk = KernelChecks(reps=5)
     try:
-        arms_l, arms_r = check_core_kernels(chk, img_l, img_r, cfg,
-                                            hslo=False)
+        arms_l, arms_r = check_core_kernels(chk, img_l, img_r, cfg)
+        torch.cuda.empty_cache()
+        check_hslo_edges(chk, img_l, img_r, cfg)
+        check_shear_edges(chk, img_l, img_r, cfg)
+        # B3 at the lowres preset's shapes (540x960, D=64: half a chunk,
+        # the rows cut into segments of x)
+        from stereo_to_multiview_tpu_torch.ops import costkern
+        from stereo_to_multiview_tpu_torch.ops.scale import tx_scale_bilinear
+        lcfg = config.HD1080_LOWRES
+        low = [tx_scale_bilinear(t, lcfg.num_rows_disp,
+                                 lcfg.num_cols_disp).contiguous()
+               for t in (img_l, img_r)]
+        chk.suffix = AT_LOWRES
+        record_shear(chk, "B3 shear_right",
+                     costkern.cost_pair(*cost_args(*low, lcfg)),
+                     lcfg.zero_disp)
+        chk.suffix = ""
+        del low
         check_arms_edges(chk, img_l, img_r, cfg)
         check_cost_d130(chk, img_l, img_r, cfg)
         cfg4k = config.UHD4K_16V
@@ -2443,7 +2646,7 @@ def main() -> int:
                     help="time only the preset and dial paths, this many "
                          "frames each, and print no result line")
     ap.add_argument("--stream-checks", action="store_true",
-                    help="only hold B1, B2, B4, B5, B6, B8, B9 and B10 (and "
+                    help="only hold B1-B6, B8-B10 and B13 (and "
                          "the dials' modes) against their plain "
                          "versions and print no result line")
     ap.add_argument("--package-root", default=HERE,
@@ -2496,6 +2699,8 @@ def main() -> int:
         paths = {}
         arms_l, arms_r = check_core_kernels(chk, img_l, img_r, cfg)
         torch.cuda.empty_cache()
+        check_hslo_edges(chk, img_l, img_r, cfg)
+        check_shear_edges(chk, img_l, img_r, cfg)
         check_arms_edges(chk, img_l, img_r, cfg)
         check_cost_d130(chk, img_l, img_r, cfg)
         bl, br = check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)

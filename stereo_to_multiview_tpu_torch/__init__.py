@@ -26,8 +26,9 @@ its module names, so each counterpart is easy to find:
                     `band_span_sum_h/_v`, under `dr_irv_band(_lr)`)
   ops.chunks     -- the row chunks of the stereo cores and IRV rounds
   ops.dcc        -- kernel B7 (consistency labels)
-  ops.hslokern   -- kernel B13 (scanline optimisation + WTA); ops.hslo
-                    holds its plain version
+  ops.hslokern   -- kernel B13 (scanline optimisation + WTA, both eyes
+                    in one launch: `dc_hslo_wta_lr`); ops.hslo holds
+                    its plain version
   ops.irv        -- kernels B8/B9 (an IRV round, `need`-gated) and the
                     early-stopping round loop
   ops.filters    -- kernel B10 (bilateral, radius <= 8), median, bleed

@@ -146,7 +146,7 @@ HD1080_D128 = PipelineConfig(
     num_disp=128, zero_disp=64, num_views=8)
 
 # 1080p stereo to a 4K lenticular panel with the scanline optimisation
-# and the median filter on: the HSLO kernel runs once per eye and the
+# and the median filter on: the HSLO kernel runs once for both eyes and the
 # unfused synthesis (resampled interlace) replaces the fused warp+merge.
 HD1080_D128_HSLO_4K = HD1080_D128.replace(
     use_hslo=True, use_median=True, num_rows_out=2160, num_cols_out=3840)

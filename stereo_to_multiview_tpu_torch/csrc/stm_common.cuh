@@ -33,3 +33,35 @@ __device__ __forceinline__ void stm_store4(T* dst, const T (&v)[4]) {
   q.w = v[3];
   *reinterpret_cast<typename StmVec4<T>::V*>(dst) = q;
 }
+
+// Asynchronous copies from device memory into shared memory (cp.async):
+// a thread issues them, groups them with stm_cp_commit(), and
+// stm_cp_wait<N>() returns once at most N of its latest groups are still
+// in flight.  The copied bytes are then visible to the issuing thread;
+// other threads need a barrier as well.
+__device__ __forceinline__ unsigned stm_smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void stm_cp4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   stm_smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void stm_cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   stm_smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void stm_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void stm_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}

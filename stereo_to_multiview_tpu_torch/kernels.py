@@ -46,7 +46,8 @@ _SIGS = {
     "stm_hpass_sum_i16": [_P, _LL, _P, _P, _P] + [_I] * 5 + [_P],
     "stm_hpass_sum_i32": [_P, _P, _P, _P] + [_I] * 5 + [_P],
     "stm_hpass_wta_i32": [_P, _P, _P, _P] + [_I] * 6 + [_P],
-    "stm_hslo_wta": [_P] * 5 + [_I] * 5 + [_F, _P, _P, _P],
+    "stm_hslo_wta": [_P] * 7 + [_I] * 6 + [_F, _P, _P, _P],
+    "stm_hslo_scratch": [_I] * 4,
     "stm_vv_pass": [_P] * 4 + [_I] * 6 + [_P],
     "stm_dcc": [_P] * 4 + [_I, _I, _F, _I, _P],
     "stm_irv_rowspan": [_P] * 7 + [_I] * 5 + [_P],

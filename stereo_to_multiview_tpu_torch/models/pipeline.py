@@ -4,8 +4,8 @@ interlaced) out.
 Stage order, with the hand-written CUDA kernel of each stage:
   demux_sbs -> cross arms of both eyes (B1, one launch) -> stereo core
   (cost init with the census B2, shear B3, H,V,V,H aggregation B4/B5,
-  WTA B6; with use_hslo the pass-4 volume and the scanline
-  optimisation + WTA, B13) -> dcc (B7) -> irv (B8/B9 per round,
+  WTA B6; with use_hslo the pass-4 volumes and the scanline
+  optimisation + WTA of both eyes in one launch, B13) -> dcc (B7) -> irv (B8/B9 per round,
   stopping at the fixpoint; over row chunks with cfg.irv_row_chunk)
   -> [median] -> bilateral (B10)
   -> occlusion hits (B7) -> bleed + mask (B11) -> feather

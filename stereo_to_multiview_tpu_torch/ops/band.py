@@ -35,7 +35,7 @@ from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
 from stereo_to_multiview_tpu_torch.ops.costkern import (
     QSCALE, cost_dm, cost_dtype, cost_pair, pair_margin, shear_right)
 from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
-from stereo_to_multiview_tpu_torch.ops.hslokern import dc_hslo_wta
+from stereo_to_multiview_tpu_torch.ops.hslokern import dc_hslo_wta_lr
 from stereo_to_multiview_tpu_torch.ops.irv import vote_rule
 from stereo_to_multiview_tpu_torch.ops.mux import f32, mux_average
 
@@ -295,12 +295,13 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
     is the whole frame's.  Exact integer aggregation makes the result
     independent of the chunking.
 
-    cfg.use_hslo puts the horizontal scanline optimisation (kernel B13)
-    between the aggregation and the WTA, its penalties scaled into the
-    aggregate's cost units; rows are independent in it, so chunking
-    stays exact.  cfg.band_qscale sets the cost's scale (int16 costs above
-    127.5) and the shifts; cfg.band_lossy_wta rounds the WTA's inputs to
-    bf16 (not read under use_hslo, as in the JAX package).  Returns
+    cfg.use_hslo puts the horizontal scanline optimisation (kernel B13,
+    both eyes of a chunk in one launch) between the aggregation and the
+    WTA, its penalties scaled into the aggregate's cost units; rows are
+    independent in it, so chunking stays exact.  cfg.band_qscale sets
+    the cost's scale (int16 costs above 127.5) and the shifts;
+    cfg.band_lossy_wta rounds the WTA's inputs to bf16 (not read under
+    use_hslo, as in the JAX package).  Returns
     (disp_l, disp_r) float32 (H, W)."""
     h, w = img_l.shape[:2]
     usd = cfg.usd
@@ -322,20 +323,21 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
         cost_l = pair[:, margin:margin + w]
         cost_r = shear_right(pair, zd)
         n_valid = min(chunk, h - (start + lo))
-        for cost, arms, sign, parts in ((cost_l, arms_l, +1, parts_l),
-                                        (cost_r, arms_r, -1, parts_r)):
-            if cfg.use_hslo:
-                vol = band_aggregate_q(cost, arms[:, sl], usd, None,
-                                       cfg.band_digits, cfg.band_qscale)
-                ga, gb = ((gray_l, gray_r) if sign > 0
-                          else (gray_r, gray_l))
-                disp = dc_hslo_wta(vol, ga[sl], gb[sl], nd, zd, cfg.hslo_T,
-                                   cfg.hslo_H1 * kappa, cfg.hslo_H2 * kappa,
-                                   sign)
-            else:
-                disp = band_aggregate_q(cost, arms[:, sl], usd, zd,
-                                        cfg.band_digits, cfg.band_qscale,
-                                        cfg.band_lossy_wta)
+        if cfg.use_hslo:
+            vols = [band_aggregate_q(cost, arms[:, sl], usd, None,
+                                     cfg.band_digits, cfg.band_qscale)
+                    for cost, arms in ((cost_l, arms_l), (cost_r, arms_r))]
+            del pair, cost_l, cost_r
+            disps = dc_hslo_wta_lr(*vols, gray_l[sl], gray_r[sl], nd, zd,
+                                   cfg.hslo_T, cfg.hslo_H1 * kappa,
+                                   cfg.hslo_H2 * kappa)
+            del vols
+        else:
+            disps = [band_aggregate_q(cost, arms[:, sl], usd, zd,
+                                      cfg.band_digits, cfg.band_qscale,
+                                      cfg.band_lossy_wta)
+                     for cost, arms in ((cost_l, arms_l), (cost_r, arms_r))]
+        for disp, parts in zip(disps, (parts_l, parts_r)):
             parts.append(disp[lo:lo + n_valid])
     if len(parts_l) == 1:
         return parts_l[0], parts_r[0]
