@@ -19,7 +19,12 @@
    streamed B4 and B6 there and where their row streams and vector paths
    end (a width below one segment, D=126 and D=130, prefixes that wrap,
    ties).  The configuration limits once refused on the card: B2 and B3
-   at D=126, the warps B12, B14 and B19 with 38 views.  The modes of the
+   at D=126, the warps B12 (both modes), B14 and B19 with 38 views.  The
+   synthesis kernel (B12's interlace mode) at each preset's output (the
+   1080p and 4K frames, and 1080p views to the HSLO_4K preset's 2160x3840
+   output), with two views, on a 37x1001 crop, shrunk to 720x1280 and at
+   another angle; the feather G1 at radii 0, 1, 10, 40 and 70 (two
+   launches) and on a 37x15 crop.  The modes of the
    band engine's dials: B2's int16 (band_qscale 510) and float32 pairs
    and both eyes directly in u8, int16 and float32, B3 in int16 and
    float32, B4 on int16 costs at the qscale-510 shifts of band_digits 3,
@@ -50,12 +55,15 @@
    `ci_adcensus_kern(shift_extract=True)` (B16's one-eye modes, B17)
    equal to shift_extract=False, u8 and float32; and
    `ci_adcensus_kern_xm` (B2's pair and B3, or B2 once an eye) with the
-   shear equal to without, u8, int16 and float32.  The forward warp
-   (`dibr_dfm`, plain torch) is timed at 1080p and held card vs CPU.
+   shear equal to without, u8, int16 and float32; `synthesize_views`
+   (B12's view stack), whose stack interlaced by the torch
+   `mux_multiview` equals `synthesize_interlace`, and `warp_views` (B14).
+   The forward warp (`dibr_dfm`, plain torch) is timed at 1080p and held
+   card vs CPU.
 3. Drives the paths on SBS frames built from tests/data/bud_{2,3}.bmp:
-   `process_frame` at HD1080_D128 (the main path: fused synthesis), at
-   HD1080_D128_HSLO_4K (scanline optimisation, median, unfused synthesis,
-   4K interlace), at HD1080_D128 with band_digits 2 and 1, with
+   `process_frame` at HD1080_D128 (the main path), at
+   HD1080_D128_HSLO_4K (scanline optimisation, median, 1080p views
+   interlaced to 4K), at HD1080_D128 with band_digits 2 and 1, with
    band_qscale=510 and with band_lossy_wta, and at UHD4K_16V (2160x3840,
    16 views, row-chunked stereo core and IRV);
    `process_frame_lowres` at HD1080_LOWRES; and the disparity-major
@@ -65,8 +73,10 @@
    equal the lane-major core at band_digits=2 in every pixel of both
    eyes.  For each, launch counts are zeroed just before one run and read
    just after: every kernel of the path must have launched, and the
-   kernels the path replaces must not; then a few runs are timed with
-   CUDA events.
+   kernels the path replaces must not; the path's interlaced frame must
+   equal the plain chain (plain masks, feather, view stack and
+   `mux_multiview`) computed on the card from its disparities; then a
+   few runs are timed with CUDA events.
 4. Checks the outputs: shapes, dtypes, finite disparities in range, and
    small frames (plain, HSLO + median + resampled, lowres, bilateral
    radius 10, num_disp 30, 40 views, band_qscale 510 and 64,
@@ -85,6 +95,10 @@ B8, B9, B10 and B13 at their edges and B8 and B9 in each IRV round
 too), then the dials' modes of B2-B4 and B6, against their plain
 versions, on the package under DIR: the way to show that a deliberately
 broken copy of one fails, and to time two commits' kernels in turns.
+`--synth-checks [--package-root DIR]` does the same for the synthesis
+kernels: the feather G1 and B12 (its view stack and its interlace mode)
+at their edges, and each preset path's interlaced frame against the
+plain chain.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
 a `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -159,6 +173,10 @@ KERNELS = {
         HSLO4K),
     "B14 warp_views": ("warp_views", _SRC + "warp.cu",
                        _TPU + "warpkern.py:290", HSLO4K),
+    "B12 warp_merge_interlace": ("warp_merge_interlace", _SRC + "warp.cu",
+                                 _TPU + "warpkern.py:340", MAIN),
+    "G1 dibr_feather": ("dibr_feather_mask", _SRC + "feather.cu",
+                        _TPU + "filters.py:35", MAIN),
 }
 # the third path gives B1-B10 other shapes (540x960, D=64, zero_disp=32)
 # and the synthesis kernels upscaled disparities of twice the range: each
@@ -218,6 +236,38 @@ for _suffix, _names in ((AT_D126, ("B2 cost_pair", "B3 shear_right")),
                                       "B14 warp_views"))):
     for _name in _names:
         KERNELS[_name + _suffix] = KERNELS[_name]
+# B12's interlace mode, the synthesis of every process_frame path: at the
+# 4K output of HSLO_4K (1080p views resampled to 2160x3840), with 38
+# views, two views (no merge), on a 37x1001 crop (rows of 3003 bytes: no
+# multiple of 16), shrunk to 720x1280, at another angle, and on masks and
+# a feather outside [0, 1] (the merges its conversion-free path does not
+# take, and u8 products that wrap); the feather
+# G1 at radii 0 and 1 beside the presets' 10, on a 37x15 crop (narrower
+# and shorter than 2r + 1), and at r = 40 and 70 (above one launch's
+# radius of 10: the two-launch passes)
+B12I = "B12 warp_merge_interlace"
+B12I_HSLO = " (HD1080_D128_HSLO_4K: 1080p to 2160x3840)"
+B12I_EDGES = (" (num_views 2: no merge)", " (37x1001 crop, 8 views)",
+              " (1080p shrunk to 720x1280)", " (angle 30)",
+              " (37x1001, masks and feather outside [0, 1]: the exact path)")
+KERNELS[B12I + B12I_HSLO] = (*KERNELS[B12I][:3], HSLO4K)
+for _suffix in (AT_VIEWS38, *B12I_EDGES):
+    KERNELS[B12I + _suffix] = KERNELS[B12I]
+G1_EDGES = {" (r=0)": 0, " (r=1)": 1, " (37x15 crop, r=10)": 10,
+            " (200x1001, r=40: two launches)": 40,
+            " (200x1001, r=70: two launches)": 70}
+for _suffix in G1_EDGES:
+    KERNELS["G1 dibr_feather" + _suffix] = KERNELS["G1 dibr_feather"]
+# the JAX-named entries that no process_frame path calls since the
+# synthesis became one kernel, each run as a path of its own on the
+# 1080p frame's stages: `synthesize_views` (B12's view stack) and
+# `warp_views` (B14)
+SYNTH_VIEWS = "synthesize_views HD1080_D128"
+WARP_VIEWS = "warp_views HD1080_D128"
+for _name in [n for n in KERNELS if n.startswith("B12 warp_merge_views")]:
+    KERNELS[_name] = (*KERNELS[_name][:3], SYNTH_VIEWS)
+for _name in [n for n in KERNELS if n.startswith("B14 warp_views")]:
+    KERNELS[_name] = (*KERNELS[_name][:3], WARP_VIEWS)
 # B1 on both eyes where its threshold compare and its staged cross meet
 # their edges: fractional thresholds that bf16 would round up (the JAX
 # Pallas kernel's difference from the reference), thresholds past 255 (no
@@ -438,10 +488,13 @@ SIDE_WRAPPERS = {"band_span_sum_h", "band_span_sum_v", "shear_right_dm",
 # (B13's wrapper is `dc_hslo_wta_eyes`; `dc_hslo_wta` is its name in an
 # older checkout's package, which `--frames` may time)
 HSLO_WRAPPERS = {"dc_hslo_wta_eyes", "dc_hslo_wta"}
+# the synthesis is one kernel (B12's interlace mode) on every path: the
+# view-stack and warp-volume kernels run on none
+VIEW_WRAPPERS = {"warp_merge_views", "warp_views"}
 NOT_ON_PATH = {
-    MAIN: {"warp_views"} | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
-    HSLO4K: {"h_pass_wta", "warp_merge_views"} | DM_WRAPPERS | SIDE_WRAPPERS,
-    LOWRES: {"warp_views"} | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
+    MAIN: VIEW_WRAPPERS | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
+    HSLO4K: {"h_pass_wta"} | VIEW_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
+    LOWRES: VIEW_WRAPPERS | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
 }
 for _path in (DIGITS2, DIGITS1, UHD4K, QSCALE510, LOSSY):
     NOT_ON_PATH[_path] = NOT_ON_PATH[MAIN]
@@ -451,7 +504,8 @@ for _path in (DIGITS2, DIGITS1, UHD4K, QSCALE510, LOSSY):
 # `vv_pass` launches its kernel once a call: once an eye and row chunk.
 # B1 launches once a frame for both eyes, B2 once a row chunk with the
 # whole frame's images (it computes the census: no torch census runs),
-# B13 once a row chunk for both eyes.
+# B13 once a row chunk for both eyes; the synthesis kernel and the
+# feather once a frame.
 EXACT_LAUNCHES = {
     MAIN: {"h_pass_sum": 2, "vv_pass": 2},
     HSLO4K: {"h_pass_sum": 4, "vv_pass": 2, "dc_hslo_wta_eyes": 1},
@@ -466,6 +520,8 @@ EXACT_LAUNCHES = {
 for _path, _counts in EXACT_LAUNCHES.items():
     _counts["cross_arms_eyes"] = 1
     _counts.setdefault("cost_pair", 1)
+    _counts["warp_merge_interlace"] = 1
+    _counts["dibr_feather_mask"] = 1
 
 
 class SmokeFailure(Exception):
@@ -1487,9 +1543,10 @@ def check_hslo_edges(chk, img_l, img_r, cfg):
 
 
 def check_many_views(chk, img_l, img_r, bl, br, cfg):
-    """B12, B14 and B19 with 38 intermediate views (num_views=40, more
-    than one kernel argument block of 32 views holds), on a 200x1001 crop
-    of a frame's images and final disparities."""
+    """B12 (both modes), B14 and B19 with 38 intermediate views
+    (num_views=40, more than one kernel argument block of 32 views
+    holds), on a 200x1001 crop of a frame's images and final
+    disparities."""
     from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
     from stereo_to_multiview_tpu_torch.ops import dibr, warpkern
 
@@ -1511,6 +1568,7 @@ def check_many_views(chk, img_l, img_r, bl, br, cfg):
                lambda: dibr.warp_merge_views_plain(*wargs),
                nbytes=2 * hw * 3 + 5 * hw * 4 + views.numel(),
                ops=views.numel() * 20)
+    record_interlace(chk, B12I, wargs[:7], 40, 200, 1001, cfg.angle)
     uargs = (l, r, dl, dr, shifts)
     vab = dibr.warp_views(*uargs)
     chk.record("B14 warp_views", vab, dibr.warp_views_plain(*uargs),
@@ -1561,9 +1619,95 @@ def check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg):
                                         cfg.bilateral_sigma_spatial)
 
 
-def check_synth_kernels(chk, img_l, img_r, bl, br, cfg, unfused=True):
-    """B7 (hits), B11, B12 and, with `unfused`, B14 on a frame's images
-    and filtered disparities."""
+# float32 operations of B12's merge: each (input point, intermediate
+# view) needs the two warps' coordinates and weights (2 x 14), each
+# (input point, view, channel) their 2-tap lerps (2 x 3), mask products
+# (2) and the merge (3)
+POINT_VIEW_OPS, POINT_CHANNEL_OPS = 28, 11
+
+
+def record_feather(chk, name, mask_r, radius: int, sigma: float):
+    """One G1 entry.  Bound: the mask read and the feather written once,
+    or the 2 x (2r + 1) taps' product and sum a pixel at the float32 rate
+    without contraction (every operation rounded on its own).  Returns
+    the feathered mask."""
+    from stereo_to_multiview_tpu_torch.ops import dibr
+    hw = mask_r.numel()
+    got = dibr.dibr_feather_mask(mask_r, radius, sigma)
+    chk.record(name, got, dibr.dibr_feather_mask_plain(mask_r, radius, sigma),
+               lambda: dibr.dibr_feather_mask(mask_r, radius, sigma),
+               lambda: dibr.dibr_feather_mask_plain(mask_r, radius, sigma),
+               nbytes=2 * hw * 4, ops=2 * (2 * radius + 1) * 2 * hw,
+               ops_rate=PEAK_FP32_NOFMA_PER_S)
+    return got
+
+
+def interlace_ops(h: int, w: int, num_views: int, rows: int, cols: int,
+                  angle: float, device) -> int:
+    """Float32 operations that B12's interlace mode needs for an (h, w)
+    input and a (rows, cols) output: POINT_VIEW_OPS for each distinct
+    (input point, intermediate view) and POINT_CHANNEL_OPS for each
+    distinct (input point, view, channel) that the frame's subpixels
+    read, and the 9 of a resampled subpixel's three lerps.  A subpixel
+    reads its view at its input point, or at a resampled output at the
+    lerp taps of weight > 0 (`lerp_taps`); one of view 0 or V - 1 reads a
+    source pixel and merges nothing."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import mux
+    from stereo_to_multiview_tpu_torch.ops.scale import lerp_taps
+    vid = mux.mux_view_pattern(num_views, rows, cols, angle, device)
+    merged = (vid > 0) & (vid < num_views - 1)
+    resampled = (rows, cols) != (h, w)
+
+    def axis_taps(n_out, n_in):
+        if not resampled:
+            i = torch.arange(n_out, device=device)
+            return [(i, torch.ones_like(i, dtype=torch.bool))]
+        i0, i1, wt = lerp_taps(n_out, n_in, device)
+        return [(i0, torch.ones_like(i0, dtype=torch.bool)), (i1, wt != 0)]
+
+    point_view = torch.zeros(h * w * num_views, dtype=torch.bool,
+                             device=device)
+    point_channel = torch.zeros(h * w * num_views * 3, dtype=torch.bool,
+                                device=device)
+    ch = torch.arange(3, device=device)
+    for iy, ky in axis_taps(rows, h):
+        for ix, kx in axis_taps(cols, w):
+            keep = merged & (ky[:, None] & kx[None, :])[:, :, None]
+            pv = ((iy[:, None] * w + ix[None, :])[:, :, None] * num_views
+                  + vid)[keep]
+            point_view[pv] = True
+            point_channel[pv * 3 + ch.expand_as(vid)[keep]] = True
+            del keep, pv
+    return (POINT_VIEW_OPS * int(point_view.sum())
+            + POINT_CHANNEL_OPS * int(point_channel.sum())
+            + (9 * rows * cols * 3 if resampled else 0))
+
+
+def record_interlace(chk, name, margs, num_views: int, rows: int, cols: int,
+                     angle: float):
+    """One entry of B12's interlace mode on (img_l, img_r, disp_l, disp_r,
+    mask_l, mask_r, feathered) = `margs`.  Bound: the two images and the
+    five float planes read once and the frame written once, or the
+    float32 operations without contraction that the frame needs
+    (`interlace_ops`)."""
+    from stereo_to_multiview_tpu_torch.ops import dibr
+    h, w = margs[0].shape[:2]
+    iargs = (*margs, num_views, rows, cols, angle)
+    got = dibr.warp_merge_interlace(*iargs)
+    ops = interlace_ops(h, w, num_views, rows, cols, angle, got.device)
+    chk.record(name, got, dibr.warp_merge_interlace_plain(*iargs),
+               lambda: dibr.warp_merge_interlace(*iargs),
+               lambda: dibr.warp_merge_interlace_plain(*iargs),
+               nbytes=2 * h * w * 3 + 5 * h * w * 4 + got.numel(), ops=ops,
+               ops_rate=PEAK_FP32_NOFMA_PER_S)
+
+
+def check_synth_kernels(chk, img_l, img_r, bl, br, cfg, b14=True):
+    """B7 (hits), B11, G1, B12 (its view stack and its interlace mode at
+    the configuration's own output) and, with `b14`, B14 on a frame's
+    images and filtered disparities.  Returns the inputs of the merge:
+    (mask_l, mask_r, feathered)."""
     from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
     from stereo_to_multiview_tpu_torch.ops import dibr
 
@@ -1583,8 +1727,8 @@ def check_synth_kernels(chk, img_l, img_r, bl, br, cfg, unfused=True):
                nbytes=hw + hw * 4, ops=2 * (2 * rb + 1) ** 2 * hw)
     mask_r = dibr.dibr_bleed_mask(occl[1], rb)
 
-    feathered = dibr.dibr_feather_mask(mask_r, cfg.feather_radius,
-                                       cfg.feather_sigma)
+    feathered = record_feather(chk, "G1 dibr_feather", mask_r,
+                               cfg.feather_radius, cfg.feather_sigma)
     wargs = (img_l, img_r, bl, br, mask_l, mask_r, feathered,
              _synth_shifts(cfg.num_views))
     views = dibr.warp_merge_views(*wargs)
@@ -1595,16 +1739,52 @@ def check_synth_kernels(chk, img_l, img_r, bl, br, cfg, unfused=True):
                nbytes=2 * hw * 3 + 5 * hw * 4 + views.numel(),
                ops=views.numel() * 20)
     del views
-    if not unfused:
-        return
+    record_interlace(chk, B12I, wargs[:7], cfg.num_views, cfg.num_rows_out,
+                     cfg.num_cols_out, cfg.angle)
+    if b14:
+        uargs = (img_l, img_r, bl, br, _synth_shifts(cfg.num_views))
+        vab = dibr.warp_views(*uargs)
+        chk.record("B14 warp_views", vab, dibr.warp_views_plain(*uargs),
+                   lambda: dibr.warp_views(*uargs),
+                   lambda: dibr.warp_views_plain(*uargs),
+                   nbytes=2 * hw * 3 + 2 * hw * 4 + 2 * vab[0].numel() * 4,
+                   ops=2 * vab[0].numel() * 8)
+    return mask_l, mask_r, feathered
 
-    uargs = (img_l, img_r, bl, br, _synth_shifts(cfg.num_views))
-    vab = dibr.warp_views(*uargs)
-    chk.record("B14 warp_views", vab, dibr.warp_views_plain(*uargs),
-               lambda: dibr.warp_views(*uargs),
-               lambda: dibr.warp_views_plain(*uargs),
-               nbytes=2 * hw * 3 + 2 * hw * 4 + 2 * vab[0].numel() * 4,
-               ops=2 * vab[0].numel() * 8)
+
+def check_synth_edges(chk, img_l, img_r, bl, br, masks, cfg):
+    """B12's interlace mode and G1 beyond the 1080p main path's own
+    shapes, on its frame's stages (`masks` from `check_synth_kernels`):
+    the HSLO_4K preset's 2160x3840 output from these 1080p views, two
+    views, a 37x1001 crop (also with masks and a feather outside [0, 1]),
+    a shrunk output, another angle; the feather
+    at r = 0 and 1, on a 37x15 crop and at r = 40 and 70 on a 200x1001
+    crop."""
+    import torch
+    from stereo_to_multiview_tpu_torch.config import HD1080_D128_HSLO_4K
+    margs = (img_l, img_r, bl, br, *masks)
+    v, angle = cfg.num_views, cfg.angle
+    hcfg = HD1080_D128_HSLO_4K
+    record_interlace(chk, B12I + B12I_HSLO, margs, hcfg.num_views,
+                     hcfg.num_rows_out, hcfg.num_cols_out, hcfg.angle)
+    torch.cuda.empty_cache()
+    record_interlace(chk, B12I + B12I_EDGES[0], margs, 2, cfg.num_rows_out,
+                     cfg.num_cols_out, angle)
+    y0 = img_l.shape[0] // 2
+    crop = tuple(t[y0:y0 + 37, :1001].contiguous() for t in margs)
+    record_interlace(chk, B12I + B12I_EDGES[1], crop, v, 37, 1001, angle)
+    record_interlace(chk, B12I + B12I_EDGES[2], margs, v, 720, 1280, angle)
+    record_interlace(chk, B12I + B12I_EDGES[3], margs, v, cfg.num_rows_out,
+                     cfg.num_cols_out, 30.0)
+    # masks of 0 and 1.5, a feather in [-0.25, 1.25]
+    odd = (*crop[:4], crop[4] * 1.5, crop[5], crop[6] * 1.5 - 0.25)
+    record_interlace(chk, B12I + B12I_EDGES[4], odd, v, 37, 1001, angle)
+    mask_r = masks[1]
+    for suffix, r in G1_EDGES.items():
+        m = (mask_r[y0:y0 + 37, :15] if "37x15" in suffix else
+             mask_r[y0:y0 + 200, :1001] if "200x1001" in suffix else mask_r)
+        record_feather(chk, "G1 dibr_feather" + suffix, m.contiguous(), r,
+                       cfg.feather_sigma)
 
 
 def check_band_digits(chk, img_l, img_r, arms, cfg):
@@ -2323,6 +2503,77 @@ def check_warp_rowmajor(chk, img_l, img_r, bl, br, cfg):
     return res
 
 
+def run_synthesis_entries(img_l, img_r, bl, br, cfg):
+    """The JAX-named synthesis entries beside process_frame, each as a
+    path on a frame's final disparities: `synthesize_views` (the masks,
+    the feather and B12's view stack) and `warp_views` (B14).  The stack
+    interlaced by the torch `mux_multiview` must equal
+    `synthesize_interlace` (B12's interlace mode).  Returns the paths'
+    results."""
+    import torch
+    from stereo_to_multiview_tpu_torch.models import pipeline
+    from stereo_to_multiview_tpu_torch.ops import dibr, mux
+
+    args = (img_l, img_r, bl, br, cfg)
+    reset_counts()
+    views = pipeline.synthesize_views(*args)
+    launches = read_counts(SYNTH_VIEWS, {
+        "dibr_occl": 1, "dibr_bleed_mask": 2, "dibr_feather_mask": 1,
+        "warp_merge_views": 1}, zero=("warp_merge_interlace", "warp_views"))
+    chain = mux.mux_multiview(views, cfg.num_rows_out, cfg.num_cols_out,
+                              cfg.angle)
+    if not torch.equal(chain, pipeline.synthesize_interlace(*args)):
+        raise SmokeFailure(f"path {SYNTH_VIEWS}: mux_multiview of the view "
+                           f"stack differs from synthesize_interlace")
+    del views, chain
+    res = {SYNTH_VIEWS: dict(
+        launches=launches,
+        synth_views_ms=time_ms(lambda: pipeline.synthesize_views(*args), 10),
+        synth_interlace_ms=time_ms(
+            lambda: pipeline.synthesize_interlace(*args), 10))}
+    shifts = dibr.synth_shifts(cfg.num_views)
+    reset_counts()
+    dibr.warp_views(img_l, img_r, bl, br, shifts)
+    res[WARP_VIEWS] = dict(
+        launches=read_counts(WARP_VIEWS, {"warp_views": 1}),
+        warp_views_ms=time_ms(
+            lambda: dibr.warp_views(img_l, img_r, bl, br, shifts), 10))
+    print(f"path {SYNTH_VIEWS}: the stack interlaced equal to "
+          f"synthesize_interlace; {res[SYNTH_VIEWS]['synth_views_ms']:.3f} "
+          f"ms for the views, "
+          f"{res[SYNTH_VIEWS]['synth_interlace_ms']:.3f} ms for the "
+          f"interlaced frame (masks and feather included)", flush=True)
+    return res
+
+
+def check_interlaced(name, sbs, cfg, out):
+    """A path's interlaced frame against the plain chain on the card,
+    from the path's own final disparities: the plain versions of B7's
+    hits, B11, G1 and B12's interlace mode (the view stack, then
+    `mux_multiview`), bit for bit."""
+    import torch
+    from stereo_to_multiview_tpu_torch.models import pipeline
+    from stereo_to_multiview_tpu_torch.ops import dibr
+
+    img_l, img_r = (t.contiguous() for t in pipeline.demux_sbs(
+        torch.as_tensor(sbs).to(out[2].device)))
+    dl, dr = out[0], out[1]
+    occl_l, occl_r = dibr.dibr_occl_plain(dl, dr)
+    mask_l, mask_r = (dibr.dibr_bleed_mask_plain(o, cfg.bleed_radius)
+                      for o in (occl_l, occl_r))
+    feathered = dibr.dibr_feather_mask_plain(mask_r, cfg.feather_radius,
+                                             cfg.feather_sigma)
+    ref = dibr.warp_merge_interlace_plain(
+        img_l, img_r, dl, dr, mask_l, mask_r, feathered, cfg.num_views,
+        cfg.num_rows_out, cfg.num_cols_out, cfg.angle)
+    if not torch.equal(out[2], ref):
+        raise SmokeFailure(f"path {name}: the interlaced frame differs from "
+                           f"the plain chain at "
+                           f"{int((out[2] != ref).sum())} subpixels")
+    print(f"path {name}: interlaced frame equal to the plain chain "
+          f"(views, then mux_multiview) on the card", flush=True)
+
+
 def check_forward_warp(img_l, img_r, bl, br, cfg):
     """`dibr_dfm` (plain torch on every device) at 1080p on the card,
     timed; on a 96x160 crop the card's result must equal the CPU's, the
@@ -2363,8 +2614,9 @@ def check_forward_warp(img_l, img_r, bl, br, cfg):
 def run_path(name, entry, sbs, cfg, n_frames: int, exact: bool = True):
     """Phase 3, one path: `entry(sbs, cfg)` once with the launch counts
     zeroed just before and read just after, then n_frames timed frames.
-    `exact` holds the counts of EXACT_LAUNCHES too (off only when timing
-    another checkout's package, whose wrappers may count otherwise)."""
+    `exact` holds the kernels NOT_ON_PATH replaces to zero launches and
+    the counts of EXACT_LAUNCHES (off only when timing another checkout's
+    package, whose wrappers and routes may differ)."""
     import torch
     from stereo_to_multiview_tpu_torch import kernels
     from stereo_to_multiview_tpu_torch.utils.profiling import StageTimer
@@ -2385,7 +2637,7 @@ def run_path(name, entry, sbs, cfg, n_frames: int, exact: bool = True):
     if missing:
         raise SmokeFailure(f"path {name}: kernels not launched: {missing}")
     stray = [n for n in NOT_ON_PATH[name] if launches.get(n, 0) != 0]
-    if stray:
+    if stray and exact:
         raise SmokeFailure(f"path {name}: kernels launched that the path "
                            f"replaces: {stray}")
     for n, want in EXACT_LAUNCHES[name].items() if exact else ():
@@ -2639,6 +2891,60 @@ def stream_checks(root: str) -> int:
     return 0
 
 
+def synth_checks(root: str) -> int:
+    """`--synth-checks [--package-root DIR]`: only the synthesis kernels,
+    on the package under DIR: G1 and B12 (both modes) on the 1080p
+    frame's stages and at their edges, the synthesis entries as paths,
+    then the preset paths' interlaced frames (one frame each, launch
+    counts held) against the plain chain, and the 4K frame's G1 and
+    B12.  Exit 1 if one fails: a deliberately broken copy must."""
+    import torch
+    sys.path.insert(0, root)
+    from stereo_to_multiview_tpu_torch import config, kernels
+    from stereo_to_multiview_tpu_torch.models import pipeline
+
+    print(f"gpu: {gpu_line()}", flush=True)
+    print_ptxas(kernels.build_kernels())
+    cfg = config.HD1080_D128
+    sbs = stereo_sbs(cfg.num_rows, cfg.num_cols)
+    chk = KernelChecks(reps=10)
+    try:
+        out = pipeline.process_frame(sbs, cfg)
+        img_l, img_r = (t.contiguous() for t in pipeline.demux_sbs(
+            torch.from_numpy(sbs).to(out[2].device)))
+        bl, br = out[0], out[1]
+        masks = check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
+        check_synth_edges(chk, img_l, img_r, bl, br, masks, cfg)
+        check_many_views(chk, img_l, img_r, bl, br, cfg)
+        run_synthesis_entries(img_l, img_r, bl, br, cfg)
+        del masks, out, img_l, img_r, bl, br
+        torch.cuda.empty_cache()
+        cfg4k = config.UHD4K_16V
+        sbs4k = stereo_sbs(cfg4k.num_rows, cfg4k.num_cols)
+        for name, entry, pcfg, frame in (
+                (MAIN, pipeline.process_frame, cfg, sbs),
+                (HSLO4K, pipeline.process_frame, config.HD1080_D128_HSLO_4K,
+                 sbs),
+                (LOWRES, pipeline.process_frame_lowres, config.HD1080_LOWRES,
+                 sbs),
+                (UHD4K, pipeline.process_frame, cfg4k, sbs4k)):
+            out, _ = run_path(name, entry, frame, pcfg, 1)
+            check_interlaced(name, frame, pcfg, out)
+            if name == UHD4K:
+                img_l, img_r = (t.contiguous() for t in pipeline.demux_sbs(
+                    torch.from_numpy(frame).to(out[2].device)))
+                chk.suffix = AT_4K
+                check_synth_kernels(chk, img_l, img_r, out[0], out[1], pcfg,
+                                    b14=False)
+                chk.suffix = ""
+            del out
+            torch.cuda.empty_cache()
+    except (SmokeFailure, RuntimeError, ValueError) as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2649,9 +2955,14 @@ def main() -> int:
                     help="only hold B1-B6, B8-B10 and B13 (and "
                          "the dials' modes) against their plain "
                          "versions and print no result line")
+    ap.add_argument("--synth-checks", action="store_true",
+                    help="only hold the synthesis kernels (G1, B12) and "
+                         "the presets' interlaced frames against their "
+                         "plain versions and print no result line")
     ap.add_argument("--package-root", default=HERE,
-                    help="with --frames or --stream-checks: the checkout "
-                         "whose package runs (default: this one)")
+                    help="with --frames, --stream-checks or "
+                         "--synth-checks: the checkout whose package runs "
+                         "(default: this one)")
     args = ap.parse_args()
     try:
         import torch
@@ -2665,6 +2976,8 @@ def main() -> int:
         return time_frames(os.path.abspath(args.package_root), args.frames)
     if args.stream_checks:
         return stream_checks(os.path.abspath(args.package_root))
+    if args.synth_checks:
+        return synth_checks(os.path.abspath(args.package_root))
     sys.path.insert(0, HERE)
     try:
         from stereo_to_multiview_tpu_torch import config, kernels
@@ -2708,8 +3021,13 @@ def main() -> int:
         check_rowspan_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_hstream_edges(chk, img_l, img_r, cfg)
         torch.cuda.empty_cache()
-        check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
+        masks = check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
+        check_synth_edges(chk, img_l, img_r, bl, br, masks, cfg)
+        del masks
+        torch.cuda.empty_cache()
         check_many_views(chk, img_l, img_r, bl, br, cfg)
+        paths.update(run_synthesis_entries(img_l, img_r, bl, br, cfg))
+        torch.cuda.empty_cache()
         # the entry points beside process_frame, on this frame's stages:
         # B15 and dr_irv_band_lr on its raw disparities and labels, the
         # row-major warps (B19, B20) and the forward warp on its final
@@ -2779,7 +3097,7 @@ def main() -> int:
                                 1.0 / lcfg.disp_scale).contiguous()
                   for d in check_disp_kernels(chk, low_l, low_r, arms_l,
                                               arms_r, lcfg))
-        check_synth_kernels(chk, img_l, img_r, bl, br, lcfg, unfused=False)
+        check_synth_kernels(chk, img_l, img_r, bl, br, lcfg, b14=False)
         chk.suffix = ""
         kres = chk.results
         report["irv_early_stop"] = chk.irv
@@ -2802,6 +3120,7 @@ def main() -> int:
                  cfg.replace(band_lossy_wta=True))):
             out, paths[name] = run_path(name, entry, sbs, pcfg, 10)
             check_outputs(name, out, pcfg, pipeline.synth_disp_bounds(pcfg))
+            check_interlaced(name, sbs, pcfg, out)
             del out
             torch.cuda.empty_cache()
 
@@ -2813,6 +3132,8 @@ def main() -> int:
         out, paths[UHD4K] = run_path(UHD4K, pipeline.process_frame, sbs4k,
                                      cfg4k, 2)
         check_outputs(UHD4K, out, cfg4k, pipeline.synth_disp_bounds(cfg4k))
+        check_interlaced(UHD4K, sbs4k, cfg4k, out)
+        torch.cuda.empty_cache()
         img_l, img_r = (t.contiguous() for t in
                         pipeline.demux_sbs(torch.from_numpy(sbs4k).to(dev)))
         check_cost_chunk(chk, img_l, img_r, cfg4k)
@@ -2831,7 +3152,7 @@ def main() -> int:
             cross.cross_arms(img_r[:irv_rows], *arm_args), cfg4k)
         torch.cuda.empty_cache()
         check_synth_kernels(chk, img_l, img_r, out[0], out[1], cfg4k,
-                            unfused=False)
+                            b14=False)
         chk.suffix = ""
         del out
         torch.cuda.empty_cache()
@@ -2897,6 +3218,13 @@ def main() -> int:
                   f"{p['direct_ms']:.3f} ms direct at {name} on {card}")
         elif "xm_ms" in p:
             print(f"cost: {p['xm_ms']:.3f} ms at {name} on {card}")
+        elif "synth_views_ms" in p:
+            print(f"synthesis: {p['synth_views_ms']:.3f} ms view stack, "
+                  f"{p['synth_interlace_ms']:.3f} ms interlaced frame at "
+                  f"{name} on {card}")
+        elif "warp_views_ms" in p:
+            print(f"warps: {p['warp_views_ms']:.4f} ms B14's volumes at "
+                  f"{name} on {card}")
         else:
             print(f"warps: {p['views_ms']:.4f} ms all views, "
                   f"{p['pairs_ms']:.4f} ms per-view pairs at {name} on "

@@ -32,14 +32,19 @@ its module names, so each counterpart is easy to find:
   ops.irv        -- kernels B8/B9 (an IRV round, `need`-gated) and the
                     early-stopping round loop
   ops.filters    -- kernel B10 (bilateral, radius <= 8), median, bleed
-  ops.dibr       -- kernels B7 (hits), B11, B12 (fused warp + merge) and
-                    B14 (the unfused synthesis' warps); the forward warp
+  ops.dibr       -- kernels B7 (hits), B11, G1 (the mask feather), B12
+                    (warp + merge + interlace in one kernel,
+                    `warp_merge_interlace`, the synthesis of every path;
+                    the view stack, `warp_merge_views`) and B14 (the
+                    float warps of every view); the forward warp
   ops.warpkern   -- kernels B19/B20 (the bounded row-major warps,
                     `dibr_warp_views_kern`, `dibr_warp_pair_kern`)
+  ops.mux        -- the interlace's view pattern and `mux_multiview`
   ops.scale      -- the rescales of the lowres path and the interlace
   csrc           -- the CUDA sources of those kernels (sm_90a)
   kernels        -- nvcc build, ctypes loading, launch counters
-  models         -- process_frame, process_frame_lowres
+  models         -- process_frame, process_frame_lowres,
+                    synthesize_interlace, synthesize_views
   utils          -- BMP reader, stage annotation and timing
 """
 

@@ -147,7 +147,7 @@ HD1080_D128 = PipelineConfig(
 
 # 1080p stereo to a 4K lenticular panel with the scanline optimisation
 # and the median filter on: the HSLO kernel runs once for both eyes and the
-# unfused synthesis (resampled interlace) replaces the fused warp+merge.
+# synthesis kernel samples each 4K subpixel's view at four 1080p points.
 HD1080_D128_HSLO_4K = HD1080_D128.replace(
     use_hslo=True, use_median=True, num_rows_out=2160, num_cols_out=3840)
 

@@ -1,13 +1,15 @@
-// B12: every intermediate view, warped from both eyes, masked and merged.
+// B12: every intermediate view, warped from both eyes, masked and merged;
+// in its interlace mode only the interlaced frame's subpixels (below).
 // B14: the same two warps of every view, floored, without mask and merge.
 // B19/B20: B14's warps bounded to each view's static offset range.
 //
 // B12 replaces the TPU kernel stereo_to_multiview_tpu/ops/warpkern.py
 // `_warp_merge_views_xm_kernel` (reached via
 // `dibr_warp_merge_views_kern_xm`); B14 replaces `_warp_views_xm_kernel`
-// (reached via `dibr_warp_views_kern_xm`), the unfused synthesis taken
-// when the output resolution differs from the input's, bleed_radius != 1
-// or there is no intermediate view to merge in the fused way.
+// (reached via `dibr_warp_views_kern_xm`), the JAX band engine's unfused
+// synthesis, taken when the output resolution differs from the input's,
+// bleed_radius != 1 or there is no intermediate view to merge in the
+// fused way; in the port it serves the entry `warp_views` only.
 //
 // For view v with shifts sl = shifts_l[v] (= -shift), sr = shifts_r[v]
 // (= 1 - shift):
@@ -39,9 +41,10 @@
 // sampling code is B12's own (`make_lerp`, `lerp_u8`), so the two cannot
 // drift apart.
 //
-// The shifts (and B19's bounds) reach a kernel by value, WARP_MAX_VIEWS
-// views at a time: an entry point takes any number of views and launches
-// its kernel once for each group of at most that many.
+// The shifts (and B19's bounds) reach these kernels by value,
+// WARP_MAX_VIEWS views at a time: an entry point takes any number of views
+// and launches its kernel once for each group of at most that many.  The
+// interlace mode reads them from a device array in one launch.
 
 #include "stm_common.cuh"
 
@@ -91,6 +94,18 @@ __device__ __forceinline__ uint8_t sample(const uint8_t* row, const Lerp& l,
   return to_u8(__fmul_rn((float)lerp_u8(row, l, ch), l.m));
 }
 
+// The merge of one channel: u8(u8((1 - m) * from_l) + u8(m * from_r)),
+// m_b = 1 - m.
+__device__ __forceinline__ uint8_t merge_u8(const uint8_t* row_l,
+                                            const uint8_t* row_r,
+                                            const Lerp& from_l,
+                                            const Lerp& from_r, float m,
+                                            float m_b, int ch) {
+  const uint8_t b = to_u8(__fmul_rn(m_b, (float)sample(row_l, from_l, ch)));
+  const uint8_t a = to_u8(__fmul_rn(m, (float)sample(row_r, from_r, ch)));
+  return (uint8_t)(b + a);
+}
+
 __global__ void __launch_bounds__(WARP_TX)
 warp_merge_kernel(const uint8_t* __restrict__ img_l,
                   const uint8_t* __restrict__ img_r,
@@ -113,11 +128,8 @@ warp_merge_kernel(const uint8_t* __restrict__ img_l,
   const uint8_t* row_r = img_r + (size_t)y * W * 3;
   uint8_t* o = out + (((size_t)v * H + y) * W + x) * 3;
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    const uint8_t b = to_u8(__fmul_rn(m_b, (float)sample(row_l, from_l, ch)));
-    const uint8_t a = to_u8(__fmul_rn(m, (float)sample(row_r, from_r, ch)));
-    o[ch] = (uint8_t)(b + a);
-  }
+  for (int ch = 0; ch < 3; ++ch)
+    o[ch] = merge_u8(row_l, row_r, from_l, from_r, m, m_b, ch);
 }
 
 // img_l, img_r: (H, W, 3) u8; disp_*, mask_*, feather: (H, W) f32;
@@ -148,6 +160,333 @@ STM_API int stm_warp_merge(const void* img_l, const void* img_r,
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// B12's interlace mode (`stm_warp_merge_interlace`): the merged views and
+// the slanted-lenticular interlace in one kernel that writes only the
+// interlaced frame.  It computes the JAX chain `synthesize_interlace`
+// (stereo_to_multiview_tpu/models/pipeline.py:296): the TPU kernel above
+// followed by `mux_multiview_t`, which keeps 1/V of the views it reads
+// (and, at a resampled output, `mux_multiview`, which first resamples
+// every view).  Output subpixel (Y, X, ch) takes view
+//   v = (3 X + yv(Y) + 2 - ch) mod V,
+//   yv(Y) = trunc(((Y mod y_mod) + 1) * V * inv_y)  (float32, left to
+//   right), as `mux_view_pattern` defines it;
+// view 0 is img_r, view V - 1 img_l, and view v in between is the merge
+// above (`merge_u8`) at shifts sl[v - 1], sr[v - 1], read from a device
+// array of V - 2 each (any V in one launch).  At identity resolution that
+// value is the output.  At a resampled output it is the selected view's
+// u8 value at the four input points of the per-axis tables (i0, i1, w)
+// (the host's float32 `samp_coords`), lerped x first and y second as
+// `lerp_axis` does, a0 * (1 - w) + a1 * w with 1 - w in float32 and every
+// product and sum rounded on its own, then stored truncated to u8.
+//
+// Bound on the H100: the two images and the five (H, W) float32 planes
+// read once and the output written once (1080p: 54 + 6 MB, 0.018 ms;
+// 1080p to 2160x3840: 54 + 25 MB, 0.024 ms), or at a resampled output the
+// four merges a subpixel as float32 operations without contraction.  The
+// chain it replaces wrote all V - 2 views (37 MB at 1080p, 348 MB at 4K)
+// and read them back.  Design: a block takes 512 consecutive pixels of
+// the flat output (1536 bytes, so its first byte is 16-byte aligned at
+// any width), thread t pixels t, t + 128, t + 256, t + 384 (coalesced
+// plane loads, each pixel's planes loaded once for its three subpixels'
+// views); the block stages its bytes in shared memory and stores them as
+// 16-byte words, the frame's last block its tail byte by byte.  The
+// gathers stay in the pixel's row within the disparity's reach of x,
+// which L1 and L2 hold (12 MB of images at 1080p).
+//
+// Conversions between int and float run at 16 a clock on a SM against
+// 128 float adds or multiplies, and the merge above takes some 18 a
+// value, so the merge here takes none: floor and truncation of a value
+// 0 <= v < 2^23 are v + 2^23 rounded toward zero (its low mantissa bits
+// hold the integer), and a byte b becomes a float as the bits of 2^23 + b
+// minus 2^23.  Every such value lies in that range where the masks lie in
+// [0, 1] and the feather in [0, 1 + 2^-8] (B11 and G1 give nothing else),
+// and the results are then the merge's own.  The test runs once a pixel
+// (all four input points at a resampled output); a passing pixel computes
+// its merges in one straight line, with no branch between them (views 0
+// and V - 1 merged too, their source pixel selected after), so their
+// loads overlap; a failing one takes the merge above (`merge_u8`), exact
+// for any float.
+
+#define WMI_TX 128
+#define WMI_PX 4
+#define WMI_BLOCK (WMI_TX * WMI_PX)
+#define F2P23 8388608.0f            // 2^23
+#define F2P23_BITS 0x4B000000
+
+// v + 2^23 rounded toward zero: for 0 <= v < 2^23 its low 23 bits hold
+// floor(v).
+__device__ __forceinline__ float magic(float v) {
+  return __fadd_rz(v, F2P23);
+}
+
+// floor(v) for 0 <= v < 2^23, as a float.
+__device__ __forceinline__ float floor_nn(float v) {
+  return __fsub_rn(magic(v), F2P23);
+}
+
+// An integer 0 <= i < 2^23 as a float.
+__device__ __forceinline__ float int_f(int i) {
+  return __fsub_rn(__int_as_float(F2P23_BITS + i), F2P23);
+}
+
+// The low byte of an integer-valued float 0 <= v < 2^23.
+__device__ __forceinline__ uint8_t byte_of(float v) {
+  return (uint8_t)(__float_as_int(magic(v)) & 0xFF);
+}
+
+struct MergeSrc {
+  const uint8_t* img_l;
+  const uint8_t* img_r;
+  const float* disp_l;
+  const float* disp_r;
+  const float* mask_l;
+  const float* mask_r;
+  const float* feather;
+  const float* shifts;   // sl[0 .. V - 3], then sr[0 .. V - 3]
+  int H, W, V;
+};
+
+// One input pixel's rows and planes, loaded once for every view read
+// there; `fast` where its masks lie in the ranges above.
+struct MergePx {
+  const uint8_t* row_l;
+  const uint8_t* row_r;
+  float dl, dr, ml, mr, m, m_b, xf;
+  int x;
+  bool fast;
+};
+
+__device__ __forceinline__ MergePx load_px(const MergeSrc& s, int y, int x) {
+  MergePx p;
+  p.row_l = s.img_l + (size_t)y * s.W * 3;
+  p.row_r = s.img_r + (size_t)y * s.W * 3;
+  p.x = x;
+  p.xf = int_f(x);
+  p.dl = p.dr = p.ml = p.mr = p.m = p.m_b = 0.0f;
+  p.fast = true;
+  if (s.V > 2) {
+    const size_t i = (size_t)y * s.W + x;
+    p.dl = s.disp_l[i];
+    p.dr = s.disp_r[i];
+    p.ml = s.mask_l[i];
+    p.mr = s.mask_r[i];
+    p.m = s.feather[i];
+    p.m_b = __fsub_rn(1.0f, p.m);
+    p.fast = p.ml >= 0.0f && p.ml <= 1.0f && p.mr >= 0.0f && p.mr <= 1.0f &&
+             p.m >= 0.0f && p.m <= 1.00390625f;
+  }
+  return p;
+}
+
+// `make_lerp`'s weights and columns, without conversions; c lies in
+// [0, W - 1] after the clamp, so floor(c) is `magic`'s.
+struct FastLerp {
+  float w0, w1;
+  int i0, i1;
+};
+
+__device__ __forceinline__ FastLerp fast_lerp(float xf, float d, float s,
+                                              int W) {
+  float c = __fadd_rn(xf, __fmul_rn(d, s));
+  c = fminf(fmaxf(c, 0.0f), int_f(W - 1));
+  const float t = magic(c);
+  const float x0 = __fsub_rn(t, F2P23);
+  FastLerp l;
+  l.w0 = fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(c, x0))), 0.0f);
+  l.w1 = fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(c, __fadd_rn(x0, 1.0f)))),
+               0.0f);
+  l.i0 = __float_as_int(t) - F2P23_BITS;
+  l.i1 = min(l.i0 + 1, W - 1);
+  return l;
+}
+
+__device__ __forceinline__ float byte_f(uint8_t b) {
+  return int_f((int)b);
+}
+
+// `lerp_u8` as a float: w0 a + w1 b lies in [0, 256) (weights in [0, 1],
+// their sum within two ulps of 1).
+__device__ __forceinline__ float lerp_f(const uint8_t* row, const FastLerp& l,
+                                        int ch) {
+  return floor_nn(__fadd_rn(__fmul_rn(l.w0, byte_f(row[l.i0 * 3 + ch])),
+                            __fmul_rn(l.w1, byte_f(row[l.i1 * 3 + ch]))));
+}
+
+// A subpixel's view and, for an intermediate view, its two shifts.
+struct ViewSel {
+  int v;
+  float sl, sr;
+};
+
+__device__ __forceinline__ ViewSel select_view(const MergeSrc& s, int v) {
+  ViewSel vs{v, 0.0f, 0.0f};
+  if (v > 0 && v < s.V - 1) {
+    vs.sl = s.shifts[v - 1];
+    vs.sr = s.shifts[s.V - 2 + v - 1];
+  }
+  return vs;
+}
+
+// View vs.v's value at the pixel, channel ch, exact for any masks: a
+// source pixel, or the merge above (`merge_u8`).
+__device__ __forceinline__ uint8_t view_u8(const MergeSrc& s,
+                                           const MergePx& p,
+                                           const ViewSel& vs, int ch) {
+  if (vs.v == 0) return p.row_r[p.x * 3 + ch];
+  if (vs.v == s.V - 1) return p.row_l[p.x * 3 + ch];
+  const Lerp from_l = make_lerp(p.x, p.dr, vs.sl, p.mr, s.W);
+  const Lerp from_r = make_lerp(p.x, p.dl, vs.sr, p.ml, s.W);
+  return merge_u8(p.row_l, p.row_r, from_l, from_r, p.m, p.m_b, ch);
+}
+
+// The same as an integer-valued float in [0, 256), without branches or
+// conversions, where the pixel's masks lie in the ranges above: the merge
+// is computed for every view (for views 0 and V - 1 at shifts 0, whose
+// samples stay in the row) and the source pixel selected after it.
+__device__ __forceinline__ float view_fast(const MergeSrc& s,
+                                           const MergePx& p,
+                                           const ViewSel& vs, int ch) {
+  const FastLerp fl = fast_lerp(p.xf, p.dr, vs.sl, s.W);
+  const FastLerp fr = fast_lerp(p.xf, p.dl, vs.sr, s.W);
+  // u8((1 - m) * from_l): a product in (-1, 0) truncates to 0
+  const float b = floor_nn(fmaxf(
+      __fmul_rn(p.m_b, floor_nn(__fmul_rn(lerp_f(p.row_l, fl, ch), p.mr))),
+      0.0f));
+  const float a =
+      floor_nn(__fmul_rn(p.m, floor_nn(__fmul_rn(lerp_f(p.row_r, fr, ch),
+                                                 p.ml))));
+  float t = __fadd_rn(b, a);
+  t = t >= 256.0f ? __fsub_rn(t, 256.0f) : t;    // the u8 sum wraps
+  const uint8_t* src = vs.v == 0 ? p.row_r : p.row_l;
+  const float pix = byte_f(src[p.x * 3 + ch]);
+  return vs.v == 0 || vs.v == s.V - 1 ? pix : t;
+}
+
+__device__ __forceinline__ float lerp2(float a0, float a1, float w,
+                                       float w_b) {
+  return __fadd_rn(__fmul_rn(a0, w_b), __fmul_rn(a1, w));
+}
+
+__global__ void __launch_bounds__(WMI_TX)
+warp_merge_interlace_kernel(MergeSrc s, const int* __restrict__ yi0,
+                            const int* __restrict__ yi1,
+                            const float* __restrict__ wy,
+                            const int* __restrict__ xi0,
+                            const int* __restrict__ xi1,
+                            const float* __restrict__ wx, int y_mod,
+                            float inv_y, uint8_t* __restrict__ out,
+                            int rows, int cols) {
+  __shared__ __align__(16) uint8_t stage[WMI_BLOCK * 3];
+  const int p0 = blockIdx.x * WMI_BLOCK;
+  const int n = min(WMI_BLOCK, rows * cols - p0);
+  const float fv = int_f(s.V);
+  // this thread's first pixel; each next one lies WMI_TX further
+  int Y = (p0 + (int)threadIdx.x) / cols;
+  int X = p0 + (int)threadIdx.x - Y * cols;
+  int ym = Y % y_mod;
+  for (int k = 0; k < WMI_PX; ++k) {
+    const int j = threadIdx.x + k * WMI_TX;
+    if (j < n) {
+      // trunc((ym + 1) * V * inv_y), a value >= 0
+      const int yv = __float_as_int(magic(__fmul_rn(
+                         __fmul_rn(__fadd_rn(int_f(ym), 1.0f), fv), inv_y))) -
+                     F2P23_BITS;
+      const int v0 = (3 * X + yv + 2) % s.V;
+      ViewSel vs[3];
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+        vs[ch] = select_view(s, v0 - ch < 0 ? v0 - ch + s.V : v0 - ch);
+      uint8_t* o = stage + j * 3;
+      if (xi0 == nullptr) {
+        const MergePx px = load_px(s, Y, X);
+        if (px.fast) {
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch)
+            o[ch] = byte_of(view_fast(s, px, vs[ch], ch));
+        } else {
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) o[ch] = view_u8(s, px, vs[ch], ch);
+        }
+      } else {
+        const int ya = yi0[Y], yb = yi1[Y], xa = xi0[X], xb = xi1[X];
+        const MergePx q[4] = {load_px(s, ya, xa), load_px(s, ya, xb),
+                              load_px(s, yb, xa), load_px(s, yb, xb)};
+        const float fx = wx[X], fy = wy[Y];
+        const float fx_b = __fsub_rn(1.0f, fx), fy_b = __fsub_rn(1.0f, fy);
+        float val[4][3];
+        if (q[0].fast && q[1].fast && q[2].fast && q[3].fast) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch)
+              val[c][ch] = view_fast(s, q[c], vs[ch], ch);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch)
+              val[c][ch] = byte_f(view_u8(s, q[c], vs[ch], ch));
+        }
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float top = lerp2(val[0][ch], val[1][ch], fx, fx_b);
+          const float bot = lerp2(val[2][ch], val[3][ch], fx, fx_b);
+          // in [0, 256): truncated as `mux_multiview`'s u8 store
+          o[ch] = byte_of(lerp2(top, bot, fy, fy_b));
+        }
+      }
+    }
+    X += WMI_TX;
+    while (X >= cols) {
+      X -= cols;
+      ++Y;
+      if (++ym == y_mod) ym = 0;
+    }
+  }
+  __syncthreads();
+  const int nb = n * 3;
+  const int words = nb / 16;
+  uint8_t* dst = out + (size_t)p0 * 3;
+  for (int i = threadIdx.x; i < words; i += WMI_TX)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(stage)[i];
+  for (int i = words * 16 + threadIdx.x; i < nb; i += WMI_TX) dst[i] = stage[i];
+}
+
+// img_l, img_r: (H, W, 3) u8; disp_*, mask_*, feather: (H, W) f32;
+// shifts: 2 (V - 2) f32 on the device (unused at V = 2); yi0, yi1, wy:
+// rows entries and xi0, xi1, wx: cols entries (int32, f32) on the device,
+// or all null at identity resolution (rows, cols) = (H, W); out: (rows,
+// cols, 3) u8, 16-byte aligned.
+STM_API int stm_warp_merge_interlace(
+    const void* img_l, const void* img_r, const void* disp_l,
+    const void* disp_r, const void* mask_l, const void* mask_r,
+    const void* feather, const void* shifts, const void* yi0,
+    const void* yi1, const void* wy, const void* xi0, const void* xi1,
+    const void* wx, void* out, int H, int W, int V, int y_mod, int rows,
+    int cols, float inv_y, void* stream) {
+  if (H <= 0 || W <= 0 || V < 2 || y_mod <= 0 || rows <= 0 || cols <= 0 ||
+      (V > 2 && shifts == nullptr) || ((uintptr_t)out & 15) != 0 ||
+      W >= (1 << 23) || V >= (1 << 20) ||
+      (long long)rows * cols > (1LL << 31) - WMI_BLOCK)
+    return (int)cudaErrorInvalidValue;
+  const bool identity = xi0 == nullptr;
+  if (identity ? (rows != H || cols != W || yi0 || yi1 || wy || xi1 || wx)
+               : !(yi0 && yi1 && wy && xi1 && wx))
+    return (int)cudaErrorInvalidValue;
+  MergeSrc s{(const uint8_t*)img_l, (const uint8_t*)img_r,
+             (const float*)disp_l,  (const float*)disp_r,
+             (const float*)mask_l,  (const float*)mask_r,
+             (const float*)feather, (const float*)shifts,
+             H, W, V};
+  const int blocks = (int)(((long long)rows * cols + WMI_BLOCK - 1) /
+                          WMI_BLOCK);
+  warp_merge_interlace_kernel<<<blocks, WMI_TX, 0, (cudaStream_t)stream>>>(
+      s, (const int*)yi0, (const int*)yi1, (const float*)wy,
+      (const int*)xi0, (const int*)xi1, (const float*)wx, y_mod, inv_y,
+      (uint8_t*)out, rows, cols);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(WARP_TX)

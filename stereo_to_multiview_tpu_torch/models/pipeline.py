@@ -8,12 +8,11 @@ Stage order, with the hand-written CUDA kernel of each stage:
   optimisation + WTA of both eyes in one launch, B13) -> dcc (B7) -> irv (B8/B9 per round,
   stopping at the fixpoint; over row chunks with cfg.irv_row_chunk)
   -> [median] -> bilateral (B10)
-  -> occlusion hits (B7) -> bleed + mask (B11) -> feather
-  -> backward warps + merge of every intermediate view (B12, fused), or
-     the warps alone (B14) with mask and merge after them (unfused: a
-     resampled output, bleed_radius != 1)
-  -> interlace (resampling every view when the output resolution
-     differs)
+  -> occlusion hits (B7) -> bleed + mask (B11) -> feather (G1)
+  -> backward warps, merge and interlace in one kernel (B12's interlace
+     mode, `synthesize_interlace`): each output subpixel computed from
+     the one view it selects, sampled bilinearly where the output
+     resolution differs; no view stack is written
 
 `process_frame_lowres` computes the disparities on a downscaled pair and
 scales them back up before the synthesis.
@@ -33,7 +32,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from stereo_to_multiview_tpu_torch.config import PipelineConfig
@@ -43,12 +41,11 @@ from stereo_to_multiview_tpu_torch.ops.cross import cross_arms_lr
 from stereo_to_multiview_tpu_torch.ops.dcc import dr_dcc
 from stereo_to_multiview_tpu_torch.ops.demux import demux_sbs
 from stereo_to_multiview_tpu_torch.ops.dibr import (
-    dibr_bleed_mask, dibr_feather_mask, dibr_occl, warp_merge_views,
-    warp_views)
+    dibr_bleed_mask, dibr_feather_mask, dibr_occl, synth_shifts,
+    warp_merge_interlace, warp_merge_views)
 from stereo_to_multiview_tpu_torch.ops.filters import (
     filter_bilateral, filter_median)
 from stereo_to_multiview_tpu_torch.ops.irv import dr_irv_early_stop
-from stereo_to_multiview_tpu_torch.ops.mux import mux_merge_ab, mux_multiview
 from stereo_to_multiview_tpu_torch.ops.scale import (
     tx_disp_scale, tx_scale_bilinear)
 from stereo_to_multiview_tpu_torch.utils.profiling import (
@@ -130,29 +127,15 @@ def synth_disp_bounds(cfg: PipelineConfig):
     return zd + top + 1, zd
 
 
-def _synth_shifts(v: int):
-    """Intermediate-view fractions 1 - v_i/(V-1), in float32."""
-    return tuple(float(np.float32(1.0) - np.float32(v_i) / np.float32(v - 1.0))
-                 for v_i in range(1, v - 1))
+# the JAX package's private name for the views' fractions
+_synth_shifts = synth_shifts
 
 
-def fused_synthesis(cfg: PipelineConfig, h: int, w: int) -> bool:
-    """Whether the synthesis runs the fused warp + mask + merge kernel
-    (B12): some intermediate view, bleed radius 1, and an output at the
-    input's resolution.  Otherwise the warps alone (B14) with the mask
-    multiply and the merge after them."""
-    return (cfg.num_views > 2 and cfg.bleed_radius == 1
-            and (cfg.num_rows_out, cfg.num_cols_out) == (h, w))
-
-
-def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
-                     timer: StageTimer | None = None) -> torch.Tensor:
-    """DIBR half: images + disparities -> (V, H, W, 3) u8 view stack.
-    View 0 = right source, view V-1 = left source; intermediate view v
-    warps L with disp_r at -shift and R with disp_l at 1 - shift,
-    shift = 1 - v/(V-1), and merges them with the feathered mask.  The
-    two routes (`fused_synthesis`) give the same values."""
-    h, w = img_l.shape[:2]
+def synthesis_masks(disp_l, disp_r, cfg: PipelineConfig,
+                    timer: StageTimer | None = None):
+    """The synthesis' masks from the disparities: (mask_l, mask_r) float32
+    {0, 1} (occlusion hits B7, bleed B11) and the feathered blend weight
+    (G1)."""
     with stage_scope("dibr_occl", timer):
         occl_l, occl_r = dibr_occl(disp_l, disp_r)
         mask_l = dibr_bleed_mask(occl_l, cfg.bleed_radius)
@@ -160,20 +143,35 @@ def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
     with stage_scope("dibr_feather", timer):
         feathered = dibr_feather_mask(mask_r, cfg.feather_radius,
                                       cfg.feather_sigma)
-    shifts = _synth_shifts(cfg.num_views)
+    return mask_l, mask_r, feathered
+
+
+def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
+                     timer: StageTimer | None = None) -> torch.Tensor:
+    """DIBR half: images + disparities -> (V, H, W, 3) u8 view stack.
+    View 0 = right source, view V-1 = left source; intermediate view v
+    warps L with disp_r at -shift and R with disp_l at 1 - shift,
+    shift = 1 - v/(V-1), and merges them with the feathered mask (B12)."""
+    masks = synthesis_masks(disp_l, disp_r, cfg, timer)
     with stage_scope("dibr_dbm", timer):
-        if fused_synthesis(cfg, h, w):
-            mids = warp_merge_views(img_l, img_r, disp_l, disp_r, mask_l,
-                                    mask_r, feathered, shifts)
-        else:
-            va, vb = warp_views(img_l, img_r, disp_l, disp_r, shifts)
-            mids = [mux_merge_ab(
-                (va[j] * mask_r[:, :, None]).to(torch.uint8),
-                (vb[j] * mask_l[:, :, None]).to(torch.uint8), feathered)
-                for j in range(len(shifts))]
-            mids = (torch.stack(mids) if mids
-                    else img_l.new_empty((0, *img_l.shape)))
+        mids = warp_merge_views(img_l, img_r, disp_l, disp_r, *masks,
+                                synth_shifts(cfg.num_views))
     return torch.cat([img_r[None], mids, img_l[None]])
+
+
+def synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
+                         timer: StageTimer | None = None) -> torch.Tensor:
+    """Views synthesis + lenticular interlace: images + disparities ->
+    (num_rows_out, num_cols_out, 3) u8, equal to
+    `mux_multiview(synthesize_views(...), ...)`.  The warps, merge and
+    interlace run as one kernel (B12's interlace mode), which computes
+    each output subpixel from the one view it selects and writes no view
+    stack; any number of views, bleed radius and output size."""
+    masks = synthesis_masks(disp_l, disp_r, cfg, timer)
+    with stage_scope("dibr_dbm", timer):
+        return warp_merge_interlace(img_l, img_r, disp_l, disp_r, *masks,
+                                    cfg.num_views, cfg.num_rows_out,
+                                    cfg.num_cols_out, cfg.angle)
 
 
 def _frame_images(sbs, cfg: PipelineConfig, dev):
@@ -185,13 +183,6 @@ def _frame_images(sbs, cfg: PipelineConfig, dev):
     return tuple(t.contiguous() for t in demux_sbs(sbs))
 
 
-def _synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg, timer):
-    views = synthesize_views(img_l, img_r, disp_l, disp_r, cfg, timer)
-    with stage_scope("mux_multiview", timer):
-        return mux_multiview(views, cfg.num_rows_out, cfg.num_cols_out,
-                             cfg.angle)
-
-
 def process_frame(sbs, cfg: PipelineConfig, device=None,
                   timer: StageTimer | None = None):
     """(H, 2W, 3) uint8 SBS frame (numpy array or tensor) -> (disp_l,
@@ -201,8 +192,8 @@ def process_frame(sbs, cfg: PipelineConfig, device=None,
     check_ported(cfg)
     img_l, img_r = _frame_images(sbs, cfg, dev)
     disp_l, disp_r, _, _ = compute_disparities(img_l, img_r, cfg, timer)
-    interlaced = _synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg,
-                                       timer)
+    interlaced = synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg,
+                                      timer)
     return disp_l, disp_r, interlaced
 
 
@@ -227,6 +218,6 @@ def process_frame_lowres(sbs, cfg: PipelineConfig, device=None,
         up = lambda d: tx_disp_scale(d, cfg.num_rows, cfg.num_cols,
                                      1.0 / cfg.disp_scale).contiguous()
         disp_l, disp_r = up(dl), up(dr)
-    interlaced = _synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg,
-                                       timer)
+    interlaced = synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg,
+                                      timer)
     return disp_l, disp_r, interlaced

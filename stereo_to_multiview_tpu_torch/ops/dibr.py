@@ -1,9 +1,10 @@
 """Depth-image-based rendering: occlusion masks (kernels B7 and B11),
-mask feather, and the backward (gather) warp, either merged into the
-views in one kernel (B12, the fused synthesis) or as the float warp
-volumes of every view (B14, the unfused synthesis), with the kernels'
-plain PyTorch versions; and the forward (scatter) warp, plain PyTorch on
-every device as in the JAX package.
+mask feather (G1), and the backward (gather) warp: merged into the
+interlaced frame in one kernel (B12's interlace mode, the synthesis of
+`process_frame`), merged into every view (B12), or as the float warp
+volumes of every view (B14), with the kernels' plain PyTorch versions;
+and the forward (scatter) warp, plain PyTorch on every device as in the
+JAX package.
 
 The wrappers take the plain version only for CPU tensors; on a CUDA
 tensor they launch the kernel or raise.
@@ -11,6 +12,7 @@ tensor they launch the kernel or raise.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -19,8 +21,10 @@ import torch
 from stereo_to_multiview_tpu_torch import kernels
 from stereo_to_multiview_tpu_torch.ops.dcc import launch_dcc, scatter_hit
 from stereo_to_multiview_tpu_torch.ops.filters import (
-    filter_bleed, filter_gaussian_lift)
-from stereo_to_multiview_tpu_torch.ops.mux import f32, mux_merge_ab
+    filter_bleed, filter_gaussian_lift, gaussian_lift_constants)
+from stereo_to_multiview_tpu_torch.ops.mux import (
+    f32, mux_geometry, mux_merge_ab, mux_multiview)
+from stereo_to_multiview_tpu_torch.ops.scale import lerp_taps
 
 F32 = torch.float32
 
@@ -80,12 +84,57 @@ def dibr_bleed_mask(occl: torch.Tensor, radius: int) -> torch.Tensor:
     return mask
 
 
+def dibr_feather_mask_plain(mask_r: torch.Tensor, feather_radius: int,
+                            feather_sigma: float) -> torch.Tensor:
+    """Plain version of `dibr_feather_mask`."""
+    return filter_gaussian_lift(op_invertnormf(mask_r), feather_radius,
+                                feather_sigma)
+
+
+@functools.lru_cache(maxsize=16)
+def _feather_args(radius: int, sigma: float):
+    """G1's host arguments for each setting: the taps as a host float32
+    array (the kernel copies them into its parameters at each call) and
+    the factor `post`."""
+    taps, post = gaussian_lift_constants(radius, sigma)
+    return kernels.host_f32(taps), float(post)
+
+
+@functools.lru_cache(maxsize=16)
+def _feather_dev_taps(radius: int, sigma: float, device: torch.device):
+    """G1's taps in device memory: its two-launch passes read them."""
+    taps, _ = gaussian_lift_constants(radius, sigma)
+    return torch.from_numpy(taps).to(device)
+
+
+@kernels.kernel_wrapper
 def dibr_feather_mask(mask_r: torch.Tensor, feather_radius: int,
                       feather_sigma: float) -> torch.Tensor:
     """Blend weight of the view merge: the inverted right-eye mask,
-    feathered with the lifting Gaussian."""
-    return filter_gaussian_lift(op_invertnormf(mask_r), feather_radius,
-                                feather_sigma)
+    feathered with the lifting Gaussian, (H, W) float32.  Kernel G1
+    (csrc/feather.cu): one launch, two through a scratch plane above its
+    largest one-launch radius."""
+    if kernels.on_cpu(mask_r):
+        return dibr_feather_mask_plain(mask_r, feather_radius, feather_sigma)
+    kernels.require(mask_r, "mask_r", F32, 2, mask_r.device)
+    if feather_radius < 0:
+        raise ValueError("dibr_feather_mask: the radius must be >= 0")
+    h, w = mask_r.shape
+    r, sigma = int(feather_radius), float(feather_sigma)
+    lib = kernels.lib("feather")
+    taps, post = _feather_args(r, sigma)
+    dev_taps = scratch = None
+    if r > lib.stm_feather_rmax():
+        dev_taps = _feather_dev_taps(r, sigma, mask_r.device).data_ptr()
+        scratch = torch.empty_like(mask_r)
+    out = torch.empty_like(mask_r)
+    rc = lib.stm_feather(
+        mask_r.data_ptr(), taps, dev_taps,
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(), h,
+        w, r, post, kernels.stream_of(out))
+    kernels.check_launch(rc, "dibr_feather_mask")
+    dibr_feather_mask.launches += 1
+    return out
 
 
 def warp_interp_u8(img_in: torch.Tensor, disp: torch.Tensor,
@@ -115,6 +164,12 @@ def dibr_backward_warp(img_in: torch.Tensor, mask: torch.Tensor,
     again."""
     interp = warp_interp_u8(img_in, disp, shift)
     return (interp.to(F32) * mask.to(F32)[:, :, None]).to(torch.uint8)
+
+
+def synth_shifts(v: int):
+    """Intermediate-view fractions 1 - v_i/(V-1), in float32."""
+    return tuple(float(np.float32(1.0) - np.float32(v_i) / np.float32(v - 1.0))
+                 for v_i in range(1, v - 1))
 
 
 def merge_shifts(shifts):
@@ -172,6 +227,85 @@ def warp_merge_views(img_l, img_r, disp_l, disp_r, mask_l, mask_r,
         out.data_ptr(), h, w, nv, kernels.stream_of(out))
     kernels.check_launch(rc, "warp_merge_views")
     warp_merge_views.launches += 1
+    return out
+
+
+def warp_merge_interlace_plain(img_l, img_r, disp_l, disp_r, mask_l, mask_r,
+                               feathered, num_views: int, rows_out: int,
+                               cols_out: int, angle: float) -> torch.Tensor:
+    """Plain version of `warp_merge_interlace`: the view stack (B12's
+    plain version between the two source images), then `mux_multiview`."""
+    shifts = synth_shifts(num_views)
+    mids = (warp_merge_views_plain(img_l, img_r, disp_l, disp_r, mask_l,
+                                   mask_r, feathered, shifts) if shifts
+            else img_l.new_empty((0, *img_l.shape)))
+    views = torch.cat([img_r[None], mids, img_l[None]])
+    return mux_multiview(views, rows_out, cols_out, angle)
+
+
+@functools.lru_cache(maxsize=16)
+def _interlace_shifts(num_views: int, device: torch.device):
+    """B12's interlace mode's shift array on the device: sl, then sr."""
+    sl, sr = merge_shifts(synth_shifts(num_views))
+    return torch.tensor(sl + sr, dtype=F32, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _interlace_taps(n_out: int, n_in: int, device: torch.device):
+    """`lerp_taps` of one output axis on the device, the indices as
+    int32."""
+    i0, i1, w = lerp_taps(n_out, n_in, device)
+    return i0.to(torch.int32), i1.to(torch.int32), w
+
+
+@kernels.kernel_wrapper
+def warp_merge_interlace(img_l, img_r, disp_l, disp_r, mask_l, mask_r,
+                         feathered, num_views: int, rows_out: int,
+                         cols_out: int, angle: float) -> torch.Tensor:
+    """The interlaced frame, (rows_out, cols_out, 3) u8, of the view
+    stack [img_r, the merged intermediate views of `warp_merge_views`,
+    img_l]: `mux_multiview` of that stack, each output subpixel computed
+    from the one view it selects (sampled bilinearly at the four input
+    points of a resampled output).  Kernel B12 in its interlace mode
+    (csrc/warp.cu), the JAX `synthesize_interlace` chain."""
+    if kernels.on_cpu(img_l):
+        return warp_merge_interlace_plain(
+            img_l, img_r, disp_l, disp_r, mask_l, mask_r, feathered,
+            num_views, rows_out, cols_out, angle)
+    dev = img_l.device
+    h, w = img_l.shape[:2]
+    for name, t in (("img_l", img_l), ("img_r", img_r)):
+        kernels.require(t, name, torch.uint8, 3, dev)
+        if t.shape != (h, w, 3):
+            raise ValueError(f"warp_merge_interlace: {name} is not "
+                             f"(H, W, 3)")
+    for name, t in (("disp_l", disp_l), ("disp_r", disp_r),
+                    ("mask_l", mask_l), ("mask_r", mask_r),
+                    ("feathered", feathered)):
+        kernels.require(t, name, F32, 2, dev)
+        if t.shape != (h, w):
+            raise ValueError(f"warp_merge_interlace: {name} is not (H, W)")
+    if num_views < 2 or rows_out <= 0 or cols_out <= 0:
+        raise ValueError("warp_merge_interlace: need num_views >= 2 and an "
+                         "output of at least one pixel")
+    y_mod, inv_y = mux_geometry(num_views, angle)
+    shifts = _interlace_shifts(num_views, dev) if num_views > 2 else None
+    if (rows_out, cols_out) == (h, w):
+        tables = (None,) * 6
+    else:
+        tables = tuple(t.data_ptr() for t in (
+            *_interlace_taps(rows_out, h, dev),
+            *_interlace_taps(cols_out, w, dev)))
+    out = torch.empty((rows_out, cols_out, 3), dtype=torch.uint8,
+                      device=dev)
+    rc = kernels.lib("warp").stm_warp_merge_interlace(
+        img_l.data_ptr(), img_r.data_ptr(), disp_l.data_ptr(),
+        disp_r.data_ptr(), mask_l.data_ptr(), mask_r.data_ptr(),
+        feathered.data_ptr(), None if shifts is None else shifts.data_ptr(),
+        *tables, out.data_ptr(), h, w, num_views, y_mod, rows_out, cols_out,
+        float(inv_y), kernels.stream_of(out))
+    kernels.check_launch(rc, "warp_merge_interlace")
+    warp_merge_interlace.launches += 1
     return out
 
 

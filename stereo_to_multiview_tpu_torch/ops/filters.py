@@ -1,4 +1,5 @@
-"""Post filters: lifting Gaussian (mask feather), bilateral (kernel B10
+"""Post filters: lifting Gaussian (the mask feather's plain version; its
+kernel G1 is `ops.dibr.dibr_feather_mask`), bilateral (kernel B10
 and its plain PyTorch version up to radius 8, the XLA filter's order
 above), 3x3 median, bleed.
 
@@ -39,14 +40,22 @@ def edge_pad(img: torch.Tensor, radius: int) -> torch.Tensor:
     return img[rows][:, cols]
 
 
-def filter_gaussian_lift(img: torch.Tensor, radius: int, sigma: float):
-    """out = max(input, gaussian_blur(input)), clamp-to-edge, normalized
-    by the full 2D kernel sum; the blur runs as an x pass then a y pass
-    with float32 taps."""
+def gaussian_lift_constants(radius: int, sigma: float):
+    """(taps, post) of `filter_gaussian_lift`: the 2r + 1 one-dimensional
+    taps and the factor scale / k2d_sum, each computed in float64 and
+    rounded to float32 once, as the JAX package's filter makes them."""
     k1 = np.exp(-(np.arange(-radius, radius + 1, dtype=np.float64) ** 2)
                 / (2.0 * float(sigma) ** 2))
     k2d_sum = float(gaussian_kernel_2d(radius, sigma).astype(np.float64).sum())
     scale = 1.0 / (2.0 * np.pi * float(sigma) ** 2)
+    return k1.astype(np.float32), np.float32(scale / k2d_sum)
+
+
+def filter_gaussian_lift(img: torch.Tensor, radius: int, sigma: float):
+    """out = max(input, gaussian_blur(input)), clamp-to-edge, normalized
+    by the full 2D kernel sum; the blur runs as an x pass then a y pass
+    with float32 taps."""
+    k1, post = gaussian_lift_constants(radius, sigma)
     a = img.to(F32)
     p = edge_pad(a, radius)
     h, w = img.shape
@@ -56,7 +65,7 @@ def filter_gaussian_lift(img: torch.Tensor, radius: int, sigma: float):
     acc = torch.zeros((h, w), dtype=F32, device=img.device)
     for i, kv in enumerate(k1):
         acc = acc + f32(kv) * acc_r[i:i + h]
-    return torch.maximum(a, acc * f32(scale / k2d_sum))
+    return torch.maximum(a, acc * f32(post))
 
 
 def _bilateral_constants(radius: int, sigma_color: float,

@@ -41,21 +41,36 @@ def mux_merge_ab(img_b: torch.Tensor, img_a: torch.Tensor,
     return term_b + term_a
 
 
+def mux_geometry(v_cnt: int, angle: float):
+    """(y_mod, inv_y) of the interlace: y_interval = V / tan(angle) / 3
+    in float32, y_mod = round(y_interval) (C round, at least 1), inv_y =
+    1 / y_interval in float32."""
+    y_interval = np.float32(v_cnt / math.tan(angle * math.pi / 180.0) / 3.0)
+    inv_y = np.float32(1.0) / y_interval
+    y_mod = max(int(math.floor(float(y_interval) + 0.5)), 1)  # C round()
+    return y_mod, inv_y
+
+
+def mux_row_views(v_cnt: int, rows: int, angle: float,
+                  device=None) -> torch.Tensor:
+    """(rows,) int64 per-row view term trunc((ty % y_mod + 1) * V *
+    inv_y), every operation in float32, left to right: what the
+    interlace kernel (`ops.dibr.warp_merge_interlace`) computes for each
+    output row."""
+    y_mod, inv_y = mux_geometry(v_cnt, angle)
+    ty = torch.arange(rows, device=device)
+    y_view = ((ty % y_mod).to(F32) + 1.0) * f32(v_cnt) * f32(inv_y)
+    return y_view.to(torch.int64)
+
+
 def mux_view_pattern(v_cnt: int, rows: int, cols: int, angle: float,
                      device=None) -> torch.Tensor:
     """(rows, cols, 3) int64 view id per BGR color subpixel: R at +0,
     G at +1, B at +2 (channel 0 is B, so it gets +2).  Geometry:
     y_interval = V / tan(angle) / 3 in float32; each subpixel selects
     view (3*tx + trunc((ty % round(y_interval) + 1) * V / y_interval))
-    mod V.  The per-row term is float32 numpy (rows values); the pattern
-    itself is built on `device`."""
-    y_interval = np.float32(v_cnt / math.tan(angle * math.pi / 180.0) / 3.0)
-    inv_y = np.float32(1.0) / y_interval
-    y_mod = max(int(math.floor(float(y_interval) + 0.5)), 1)  # C round()
-    ty = np.arange(rows)
-    y_view = (((ty % y_mod).astype(np.float32) + np.float32(1.0))
-              * np.float32(v_cnt) * inv_y).astype(np.float32)
-    yv = torch.from_numpy(y_view.astype(np.int64)).to(device)
+    mod V (`mux_row_views`)."""
+    yv = mux_row_views(v_cnt, rows, angle, device)
     tx = torch.arange(cols, device=device)
     x_view = (tx[None, :] * 3 + yv[:, None]) % v_cnt
     return torch.stack([(x_view + 2) % v_cnt, (x_view + 1) % v_cnt, x_view],

@@ -2,8 +2,8 @@
 `ops/warpkern.py`: kernels B19 (`dibr_warp_views_kern`, every view) and
 B20 (`dibr_warp_pair_kern`, one view), with their plain PyTorch versions.
 
-Each view's two warps sample as the unfused synthesis does (`dibr.
-warp_interp_u8`, kernel B14), but only within a static range of sample
+Each view's two warps sample as B14 does (`dibr.warp_interp_u8`), but
+only within a static range of sample
 offsets: k = floor(c) - x must lie in [lo, hi], the floor/ceil of the
 disparity range [-zero_disp, num_disp - zero_disp] times the warp's
 shift (`dibr.offset_range`).  Outside it the TPU kernels select no sample

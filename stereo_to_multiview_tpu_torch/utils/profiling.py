@@ -5,7 +5,8 @@ as a `record_function` range in traces).  Given a `StageTimer`, it also
 records a pair of CUDA events around the stage, so a caller can read the
 per-stage device time after a synchronize.  The stage names are the JAX
 package's: ca_cross_arms, stereo_core, dr_dcc, dr_irv, filter_median,
-filter_bilateral, dibr_occl, dibr_feather, dibr_dbm, mux_multiview; and
+filter_bilateral, dibr_occl, dibr_feather, dibr_dbm (the warps, merge and
+interlace in one kernel: no mux_multiview stage follows it); and
 tx_scale for the lowres path's rescales.
 """
 

@@ -1,5 +1,5 @@
 """The optional-stage paths as a whole: the port's process_frame with
-the optional stages on, the unfused synthesis, a resampled output, two views
+the optional stages on, bleed radius 2, a resampled output, two views
 only, and process_frame_lowres (device="cpu") against the JAX package
 with engine="band", its Pallas kernels in interpret mode.
 
@@ -78,7 +78,6 @@ def test_optional_paths_match_jax_band(sbs, name):
     else:
         jentry, tentry = jpipe.process_frame, tpipe.process_frame
         lo, tlo = [l, r], [tl, tr]
-    assert tpipe.fused_synthesis(tcfg, H, W) == (name == "lowres")
 
     # before the median and bilateral filters: the JAX pipeline with both
     # switched off (radius 0 makes the bilateral the identity)
@@ -124,6 +123,10 @@ def test_optional_paths_match_jax_band(sbs, name):
     got = mux_multiview(tviews, cfg.num_rows_out, cfg.num_cols_out,
                         cfg.angle).numpy()
     np.testing.assert_array_equal(got, unfused)
+    # ... and the one synthesis route of process_frame (B12's interlace
+    # mode; its plain version on the CPU) gives the same frame
+    np.testing.assert_array_equal(tpipe.synthesize_interlace(
+        tl, tr, _t(ref_dl), _t(ref_dr), tcfg).numpy(), unfused)
     # the port's own frame, from its own disparities
     share = 0.99 if cfg.use_hslo else 0.999
     assert np.mean(il == unfused) >= share
