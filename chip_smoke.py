@@ -24,7 +24,18 @@
    1080p and 4K frames, and 1080p views to the HSLO_4K preset's 2160x3840
    output), with two views, on a 37x1001 crop, shrunk to 720x1280 and at
    another angle; the feather G1 at radii 0, 1, 10, 40 and 70 (two
-   launches) and on a 37x15 crop.  The modes of the
+   launches) and on a 37x15 crop.  The occlusion stage (B7's hits and
+   B11's bleed of both eyes in one launch) at each preset's synthesis,
+   at radii 0, 2, 3 and 10, on 37x1001, 37x15 and 2x1001 crops, on
+   writers past the borders, all-zero and negative fractional
+   disparities, on planes of 8x23000 (the widest rows B7 stages for the
+   labels), 8x25000 (past the width B7 once refused) and 16x200000 at
+   r = 5 (above its one-launch radius: two launches; B7 takes the rows
+   in four segments); B7's labels and hits on the same planes, and B11's
+   u8 entry on values 0, 1 and 2.
+   The occlusion kernels are timed from a CUDA graph of their calls
+   (device time: they run shorter than their wrappers' host time).  The
+   modes of the
    band engine's dials: B2's int16 (band_qscale 510) and float32 pairs
    and both eyes directly in u8, int16 and float32, B3 in int16 and
    float32, B4 on int16 costs at the qscale-510 shifts of band_digits 3,
@@ -57,7 +68,9 @@
    `ci_adcensus_kern_xm` (B2's pair and B3, or B2 once an eye) with the
    shear equal to without, u8, int16 and float32; `synthesize_views`
    (B12's view stack), whose stack interlaced by the torch
-   `mux_multiview` equals `synthesize_interlace`, and `warp_views` (B14).
+   `mux_multiview` equals `synthesize_interlace`, `warp_views` (B14),
+   and B7's hits then B11's u8 entry on each eye, equal to the fused
+   occlusion stage.
    The forward warp (`dibr_dfm`, plain torch) is timed at 1080p and held
    card vs CPU.
 3. Drives the paths on SBS frames built from tests/data/bud_{2,3}.bmp:
@@ -96,8 +109,9 @@ too), then the dials' modes of B2-B4 and B6, against their plain
 versions, on the package under DIR: the way to show that a deliberately
 broken copy of one fails, and to time two commits' kernels in turns.
 `--synth-checks [--package-root DIR]` does the same for the synthesis
-kernels: the feather G1 and B12 (its view stack and its interlace mode)
-at their edges, and each preset path's interlaced frame against the
+kernels: the occlusion stage (fused, and B7's hits and B11 unfused), the
+feather G1 and B12 (its view stack and its interlace mode) at their
+edges, and each preset path's interlaced frame against the
 plain chain.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
@@ -148,10 +162,12 @@ KERNELS = {
                                      _TPU + "band.py:150", MAIN),
     "B6 h_pass_sum (pass 4, no WTA)": ("h_pass_sum", _SRC + "hpass.cu",
                                        _TPU + "band.py:150", HSLO4K),
-    "B7 dr_dcc (labels)": ("dr_dcc", _SRC + "dcc.cu",
+    "B7 dr_dcc (labels)": ("dr_dcc", _SRC + "occl.cu",
                            _TPU + "postkern.py:255", MAIN),
-    "B7 dibr_occl (hits)": ("dibr_occl", _SRC + "dcc.cu",
+    "B7 dibr_occl (hits)": ("dibr_occl", _SRC + "occl.cu",
                             _TPU + "postkern.py:255", MAIN),
+    "B7 dibr_occl (hits, on dr_dcc's inputs)": (
+        "dibr_occl", _SRC + "occl.cu", _TPU + "postkern.py:255", MAIN),
     "B8 irv_rowspan": ("irv_rowspan", _SRC + "irv.cu",
                        _TPU + "irvkern.py:60", MAIN),
     "B8 irv_rowspan (need)": ("irv_rowspan", _SRC + "irv.cu",
@@ -162,8 +178,10 @@ KERNELS = {
                            _TPU + "irvkern.py:121", MAIN),
     "B10 filter_bilateral": ("filter_bilateral", _SRC + "bilateral.cu",
                              _TPU + "postkern.py:48", MAIN),
-    "B11 dibr_bleed_mask": ("dibr_bleed_mask", _SRC + "bleed.cu",
+    "B11 dibr_bleed_mask": ("dibr_bleed_mask", _SRC + "occl.cu",
                             _TPU + "postkern.py:442", MAIN),
+    "B7+B11 dibr_occl_masks": ("dibr_occl_masks", _SRC + "occl.cu",
+                               _TPU + "postkern.py:255 and :442", MAIN),
     "B12 warp_merge_views": ("warp_merge_views", _SRC + "warp.cu",
                              _TPU + "warpkern.py:340", MAIN),
     "B13 dc_hslo_wta": ("dc_hslo_wta_eyes", _SRC + "hslo.cu",
@@ -268,6 +286,45 @@ for _name in [n for n in KERNELS if n.startswith("B12 warp_merge_views")]:
     KERNELS[_name] = (*KERNELS[_name][:3], SYNTH_VIEWS)
 for _name in [n for n in KERNELS if n.startswith("B14 warp_views")]:
     KERNELS[_name] = (*KERNELS[_name][:3], WARP_VIEWS)
+# the occlusion stage of every path is one launch (B7's hits and B11's
+# bleed fused); B7's hits mode and B11's u8 entry run as a path of their
+# own beside it (the JAX `dcc_occl_kern` and `filter_bleed_mask_kern`)
+OCCL_UNFUSED = "dibr_occl + dibr_bleed_mask HD1080_D128"
+for _name in [n for n in KERNELS
+              if n.startswith(("B7 dibr_occl", "B11 dibr_bleed_mask"))]:
+    KERNELS[_name] = (*KERNELS[_name][:3], OCCL_UNFUSED)
+# ... and where their rows, bands and stores meet their edges: a crop of
+# odd width, W = 15 (below a 16-byte store), H = 2 (below a band), the
+# radii 0, 2, 3 and 10 beside the presets' 1, writers past both borders,
+# all-zero disparities, negative fractional ones, the widest rows B7
+# stages for the labels' gather (shared memory past 48 KB), a plane past
+# the width the old B7 refused (24,576 columns; the gather from device
+# memory), and one of 200,000 columns at a radius above the fused
+# kernel's r_max there (B7's hits into u8 planes, then B11 on them: two
+# launches; B7 takes each row in four segments)
+B7B11 = "B7+B11 dibr_occl_masks"
+OCCL_CROPS = {" (37x1001 crop)": (37, 1001), " (37x15, W=15)": (37, 15),
+              " (2x1001, H=2)": (2, 1001)}
+OCCL_RADII = {f" (r={_r})": _r for _r in (0, 2, 3, 10)}
+OCCL_DISPS = (" (200x1001, every writer past a border)",
+              " (200x1001, all-zero disparities)",
+              " (200x1001, negative fractional disparities)")
+# (the fused entry's suffix, B7's, rows, columns, radius)
+OCCL_WIDE = (
+    (" (8x23000: the widest rows staged for the labels)",) * 2
+    + (8, 23000, 1),
+    (" (8x25000: past the old width limit)",) * 2 + (8, 25000, 1),
+    (" (16x200000, r=5: above r_max, two launches)",
+     " (16x200000: rows in four segments)", 16, 200000, 5))
+for _suffix in (*OCCL_CROPS, *OCCL_RADII, *OCCL_DISPS,
+                *(w[0] for w in OCCL_WIDE)):
+    KERNELS[B7B11 + _suffix] = KERNELS[B7B11]
+for _suffix in (*OCCL_CROPS, *OCCL_DISPS, *(w[1] for w in OCCL_WIDE)):
+    KERNELS["B7 dr_dcc (labels)" + _suffix] = KERNELS["B7 dr_dcc (labels)"]
+    KERNELS["B7 dibr_occl (hits)" + _suffix] = KERNELS["B7 dibr_occl (hits)"]
+B11_EDGES = (" (37x15 crop, values 0, 1, 2)", " (r=3, values 0, 1, 2)")
+for _suffix in B11_EDGES:
+    KERNELS["B11 dibr_bleed_mask" + _suffix] = KERNELS["B11 dibr_bleed_mask"]
 # B1 on both eyes where its threshold compare and its staged cross meet
 # their edges: fractional thresholds that bf16 would round up (the JAX
 # Pallas kernel's difference from the reference), thresholds past 255 (no
@@ -489,12 +546,15 @@ SIDE_WRAPPERS = {"band_span_sum_h", "band_span_sum_v", "shear_right_dm",
 # older checkout's package, which `--frames` may time)
 HSLO_WRAPPERS = {"dc_hslo_wta_eyes", "dc_hslo_wta"}
 # the synthesis is one kernel (B12's interlace mode) on every path: the
-# view-stack and warp-volume kernels run on none
+# view-stack and warp-volume kernels run on none; nor do B7's hits mode
+# and B11's u8 entry, which the fused occlusion stage replaces
 VIEW_WRAPPERS = {"warp_merge_views", "warp_views"}
+UNFUSED_OCCL = {"dibr_occl", "dibr_bleed_mask"}
+SYNTH_SIDE = VIEW_WRAPPERS | UNFUSED_OCCL
 NOT_ON_PATH = {
-    MAIN: VIEW_WRAPPERS | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
-    HSLO4K: {"h_pass_wta"} | VIEW_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
-    LOWRES: VIEW_WRAPPERS | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
+    MAIN: SYNTH_SIDE | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
+    HSLO4K: {"h_pass_wta"} | SYNTH_SIDE | DM_WRAPPERS | SIDE_WRAPPERS,
+    LOWRES: SYNTH_SIDE | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
 }
 for _path in (DIGITS2, DIGITS1, UHD4K, QSCALE510, LOSSY):
     NOT_ON_PATH[_path] = NOT_ON_PATH[MAIN]
@@ -504,8 +564,9 @@ for _path in (DIGITS2, DIGITS1, UHD4K, QSCALE510, LOSSY):
 # `vv_pass` launches its kernel once a call: once an eye and row chunk.
 # B1 launches once a frame for both eyes, B2 once a row chunk with the
 # whole frame's images (it computes the census: no torch census runs),
-# B13 once a row chunk for both eyes; the synthesis kernel and the
-# feather once a frame.
+# B13 once a row chunk for both eyes; B7's labels, the occlusion stage
+# (both eyes' hits and bleed masks), the feather and the synthesis
+# kernel once a frame.
 EXACT_LAUNCHES = {
     MAIN: {"h_pass_sum": 2, "vv_pass": 2},
     HSLO4K: {"h_pass_sum": 4, "vv_pass": 2, "dc_hslo_wta_eyes": 1},
@@ -522,6 +583,8 @@ for _path, _counts in EXACT_LAUNCHES.items():
     _counts.setdefault("cost_pair", 1)
     _counts["warp_merge_interlace"] = 1
     _counts["dibr_feather_mask"] = 1
+    _counts["dr_dcc"] = 1
+    _counts["dibr_occl_masks"] = 1
 
 
 class SmokeFailure(Exception):
@@ -585,6 +648,29 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_graph_ms(fn, reps: int) -> float:
+    """Device ms a call of `fn`, its `reps` calls captured in one CUDA
+    graph and replayed: no host time between the launches, for kernels
+    shorter than their wrapper's host overhead."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def bound(nbytes: float, ops: float, ops_rate: float = PEAK_OPS_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / ops_rate * 1e3
@@ -593,8 +679,9 @@ def bound(nbytes: float, ops: float, ops_rate: float = PEAK_OPS_PER_S):
 
 class KernelChecks:
     """Phase 2: each kernel against its plain version on the same inputs,
-    bit equality required; times kernel, plain version and, where one
-    exists, one PyTorch library call computing the same function."""
+    bit equality required; times kernel (with `graph`, replayed from a
+    CUDA graph: device time only), plain version and, where one exists,
+    one PyTorch library call computing the same function."""
 
     def __init__(self, reps: int):
         self.reps = reps
@@ -606,7 +693,7 @@ class KernelChecks:
         self.raw = None     # (disp_l, disp_r, labels) of check_disp_kernels
 
     def record(self, name, got, ref, kern, plain, nbytes, ops, library=None,
-               plain_once=False, ops_rate=PEAK_OPS_PER_S):
+               plain_once=False, ops_rate=PEAK_OPS_PER_S, graph=False):
         import torch
         name += self.suffix
         torch.cuda.synchronize()
@@ -630,7 +717,8 @@ class KernelChecks:
         b_ms, b_by = bound(nbytes, ops, ops_rate)
         reps = self.reps
         r = self.results[name] = dict(
-            max_abs_err=err, ms=time_ms(kern, reps),
+            max_abs_err=err,
+            ms=time_graph_ms(kern, reps) if graph else time_ms(kern, reps),
             plain_ms=(time_ms(plain, 1, warmup=0) if plain_once
                       else time_ms(plain, max(1, reps // 4))), bound_ms=b_ms,
             bound_by=b_by,
@@ -1542,6 +1630,69 @@ def check_hslo_edges(chk, img_l, img_r, cfg):
     torch.cuda.empty_cache()
 
 
+def record_dcc(chk, name, dl, dr, thresh=None):
+    """One B7 entry: the labels (`dr_dcc`) with a threshold, else the
+    occlusion hits (`dibr_occl`), timed from a CUDA graph (the occlusion
+    kernels run shorter than their wrappers' host time).  Bound: both
+    disparity planes read and both u8 planes written once, or ~10
+    operations a pixel and eye for the labels (4 for the hits).  Returns
+    the kernel's output."""
+    from stereo_to_multiview_tpu_torch.ops import dcc, dibr
+    hw = dl.numel()
+    if thresh is None:
+        kern = lambda: dibr.dibr_occl(dl, dr)
+        plain = lambda: dibr.dibr_occl_plain(dl, dr)
+    else:
+        kern = lambda: dcc.dr_dcc(dl, dr, thresh)
+        plain = lambda: dcc.dr_dcc_plain(dl, dr, thresh)
+    got = kern()
+    chk.record(name, got, plain(), kern, plain, nbytes=2 * hw * 4 + 2 * hw,
+               ops=2 * hw * (4 if thresh is None else 10), graph=True)
+    return got
+
+
+def bleed_ops(hw: int, radius: int) -> int:
+    """Integer operations of one eye's bleed: a row and a column sum of
+    2r + 1 terms and two more (the compare, the select) a pixel."""
+    return hw * (2 * (2 * radius + 1) + 2)
+
+
+def record_bleed(chk, name, occl, radius: int):
+    """One entry of B11's u8 entry.  Bound: the plane read and the mask
+    written once, or `bleed_ops`.  Returns the mask."""
+    from stereo_to_multiview_tpu_torch.ops import dibr
+    hw = occl.numel()
+    got = dibr.dibr_bleed_mask(occl, radius)
+    chk.record(name, got, dibr.dibr_bleed_mask_plain(occl, radius),
+               lambda: dibr.dibr_bleed_mask(occl, radius),
+               lambda: dibr.dibr_bleed_mask_plain(occl, radius),
+               nbytes=hw + hw * 4, ops=bleed_ops(hw, radius), graph=True)
+    return got
+
+
+def record_occl_masks(chk, name, dl, dr, radius: int):
+    """One entry of the fused occlusion stage (B7's hits and B11's bleed
+    of both eyes).  Bound: both disparity planes read and both masks
+    written once, or each eye's scatter (two operations a pixel) and
+    `bleed_ops`.  Returns (mask_l, mask_r)."""
+    from stereo_to_multiview_tpu_torch.ops import dibr
+    hw = dl.numel()
+    got = dibr.dibr_occl_masks(dl, dr, radius)
+    chk.record(name, got, dibr.dibr_occl_masks_plain(dl, dr, radius),
+               lambda: dibr.dibr_occl_masks(dl, dr, radius),
+               lambda: dibr.dibr_occl_masks_plain(dl, dr, radius),
+               nbytes=4 * hw * 4, ops=2 * (2 * hw + bleed_ops(hw, radius)),
+               graph=True)
+    return got
+
+
+def has_fused_occl() -> bool:
+    """Whether the package under test fuses the occlusion stage (an older
+    checkout's, timed with --package-root, may not)."""
+    from stereo_to_multiview_tpu_torch.ops import dibr
+    return hasattr(dibr, "dibr_occl_masks")
+
+
 def check_many_views(chk, img_l, img_r, bl, br, cfg):
     """B12 (both modes), B14 and B19 with 38 intermediate views
     (num_views=40, more than one kernel argument block of 32 views
@@ -1592,21 +1743,14 @@ def check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg):
     stage outputs of one frame computed with the kernels; on the main
     path's own frame (no suffix) also B8 and B9 in every IRV round and
     B10 at the edges.  Returns both eyes' filtered disparities."""
-    from stereo_to_multiview_tpu_torch.ops import dcc, filters
+    from stereo_to_multiview_tpu_torch.ops import filters
     from stereo_to_multiview_tpu_torch.ops.band import (
         band_stereo_core_chunked)
 
-    h, w = img_l.shape[:2]
-    hw, nd, zd, usd = h * w, cfg.num_disp, cfg.zero_disp, cfg.usd
     dl, dr = band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg)
-
-    labels = dcc.dr_dcc(dl, dr, cfg.dcc_thresh)
+    labels = record_dcc(chk, "B7 dr_dcc (labels)", dl, dr, cfg.dcc_thresh)
     chk.raw = (dl, dr, labels)
-    chk.record("B7 dr_dcc (labels)", labels,
-               dcc.dr_dcc_plain(dl, dr, cfg.dcc_thresh),
-               lambda: dcc.dr_dcc(dl, dr, cfg.dcc_thresh),
-               lambda: dcc.dr_dcc_plain(dl, dr, cfg.dcc_thresh),
-               nbytes=2 * hw * 4 + 2 * hw, ops=2 * hw * 10)
+    record_dcc(chk, "B7 dibr_occl (hits, on dr_dcc's inputs)", dl, dr)
 
     dl_irv, dr = check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg)
     if not chk.suffix:             # the main path's own frame
@@ -1704,27 +1848,20 @@ def record_interlace(chk, name, margs, num_views: int, rows: int, cols: int,
 
 
 def check_synth_kernels(chk, img_l, img_r, bl, br, cfg, b14=True):
-    """B7 (hits), B11, G1, B12 (its view stack and its interlace mode at
-    the configuration's own output) and, with `b14`, B14 on a frame's
-    images and filtered disparities.  Returns the inputs of the merge:
-    (mask_l, mask_r, feathered)."""
+    """The occlusion stage (fused, and B7's hits and B11's u8 entry
+    unfused), G1, B12 (its view stack and its interlace mode at the
+    configuration's own output) and, with `b14`, B14 on a frame's images
+    and filtered disparities.  Returns the inputs of the merge: (mask_l,
+    mask_r, feathered)."""
     from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
     from stereo_to_multiview_tpu_torch.ops import dibr
 
     hw = img_l.shape[0] * img_l.shape[1]
-    occl = dibr.dibr_occl(bl, br)
-    chk.record("B7 dibr_occl (hits)", occl, dibr.dibr_occl_plain(bl, br),
-               lambda: dibr.dibr_occl(bl, br),
-               lambda: dibr.dibr_occl_plain(bl, br),
-               nbytes=2 * hw * 4 + 2 * hw, ops=2 * hw * 4)
-
     rb = cfg.bleed_radius
-    mask_l = dibr.dibr_bleed_mask(occl[0], rb)
-    chk.record("B11 dibr_bleed_mask", mask_l,
-               dibr.dibr_bleed_mask_plain(occl[0], rb),
-               lambda: dibr.dibr_bleed_mask(occl[0], rb),
-               lambda: dibr.dibr_bleed_mask_plain(occl[0], rb),
-               nbytes=hw + hw * 4, ops=2 * (2 * rb + 1) ** 2 * hw)
+    if has_fused_occl():
+        record_occl_masks(chk, B7B11, bl, br, rb)
+    occl = record_dcc(chk, "B7 dibr_occl (hits)", bl, br)
+    mask_l = record_bleed(chk, "B11 dibr_bleed_mask", occl[0], rb)
     mask_r = dibr.dibr_bleed_mask(occl[1], rb)
 
     feathered = record_feather(chk, "G1 dibr_feather", mask_r,
@@ -1785,6 +1922,57 @@ def check_synth_edges(chk, img_l, img_r, bl, br, masks, cfg):
              mask_r[y0:y0 + 200, :1001] if "200x1001" in suffix else mask_r)
         record_feather(chk, "G1 dibr_feather" + suffix, m.contiguous(), r,
                        cfg.feather_sigma)
+
+
+def check_occl_edges(chk, bl, br, cfg):
+    """The occlusion kernels beyond the presets' shapes, on crops and
+    tilings of the 1080p frame's final disparities (`bl`, `br`) and on
+    made-up planes (OCCL_CROPS, OCCL_RADII, OCCL_DISPS, OCCL_WIDE,
+    B11_EDGES).  A package without the fused stage (an older checkout's)
+    runs only the unfused entries on the crops and made-up planes, not
+    the wide ones: its B7 refused planes wider than 24,576 columns."""
+    import torch
+    fused = has_fused_occl()
+    dev, thresh, rb = bl.device, cfg.dcc_thresh, cfg.bleed_radius
+    y0 = bl.shape[0] // 2
+
+    def all_three(suffix, dl, dr, radius=rb, b7_suffix=None):
+        if fused:
+            record_occl_masks(chk, B7B11 + suffix, dl, dr, radius)
+        if fused or b7_suffix is None:
+            b7_suffix = b7_suffix or suffix
+            record_dcc(chk, "B7 dr_dcc (labels)" + b7_suffix, dl, dr, thresh)
+            record_dcc(chk, "B7 dibr_occl (hits)" + b7_suffix, dl, dr)
+
+    for suffix, (h, w) in OCCL_CROPS.items():
+        all_three(suffix, *(t[y0:y0 + h, :w].contiguous() for t in (bl, br)))
+    if fused:
+        for suffix, r in OCCL_RADII.items():
+            record_occl_masks(chk, B7B11 + suffix, bl, br, r)
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    rand = lambda: torch.rand((200, 1001), generator=g, device=dev)
+    # past a border: |d| beyond the row, some past int32, both signs
+    past = [torch.where(rand() < 0.5, 1.0, -1.0) * (1001.0 + rand() * 50)
+            for _ in range(2)]
+    for d in past:
+        d[rand() < 0.05] = 3e9
+        d[rand() < 0.05] = -3e9
+    zero = torch.zeros((200, 1001), device=dev)
+    negative = [-(rand() * 60.0) for _ in range(2)]
+    for suffix, (dl, dr) in zip(OCCL_DISPS, (past, (zero, zero), negative)):
+        all_three(suffix, dl.contiguous(), dr.contiguous())
+    for suffix, b7_suffix, h, w, r in OCCL_WIDE:
+        reps = -(-w // bl.shape[1])
+        all_three(suffix, *(t[y0:y0 + h].repeat(1, reps)[:, :w].contiguous()
+                            for t in (bl, br)), radius=r, b7_suffix=b7_suffix)
+        torch.cuda.empty_cache()
+    # B11's u8 entry on 0, 1 and 2 (a 2 counts, but is no 1)
+    vals = torch.randint(0, 3, bl.shape, generator=g, device=dev,
+                         dtype=torch.uint8)
+    record_bleed(chk, "B11 dibr_bleed_mask" + B11_EDGES[0],
+                 vals[y0:y0 + 37, :15].contiguous(), rb)
+    record_bleed(chk, "B11 dibr_bleed_mask" + B11_EDGES[1], vals, 3)
 
 
 def check_band_digits(chk, img_l, img_r, arms, cfg):
@@ -2506,8 +2694,9 @@ def check_warp_rowmajor(chk, img_l, img_r, bl, br, cfg):
 def run_synthesis_entries(img_l, img_r, bl, br, cfg):
     """The JAX-named synthesis entries beside process_frame, each as a
     path on a frame's final disparities: `synthesize_views` (the masks,
-    the feather and B12's view stack) and `warp_views` (B14).  The stack
-    interlaced by the torch `mux_multiview` must equal
+    the feather and B12's view stack), B7's hits then B11's u8 entry on
+    each eye (equal to the fused stage), and `warp_views` (B14).  The
+    stack interlaced by the torch `mux_multiview` must equal
     `synthesize_interlace` (B12's interlace mode).  Returns the paths'
     results."""
     import torch
@@ -2515,11 +2704,15 @@ def run_synthesis_entries(img_l, img_r, bl, br, cfg):
     from stereo_to_multiview_tpu_torch.ops import dibr, mux
 
     args = (img_l, img_r, bl, br, cfg)
+    fused = has_fused_occl()
+    masks = ({"dibr_occl_masks": 1} if fused else
+             {"dibr_occl": 1, "dibr_bleed_mask": 2})
     reset_counts()
     views = pipeline.synthesize_views(*args)
     launches = read_counts(SYNTH_VIEWS, {
-        "dibr_occl": 1, "dibr_bleed_mask": 2, "dibr_feather_mask": 1,
-        "warp_merge_views": 1}, zero=("warp_merge_interlace", "warp_views"))
+        **masks, "dibr_feather_mask": 1, "warp_merge_views": 1},
+        zero=("warp_merge_interlace", "warp_views",
+              *(UNFUSED_OCCL if fused else ())))
     chain = mux.mux_multiview(views, cfg.num_rows_out, cfg.num_cols_out,
                               cfg.angle)
     if not torch.equal(chain, pipeline.synthesize_interlace(*args)):
@@ -2531,6 +2724,29 @@ def run_synthesis_entries(img_l, img_r, bl, br, cfg):
         synth_views_ms=time_ms(lambda: pipeline.synthesize_views(*args), 10),
         synth_interlace_ms=time_ms(
             lambda: pipeline.synthesize_interlace(*args), 10))}
+    # B7's hits and B11's u8 entry, unfused, as the JAX package's
+    # `dcc_occl_kern` and `filter_bleed_mask_kern` run them
+    rb = cfg.bleed_radius
+    unfused = lambda: [dibr.dibr_bleed_mask(o, rb)
+                       for o in dibr.dibr_occl(bl, br)]
+    reset_counts()
+    got = unfused()
+    res[OCCL_UNFUSED] = dict(launches=read_counts(
+        OCCL_UNFUSED, {"dibr_occl": 1, "dibr_bleed_mask": 2},
+        zero=("dibr_occl_masks",) if fused else ()))
+    res[OCCL_UNFUSED]["unfused_ms"] = time_graph_ms(unfused, 10)
+    if fused:
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, dibr.dibr_occl_masks(bl, br, rb))):
+            raise SmokeFailure(f"path {OCCL_UNFUSED}: the masks differ "
+                               f"from dibr_occl_masks")
+        res[OCCL_UNFUSED]["fused_ms"] = time_graph_ms(
+            lambda: dibr.dibr_occl_masks(bl, br, rb), 10)
+    print(f"path {OCCL_UNFUSED}: {res[OCCL_UNFUSED]['unfused_ms']:.4f} ms "
+          f"unfused (three launches), "
+          f"{res[OCCL_UNFUSED].get('fused_ms', float('nan')):.4f} ms "
+          f"fused; equal masks", flush=True)
+    del got
     shifts = dibr.synth_shifts(cfg.num_views)
     reset_counts()
     dibr.warp_views(img_l, img_r, bl, br, shifts)
@@ -2915,6 +3131,7 @@ def synth_checks(root: str) -> int:
         bl, br = out[0], out[1]
         masks = check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
         check_synth_edges(chk, img_l, img_r, bl, br, masks, cfg)
+        check_occl_edges(chk, bl, br, cfg)
         check_many_views(chk, img_l, img_r, bl, br, cfg)
         run_synthesis_entries(img_l, img_r, bl, br, cfg)
         del masks, out, img_l, img_r, bl, br
@@ -2928,7 +3145,8 @@ def synth_checks(root: str) -> int:
                 (LOWRES, pipeline.process_frame_lowres, config.HD1080_LOWRES,
                  sbs),
                 (UHD4K, pipeline.process_frame, cfg4k, sbs4k)):
-            out, _ = run_path(name, entry, frame, pcfg, 1)
+            out, _ = run_path(name, entry, frame, pcfg, 1,
+                              exact=has_fused_occl())
             check_interlaced(name, frame, pcfg, out)
             if name == UHD4K:
                 img_l, img_r = (t.contiguous() for t in pipeline.demux_sbs(
@@ -2956,7 +3174,8 @@ def main() -> int:
                          "the dials' modes) against their plain "
                          "versions and print no result line")
     ap.add_argument("--synth-checks", action="store_true",
-                    help="only hold the synthesis kernels (G1, B12) and "
+                    help="only hold the synthesis kernels (B7's hits, "
+                         "B11, the fused occlusion stage, G1, B12) and "
                          "the presets' interlaced frames against their "
                          "plain versions and print no result line")
     ap.add_argument("--package-root", default=HERE,
@@ -3024,6 +3243,8 @@ def main() -> int:
         masks = check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
         check_synth_edges(chk, img_l, img_r, bl, br, masks, cfg)
         del masks
+        torch.cuda.empty_cache()
+        check_occl_edges(chk, bl, br, cfg)
         torch.cuda.empty_cache()
         check_many_views(chk, img_l, img_r, bl, br, cfg)
         paths.update(run_synthesis_entries(img_l, img_r, bl, br, cfg))
@@ -3222,6 +3443,10 @@ def main() -> int:
             print(f"synthesis: {p['synth_views_ms']:.3f} ms view stack, "
                   f"{p['synth_interlace_ms']:.3f} ms interlaced frame at "
                   f"{name} on {card}")
+        elif "unfused_ms" in p:
+            print(f"occlusion stage: {p['unfused_ms']:.4f} ms B7's hits "
+                  f"and B11 twice, {p['fused_ms']:.4f} ms fused at {name} "
+                  f"on {card}")
         elif "warp_views_ms" in p:
             print(f"warps: {p['warp_views_ms']:.4f} ms B14's volumes at "
                   f"{name} on {card}")

@@ -28,9 +28,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
-SOURCES = ("arms", "cost", "shear", "hpass", "vpass", "hslo", "dcc", "irv",
-           "bilateral", "bleed", "warp", "cost_dm", "band_dm", "span",
-           "shear_dm", "feather")
+SOURCES = ("arms", "cost", "shear", "hpass", "vpass", "hslo", "occl", "irv",
+           "bilateral", "warp", "cost_dm", "band_dm", "span", "shear_dm",
+           "feather")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -54,6 +54,8 @@ _SIGS = {
     "stm_irv_vote": [_P] * 9 + [_I] * 6 + [_F, _P],
     "stm_bilateral": [_P] * 3 + [_I] * 3 + [_F, _F, _P],
     "stm_bleed_mask": [_P, _P, _I, _I, _I, _F, _P],
+    "stm_occl_masks": [_P] * 6 + [_I] * 3 + [_F, _P],
+    "stm_occl_masks_rmax": [_I],
     "stm_warp_merge": [_P] * 10 + [_I] * 3 + [_P],
     "stm_warp_merge_interlace": [_P] * 15 + [_I] * 6 + [_F, _P],
     "stm_feather": [_P] * 5 + [_I] * 3 + [_F, _P],

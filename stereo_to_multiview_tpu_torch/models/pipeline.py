@@ -8,7 +8,8 @@ Stage order, with the hand-written CUDA kernel of each stage:
   optimisation + WTA of both eyes in one launch, B13) -> dcc (B7) -> irv (B8/B9 per round,
   stopping at the fixpoint; over row chunks with cfg.irv_row_chunk)
   -> [median] -> bilateral (B10)
-  -> occlusion hits (B7) -> bleed + mask (B11) -> feather (G1)
+  -> occlusion hits (B7) and bleed masks (B11) of both eyes in one
+     launch, the hits kept in shared memory -> feather (G1)
   -> backward warps, merge and interlace in one kernel (B12's interlace
      mode, `synthesize_interlace`): each output subpixel computed from
      the one view it selects, sampled bilinearly where the output
@@ -41,8 +42,8 @@ from stereo_to_multiview_tpu_torch.ops.cross import cross_arms_lr
 from stereo_to_multiview_tpu_torch.ops.dcc import dr_dcc
 from stereo_to_multiview_tpu_torch.ops.demux import demux_sbs
 from stereo_to_multiview_tpu_torch.ops.dibr import (
-    dibr_bleed_mask, dibr_feather_mask, dibr_occl, synth_shifts,
-    warp_merge_interlace, warp_merge_views)
+    dibr_feather_mask, dibr_occl_masks, synth_shifts, warp_merge_interlace,
+    warp_merge_views)
 from stereo_to_multiview_tpu_torch.ops.filters import (
     filter_bilateral, filter_median)
 from stereo_to_multiview_tpu_torch.ops.irv import dr_irv_early_stop
@@ -134,12 +135,10 @@ _synth_shifts = synth_shifts
 def synthesis_masks(disp_l, disp_r, cfg: PipelineConfig,
                     timer: StageTimer | None = None):
     """The synthesis' masks from the disparities: (mask_l, mask_r) float32
-    {0, 1} (occlusion hits B7, bleed B11) and the feathered blend weight
-    (G1)."""
+    {0, 1} (occlusion hits B7 and bleed B11 in one launch) and the
+    feathered blend weight (G1)."""
     with stage_scope("dibr_occl", timer):
-        occl_l, occl_r = dibr_occl(disp_l, disp_r)
-        mask_l = dibr_bleed_mask(occl_l, cfg.bleed_radius)
-        mask_r = dibr_bleed_mask(occl_r, cfg.bleed_radius)
+        mask_l, mask_r = dibr_occl_masks(disp_l, disp_r, cfg.bleed_radius)
     with stage_scope("dibr_feather", timer):
         feathered = dibr_feather_mask(mask_r, cfg.feather_radius,
                                       cfg.feather_sigma)

@@ -46,7 +46,7 @@ def dr_dcc_plain(disp_l: torch.Tensor, disp_r: torch.Tensor,
 
 def launch_dcc(disp_l: torch.Tensor, disp_r: torch.Tensor, thresh: float,
                labels: bool, what: str):
-    """Kernel B7 (csrc/dcc.cu) on two (H, W) float32 CUDA planes: labels
+    """Kernel B7 (csrc/occl.cu) on two (H, W) float32 CUDA planes: labels
     or occlusion hits, (out_l, out_r) u8."""
     for name, t in (("disp_l", disp_l), ("disp_r", disp_r)):
         kernels.require(t, name, torch.float32, 2, disp_l.device)
@@ -55,7 +55,7 @@ def launch_dcc(disp_l: torch.Tensor, disp_r: torch.Tensor, thresh: float,
     h, w = disp_l.shape
     out_l = torch.empty((h, w), dtype=torch.uint8, device=disp_l.device)
     out_r = torch.empty_like(out_l)
-    rc = kernels.lib("dcc").stm_dcc(
+    rc = kernels.lib("occl").stm_dcc(
         disp_l.data_ptr(), disp_r.data_ptr(), out_l.data_ptr(),
         out_r.data_ptr(), h, w, float(f32(thresh)), int(labels),
         kernels.stream_of(out_l))
@@ -68,7 +68,7 @@ def dr_dcc(disp_l: torch.Tensor, disp_r: torch.Tensor, thresh: float = 1.0):
     """Left-right consistency |d - d_other(x + trunc(d))| > thresh (the
     lookup column clamped to the image) and forward-scatter disocclusion
     (a mismatched pixel no other-eye pixel maps onto becomes 2).
-    Disparities truncate toward zero.  Kernel B7 (csrc/dcc.cu)."""
+    Disparities truncate toward zero.  Kernel B7 (csrc/occl.cu)."""
     if kernels.on_cpu(disp_l):
         return dr_dcc_plain(disp_l, disp_r, thresh)
     out = launch_dcc(disp_l, disp_r, thresh, True, "dr_dcc")

@@ -1,5 +1,6 @@
-"""Depth-image-based rendering: occlusion masks (kernels B7 and B11),
-mask feather (G1), and the backward (gather) warp: merged into the
+"""Depth-image-based rendering: occlusion masks (kernels B7 and B11, one
+fused launch on the synthesis' path), mask feather (G1), and the
+backward (gather) warp: merged into the
 interlaced frame in one kernel (B12's interlace mode, the synthesis of
 `process_frame`), merged into every view (B12), or as the float warp
 volumes of every view (B14), with the kernels' plain PyTorch versions;
@@ -45,7 +46,7 @@ def dibr_occl_plain(disp_l: torch.Tensor, disp_r: torch.Tensor):
 def dibr_occl(disp_l: torch.Tensor, disp_r: torch.Tensor):
     """Visibility masks by forward scatter: occl_r[clamp(x + trunc(d_l))]
     = 1 and occl_l[clamp(x - trunc(d_r))] = 1; returns (occl_l, occl_r)
-    u8.  Kernel B7 (csrc/dcc.cu) in its hits mode."""
+    u8.  Kernel B7 (csrc/occl.cu) in its hits mode."""
     if kernels.on_cpu(disp_l):
         return dibr_occl_plain(disp_l, disp_r)
     out = launch_dcc(disp_l, disp_r, 0.0, False, "dibr_occl")
@@ -58,6 +59,23 @@ def dibr_occl_to_mask(occl: torch.Tensor) -> torch.Tensor:
     return (occl == 1).to(F32)
 
 
+@functools.lru_cache(maxsize=64)
+def bleed_thresh(radius: int) -> float:
+    """The bleed's float32 threshold on the neighbourhood count."""
+    return float(np.float32(((2 * radius + 1) ** 2 - 1) * 0.30))
+
+
+@functools.lru_cache(maxsize=64)
+def _occl_rmax(width: int) -> int:
+    """The largest radius the fused occlusion stage runs in one launch."""
+    return kernels.lib("occl").stm_occl_masks_rmax(width)
+
+
+def _check_radius(what: str, radius: int, h: int, w: int):
+    if not 0 <= radius < min(h, w):
+        raise ValueError(f"{what}: radius must be below the plane's sides")
+
+
 def dibr_bleed_mask_plain(occl: torch.Tensor, radius: int) -> torch.Tensor:
     """Plain version of `dibr_bleed_mask`."""
     return dibr_occl_to_mask(filter_bleed(occl, radius))
@@ -66,22 +84,61 @@ def dibr_bleed_mask_plain(occl: torch.Tensor, radius: int) -> torch.Tensor:
 @kernels.kernel_wrapper
 def dibr_bleed_mask(occl: torch.Tensor, radius: int) -> torch.Tensor:
     """dibr_occl_to_mask(filter_bleed(occl, radius)): (H, W) u8 occlusion
-    hits -> float32 {0, 1} mask.  Kernel B11 (csrc/bleed.cu)."""
+    hits -> float32 {0, 1} mask.  Kernel B11 (csrc/occl.cu): the fused
+    stage's count and store, its hits read from the u8 plane."""
     if kernels.on_cpu(occl):
         return dibr_bleed_mask_plain(occl, radius)
     kernels.require(occl, "occl", torch.uint8, 2, occl.device)
     h, w = occl.shape
-    if not 0 <= radius < min(h, w):
-        raise ValueError("dibr_bleed_mask: radius must be below the "
-                         "plane's sides")
-    thresh = float(np.float32(((2 * radius + 1) ** 2 - 1) * 0.30))
+    _check_radius("dibr_bleed_mask", radius, h, w)
     mask = torch.empty((h, w), dtype=F32, device=occl.device)
-    rc = kernels.lib("bleed").stm_bleed_mask(
-        occl.data_ptr(), mask.data_ptr(), h, w, radius, thresh,
+    rc = kernels.lib("occl").stm_bleed_mask(
+        occl.data_ptr(), mask.data_ptr(), h, w, radius, bleed_thresh(radius),
         kernels.stream_of(mask))
     kernels.check_launch(rc, "dibr_bleed_mask")
     dibr_bleed_mask.launches += 1
     return mask
+
+
+def dibr_occl_masks_plain(disp_l: torch.Tensor, disp_r: torch.Tensor,
+                          radius: int):
+    """Plain version of `dibr_occl_masks`: the hits, then each eye's
+    bleed mask."""
+    return tuple(dibr_bleed_mask_plain(o, radius)
+                 for o in dibr_occl_plain(disp_l, disp_r))
+
+
+@kernels.kernel_wrapper
+def dibr_occl_masks(disp_l: torch.Tensor, disp_r: torch.Tensor,
+                    radius: int):
+    """The synthesis' masks from the disparities, (mask_l, mask_r) float32
+    {0, 1}: `dibr_bleed_mask` of each eye's `dibr_occl` hits.  Kernels B7
+    and B11 fused (csrc/occl.cu): one launch for both eyes, the hits kept
+    in shared memory; above the radius whose window fits a block
+    (`stm_occl_masks_rmax`), B7's hits into two u8 planes, then B11 on
+    both: two launches."""
+    if kernels.on_cpu(disp_l):
+        return dibr_occl_masks_plain(disp_l, disp_r, radius)
+    dev = disp_l.device
+    for name, t in (("disp_l", disp_l), ("disp_r", disp_r)):
+        kernels.require(t, name, F32, 2, dev)
+    if disp_r.shape != disp_l.shape:
+        raise ValueError("dibr_occl_masks: disparity shapes differ")
+    h, w = disp_l.shape
+    _check_radius("dibr_occl_masks", radius, h, w)
+    mask_l = torch.empty((h, w), dtype=F32, device=dev)
+    mask_r = torch.empty_like(mask_l)
+    scratch = ([] if radius <= _occl_rmax(w) else
+               [torch.empty((h, w), dtype=torch.uint8, device=dev)
+                for _ in range(2)])
+    hits = [t.data_ptr() for t in scratch] or [None, None]
+    rc = kernels.lib("occl").stm_occl_masks(
+        disp_l.data_ptr(), disp_r.data_ptr(), *hits, mask_l.data_ptr(),
+        mask_r.data_ptr(), h, w, radius, bleed_thresh(radius),
+        kernels.stream_of(mask_l))
+    kernels.check_launch(rc, "dibr_occl_masks")
+    dibr_occl_masks.launches += 1
+    return mask_l, mask_r
 
 
 def dibr_feather_mask_plain(mask_r: torch.Tensor, feather_radius: int,
