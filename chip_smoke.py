@@ -96,6 +96,21 @@
    band_lossy_wta at band_digits 3 and 1, HSLO at band_qscale 510, and
    the disparity-major core) run on the card against the same frames run
    on the CPU.
+5. The runtime: the stream driver (`models.stream.stream`) over 8
+   distinct 1080p SBS frames (shifted crops of the bud pair) written as
+   BMP files and as one Y4M file, read by FrameSource, the native decode
+   queue and Y4MSource, at depth 2 and 1 with readback full and sync, 30
+   frames each (its launch counts held on the first run; every frame's
+   outputs bit-equal to process_frame on the same frame, on the decoded
+   frame for Y4M), and at UHD4K_16V at depth 2, both readbacks, 10
+   frames; fps and ms beside process_frame's own ms.  The video app
+   (--frames 12 --depth 2 --readback sync) on the frame directory and
+   the image app (--npy) on the 1080p pair, each through its main():
+   return code 0 and the JAX apps' file names.  The XLA engine
+   (engine="xla") at HD1080_D128 as a path (launch set, three timed
+   frames, peak memory, the share of disparities equal to the band
+   engine's), and three 96x160 frames of it card vs CPU (exact at
+   xla_agg_qscale 8).
 
 `python3 chip_smoke.py --frames N [--package-root DIR]` instead times only
 the four preset paths (HD1080_D128, HSLO_4K, LOWRES, UHD4K_16V) and the
@@ -112,7 +127,7 @@ broken copy of one fails, and to time two commits' kernels in turns.
 kernels: the occlusion stage (fused, and B7's hits and B11 unfused), the
 feather G1 and B12 (its view stack and its interlace mode) at their
 edges, and each preset path's interlaced frame against the
-plain chain.
+plain chain.  `--runtime-checks` runs phase 5 alone.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
 a `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -585,6 +600,19 @@ for _path, _counts in EXACT_LAUNCHES.items():
     _counts["dibr_feather_mask"] = 1
     _counts["dr_dcc"] = 1
     _counts["dibr_occl_masks"] = 1
+# the XLA engine (engine="xla"): B1's arms, B7's labels, B8/B9 in the IRV
+# rounds and the fused occlusion stage; the band core (B2-B6, B13), the
+# band bilateral B10, the feather G1 and B12 do not launch (its cost,
+# aggregation, WTA, XLA-order bilateral, feather, bounded warps and
+# interlace are plain torch, as the JAX package computes them outside any
+# Pallas kernel)
+XLA = "HD1080_D128 engine=xla"
+NOT_ON_PATH[XLA] = (LANE_CORE_WRAPPERS | HSLO_WRAPPERS | DM_WRAPPERS
+                    | SIDE_WRAPPERS | SYNTH_SIDE
+                    | {"filter_bilateral", "dibr_feather_mask",
+                       "warp_merge_interlace"})
+EXACT_LAUNCHES[XLA] = {"cross_arms_eyes": 1, "dr_dcc": 1,
+                       "dibr_occl_masks": 1}
 
 
 class SmokeFailure(Exception):
@@ -2361,10 +2389,10 @@ def read_counts(name, want, zero=()):
     print(f"path {name}: launches "
           f"{ {n: c for n, c in launches.items() if c} }", flush=True)
     for n, c in want.items():
-        if launches[n] != c:
-            raise SmokeFailure(f"path {name}: {n} launched {launches[n]} "
-                               f"times, expected {c}")
-    stray = [n for n in zero if launches[n] != 0]
+        if launches.get(n, 0) != c:
+            raise SmokeFailure(f"path {name}: {n} launched "
+                               f"{launches.get(n, 0)} times, expected {c}")
+    stray = [n for n in zero if launches.get(n, 0) != 0]
     if stray:
         raise SmokeFailure(f"path {name}: kernels launched that the path "
                            f"replaces: {stray}")
@@ -2991,6 +3019,329 @@ def small_configs():
     }
 
 
+def stream_frames(rows: int, cols: int, n: int):
+    """n distinct SBS frames of (rows, 2 * cols): the bud pair as
+    `stereo_sbs` builds it, both eyes cropped at columns 8 * i."""
+    import numpy as np
+    wide = stereo_sbs(rows, cols + 8 * (n - 1))
+    half = wide.shape[1] // 2
+    l, r = wide[:, :half], wide[:, half:]
+    return [np.ascontiguousarray(np.concatenate(
+        [l[:, 8 * i:8 * i + cols], r[:, 8 * i:8 * i + cols]], axis=1))
+        for i in range(n)]
+
+
+def stream_host_costs(frame_dir, y4m, frame, reps: int = 5) -> dict:
+    """Host-clock ms of what a streamed frame costs beside its compute:
+    a BMP decode, a Y4M decode (the reader Y4MSource takes), the copy of
+    a decoded frame into pinned memory, and its upload from pageable and
+    from pinned memory (synchronized)."""
+    import torch
+    from stereo_to_multiview_tpu_torch.models import stream as st
+    from stereo_to_multiview_tpu_torch.utils.bmp import read_bmp
+
+    def ms(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return round((time.perf_counter() - t0) * 1e3 / reps, 3)
+
+    dev = torch.device("cuda")
+    pinned = torch.empty(frame.shape, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(frame.shape, dtype=torch.uint8, device=dev)
+    bmp = os.path.join(frame_dir, sorted(os.listdir(frame_dir))[0])
+    out = {"bmp_decode": ms(lambda: read_bmp(bmp))}
+    if y4m is not None:
+        reader = st.Y4MSource(y4m)._reader
+        out["y4m_decode"] = ms(lambda: reader.read_frame() is not None
+                               or reader.rewind())
+    out["copy_into_pinned"] = ms(
+        lambda: pinned.numpy().__setitem__(Ellipsis, frame))
+    out["upload_pageable"] = ms(
+        lambda: torch.as_tensor(frame).to(dev))
+    out["upload_pinned"] = ms(lambda: dst.copy_(pinned, non_blocking=True))
+    return out
+
+
+def check_stream(label, cfg, path, n_distinct, n_frames, combos, tmp, card):
+    """The stream driver (`models.stream.stream`) over sources of
+    n_distinct frames written to `tmp`: BMP files (FrameSource, and the
+    native decode queue) and one Y4M file (Y4MSource), each combo (source,
+    depth, readback) for n_frames.  Every frame's three outputs must be
+    bit-equal to process_frame on the same frame (for the Y4M source, on
+    the decoded frame), checked on the device without a host sync.  The
+    first combo runs with the launch counts zeroed just before and read
+    just after: each kernel of the path must have launched, those of
+    EXACT_LAUNCHES[path] once a frame times their count.  Prints fps and
+    ms beside process_frame's own ms on a device-resident frame."""
+    import itertools
+    import torch
+    from stereo_to_multiview_tpu_torch import kernels, native
+    from stereo_to_multiview_tpu_torch.models import pipeline
+    from stereo_to_multiview_tpu_torch.models import stream as st
+    from stereo_to_multiview_tpu_torch.utils.bmp import write_bmp
+    from stereo_to_multiview_tpu_torch.utils.y4m import Y4MReader, write_y4m
+
+    dev = torch.device("cuda")
+    frames = stream_frames(cfg.num_rows, cfg.num_cols, n_distinct)
+    frame_dir = os.path.join(tmp, label)
+    os.makedirs(frame_dir)
+    for i, f in enumerate(frames):
+        write_bmp(os.path.join(frame_dir, f"frame_{i:03d}.bmp"), f)
+    sources = {"bmp": frames}
+    y4m = None
+    if any(c[0] == "Y4MSource" for c in combos):
+        y4m = os.path.join(tmp, f"{label}.y4m")
+        write_y4m(y4m, frames, colorspace="C444")
+        sources["y4m"] = list(Y4MReader(y4m))
+    refs = {k: [pipeline.process_frame(torch.from_numpy(f).to(dev), cfg)
+                for f in fs] for k, fs in sources.items()}
+    del sources
+    sbs_dev = torch.from_numpy(frames[0]).to(dev)
+    pf_ms = time_ms(lambda: pipeline.process_frame(sbs_dev, cfg), 10)
+    del sbs_dev
+    host = stream_host_costs(frame_dir, y4m, frames[0])
+    print(f"stream {label}: process_frame {pf_ms:.2f} ms a frame on a "
+          f"device-resident frame ({cfg.num_rows}x{cfg.num_cols}); host "
+          f"costs a frame (host clock, ms): {host} on {card}", flush=True)
+    rows = []
+    for n, (source, depth, readback) in enumerate(combos):
+        queue = None
+        if source == "FrameSource":
+            src, kind, reader = (st.FrameSource(frame_dir, loop=True,
+                                                max_frames=n_frames),
+                                 "bmp", "python")
+        elif source == "native_source":
+            queue = st.native_source(frame_dir,
+                                     loops=-(-n_frames // n_distinct))
+            src, kind = itertools.islice(queue, n_frames), "bmp"
+            reader = ("native" if isinstance(queue, native.NativeFrameQueue)
+                      else "python (no host compiler)")
+        else:
+            src = st.Y4MSource(y4m, loop=True, max_frames=n_frames)
+            kind, reader = "y4m", src.reader
+        differs = torch.zeros((), dtype=torch.bool, device=dev)
+        seen = []
+
+        def on_frame(i, dl, dr, il, kind=kind, seen=seen, differs=differs):
+            ref = refs[kind][i % n_distinct]
+            seen.append(i)
+            for a, b in zip((dl, dr, il), ref):
+                differs.logical_or_((a != b).any())
+
+        if n == 0:
+            reset_counts()
+        stats = st.stream(src, cfg, on_frame=on_frame, verbose=False,
+                          depth=depth, readback=readback)
+        if n == 0:
+            launches = read_counts(f"stream {label}", {
+                k: v * n_frames for k, v in EXACT_LAUNCHES[path].items()},
+                zero=NOT_ON_PATH[path])
+            idle = [k for k, c in launches.items()
+                    if k not in NOT_ON_PATH[path] and c < n_frames]
+            if idle:
+                raise SmokeFailure(f"stream {label}: kernels launched fewer "
+                                   f"times than frames: {idle}")
+        if queue is not None and hasattr(queue, "close"):
+            queue.close()
+        if seen != list(range(n_frames)):
+            raise SmokeFailure(f"stream {label} {source}: frames {seen}")
+        if bool(differs):
+            raise SmokeFailure(f"stream {label} {source} depth {depth} "
+                               f"{readback}: outputs differ from "
+                               f"process_frame")
+        row = dict(source=source, reader=reader, depth=depth,
+                   readback=readback, frames_run=n_frames, **stats,
+                   process_frame_ms=pf_ms, host_ms=host)
+        rows.append(row)
+        print(f"stream {label}: {source} (reader {reader}) depth {depth} "
+              f"readback {readback}: {stats['fps']:.2f} fps, ms_mean "
+              f"{stats['ms_mean']:.2f}, ms_min {stats['ms_min']:.2f}, ms_max "
+              f"{stats['ms_max']:.2f} over {stats['frames']} metered of "
+              f"{n_frames} frames, each bit-equal to process_frame "
+              f"({pf_ms:.2f} ms device-resident) on {card}", flush=True)
+    del refs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_xla_path(sbs, cfg, card):
+    """engine="xla" at the main path's configuration through `run_path`
+    (its launch set: B1, B7's labels, B8/B9, the fused occlusion stage;
+    three timed frames, peak memory), its outputs' form, and the share of
+    pixels whose disparities (before the bilateral filter and after) and
+    labels equal the band engine's."""
+    import torch
+    from stereo_to_multiview_tpu_torch.models import pipeline
+
+    xcfg = cfg.replace(engine="xla")
+    out, res = run_path(XLA, pipeline.process_frame, sbs, xcfg, 3)
+    check_outputs(XLA, out, xcfg, pipeline.synth_disp_bounds(xcfg))
+    band = pipeline.process_frame(sbs, cfg)
+    img_l, img_r = (t.contiguous() for t in pipeline.demux_sbs(
+        torch.from_numpy(sbs).to(out[2].device)))
+    raw = [pipeline.raw_disparities(img_l, img_r, c) for c in (xcfg, cfg)]
+    same = lambda a, b: float((a == b).float().mean())
+    res["equal_band"] = {
+        "raw disparities": [same(a, b) for a, b in zip(raw[0][:2],
+                                                       raw[1][:2])],
+        "labels": [same(a, b) for a, b in zip(raw[0][2:], raw[1][2:])],
+        "final disparities": [same(a, b) for a, b in zip(out[:2],
+                                                         band[:2])]}
+    print(f"path {XLA}: share of pixels equal to the band engine's (left, "
+          f"right): {res['equal_band']}; {res['frame_ms']:.1f} ms a frame, "
+          f"peak {res['peak_memory_gb']:.2f} GB on {card}", flush=True)
+    del out, band, raw
+    torch.cuda.empty_cache()
+    return res
+
+
+def xla_small_configs():
+    """96x160 frames of the XLA engine (usd 6: at xla_agg_qscale 8 the
+    prefix sums stay below 2^24)."""
+    base = small_configs()["plain"].replace(engine="xla", usd=6, lsd=3)
+    return {"xla qscale=8": base.replace(xla_agg_qscale=8.0),
+            "xla qscale=0": base,
+            "xla qscale=8 hslo+median": base.replace(
+                xla_agg_qscale=8.0, use_hslo=True, use_median=True,
+                hslo_H1=8.0, hslo_H2=24.0)}
+
+
+def check_small_xla(label, cfg):
+    """A small frame of the XLA engine on the card against the CPU: the
+    raw disparities, labels, final disparities and interlaced frame.
+    Required exact at xla_agg_qscale 8; at 0 (float32 aggregation, summed
+    in the same order on both devices) a share of at most 1e-3 of pixels
+    may differ.  Returns the shares that differ."""
+    import numpy as np
+    import torch
+    from stereo_to_multiview_tpu_torch.models import pipeline
+
+    sbs = stereo_sbs(cfg.num_rows, cfg.num_cols)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        l, r = (t.contiguous().to(dev) for t in
+                pipeline.demux_sbs(torch.from_numpy(sbs)))
+        raw = pipeline.raw_disparities(l, r, cfg)
+        final = pipeline.process_frame(sbs, cfg, device=dev)
+        res[dev] = [x.cpu().numpy() for x in (*raw, *final)]
+    names = ("raw disp_l", "raw disp_r", "labels_l", "labels_r", "disp_l",
+             "disp_r", "interlaced")
+    shares = {n: float(np.mean(a != b)) for n, a, b in
+              zip(names, res["cuda"], res["cpu"])}
+    print(f"small frame {label} {cfg.num_rows}x{cfg.num_cols} "
+          f"D={cfg.num_disp}: share differing card vs CPU {shares}",
+          flush=True)
+    limit = 0.0 if cfg.xla_agg_qscale > 0 else 1e-3
+    if max(shares.values()) > limit:
+        raise SmokeFailure(f"small frame {label}: card and CPU differ "
+                           f"beyond {limit}")
+    return shares
+
+
+APP_IMAGE_NAMES = ("00_left", "01_right", "04_disp_raw_l", "04_disp_raw_r",
+                   "05_outliers_l", "05_outliers_r", "06_disp_l",
+                   "06_disp_r", "07_mask_l", "07_mask_r")
+
+
+def run_apps(frame_dir, cfg, tmp, card):
+    """The two apps through their main([...]) on the card: the video app
+    on the frame directory (--frames 12 --depth 2 --readback sync,
+    --out-dir), the image app on the 1080p bud pair (--npy).  Each must
+    return 0 and write the files the JAX package's app writes, under the
+    same names."""
+    import numpy as np
+    from stereo_to_multiview_tpu_torch.apps import image_io, video_io
+    from stereo_to_multiview_tpu_torch.utils.bmp import write_bmp
+
+    nums = lambda *ks: [str(getattr(cfg, k)) for k in ks]
+    res = {}
+    out = os.path.join(tmp, "video_out")
+    t0 = time.perf_counter()
+    rc = video_io.main([
+        frame_dir, *nums("num_views", "angle", "num_cols_out",
+                         "num_rows_out", "num_disp", "zero_disp", "ad_coeff",
+                         "census_coeff", "ucd", "lcd", "usd", "lsd",
+                         "irv_thresh_s", "irv_thresh_h"),
+        "--frames", "12", "--depth", "2", "--readback", "sync",
+        "--out-dir", out])
+    res["video_s"] = time.perf_counter() - t0
+    want = sorted(f"{k}_{i:04d}.png" for k in ("disp_l", "interlaced")
+                  for i in range(12))
+    if rc != 0 or sorted(os.listdir(out)) != want:
+        raise SmokeFailure(f"video app: rc {rc}, files "
+                           f"{sorted(os.listdir(out))[:6]}...")
+    print(f"app video_io: rc 0, {len(want)} files as the JAX app names "
+          f"them, {res['video_s']:.1f} s (12 frames, PNG writes included) "
+          f"on {card}", flush=True)
+    img_dir = os.path.join(tmp, "img")
+    os.makedirs(img_dir)
+    sbs = stereo_sbs(cfg.num_rows, cfg.num_cols)
+    write_bmp(os.path.join(img_dir, "left.bmp"), sbs[:, :cfg.num_cols])
+    write_bmp(os.path.join(img_dir, "right.bmp"), sbs[:, cfg.num_cols:])
+    out = os.path.join(tmp, "image_out")
+    t0 = time.perf_counter()
+    rc = image_io.main([
+        "left", "right", *nums("ad_coeff", "census_coeff", "num_disp",
+                               "zero_disp", "ucd", "lcd", "usd", "lsd",
+                               "num_views", "angle", "num_cols_out",
+                               "num_rows_out", "irv_thresh_s",
+                               "irv_thresh_h"),
+        "--img-dir", img_dir, "--out-dir", out, "--npy"])
+    res["image_s"] = time.perf_counter() - t0
+    names = [*APP_IMAGE_NAMES,
+             *(f"08_view_{v}" for v in range(cfg.num_views)),
+             "09_interlaced"]
+    want = sorted(f"{n}.{e}" for n in names for e in ("png", "npy"))
+    if rc != 0 or sorted(os.listdir(out)) != want:
+        raise SmokeFailure(f"image app: rc {rc}, files "
+                           f"{sorted(os.listdir(out))[:6]}...")
+    disp = np.load(os.path.join(out, "06_disp_l.npy"))
+    il = np.load(os.path.join(out, "09_interlaced.npy"))
+    if (disp.shape != (cfg.num_rows, cfg.num_cols)
+            or not np.isfinite(disp).all() or il.shape != cfg.out_shape):
+        raise SmokeFailure("image app: malformed outputs")
+    print(f"app image_io: rc 0, {len(want)} files as the JAX app names "
+          f"them, {res['image_s']:.1f} s (the dump's stages, PNG and NPY "
+          f"writes included) on {card}", flush=True)
+    return res
+
+
+def runtime_checks(card) -> dict:
+    """The stream driver, the XLA engine and the apps (phase 5)."""
+    import shutil
+    import tempfile
+    import torch
+    from stereo_to_multiview_tpu_torch import config
+
+    tmp = tempfile.mkdtemp(prefix="stm_smoke_")
+    try:
+        cfg = config.HD1080_D128
+        combos = [(src, depth, rb)
+                  for src in ("FrameSource", "native_source", "Y4MSource")
+                  for depth in (2, 1) for rb in ("full", "sync")]
+        rep = {"stream": check_stream(MAIN, cfg, MAIN, 8, 30, combos, tmp,
+                                      card)}
+        rep["apps"] = run_apps(os.path.join(tmp, MAIN), cfg, tmp, card)
+        shutil.rmtree(os.path.join(tmp, MAIN))
+        cfg4k = config.UHD4K_16V
+        rep["stream"] += check_stream(
+            UHD4K, cfg4k, UHD4K, 4, 10,
+            [("FrameSource", 2, "full"), ("FrameSource", 2, "sync")], tmp,
+            card)
+        torch.cuda.empty_cache()
+        rep["xla"] = check_xla_path(stereo_sbs(cfg.num_rows, cfg.num_cols),
+                                    cfg, card)
+        rep["xla_small_frames"] = {
+            label: check_small_xla(label, scfg)
+            for label, scfg in xla_small_configs().items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rep
+
+
 def time_frames(root: str, n_frames: int) -> int:
     """`--frames N [--package-root DIR]`: the four preset paths and the two
     dial paths (where the package has the dials) alone, N timed frames
@@ -3163,6 +3514,21 @@ def synth_checks(root: str) -> int:
     return 0
 
 
+def only_runtime_checks() -> int:
+    """`--runtime-checks`: phase 5 alone (the kernels built first)."""
+    sys.path.insert(0, HERE)
+    from stereo_to_multiview_tpu_torch import kernels
+    card = gpu_line()
+    print(f"gpu: {card}", flush=True)
+    print_ptxas(kernels.build_kernels())
+    try:
+        runtime_checks(card)
+    except (SmokeFailure, RuntimeError, ValueError) as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3178,6 +3544,9 @@ def main() -> int:
                          "B11, the fused occlusion stage, G1, B12) and "
                          "the presets' interlaced frames against their "
                          "plain versions and print no result line")
+    ap.add_argument("--runtime-checks", action="store_true",
+                    help="only run the stream driver, the XLA engine and "
+                         "the apps (phase 5) and print no result line")
     ap.add_argument("--package-root", default=HERE,
                     help="with --frames, --stream-checks or "
                          "--synth-checks: the checkout whose package runs "
@@ -3197,6 +3566,8 @@ def main() -> int:
         return stream_checks(os.path.abspath(args.package_root))
     if args.synth_checks:
         return synth_checks(os.path.abspath(args.package_root))
+    if args.runtime_checks:
+        return only_runtime_checks()
     sys.path.insert(0, HERE)
     try:
         from stereo_to_multiview_tpu_torch import config, kernels
@@ -3396,6 +3767,8 @@ def main() -> int:
         report["small_frames"] = {label: check_small_frame(label, scfg)
                                   for label, scfg in small_configs().items()}
         check_small_dm_core()
+        report["runtime"] = runtime_checks(card)
+        paths[XLA] = report["runtime"]["xla"]
     except (SmokeFailure, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

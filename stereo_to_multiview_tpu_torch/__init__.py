@@ -41,11 +41,22 @@ its module names, so each counterpart is easy to find:
                     `dibr_warp_views_kern`, `dibr_warp_pair_kern`)
   ops.mux        -- the interlace's view pattern and `mux_multiview`
   ops.scale      -- the rescales of the lowres path and the interlace
+  ops.cost, ops.cross, ops.wta, ops.hslo (`dc_hslo`)
+                 -- the XLA engine's (D, H, W) float32 cost,
+                    aggregation, WTA and scanline optimisation (plain
+                    torch; ops.fastmath holds XLA's CPU exp and the
+                    contracted sums its jitted executable computes)
   csrc           -- the CUDA sources of those kernels (sm_90a)
   kernels        -- nvcc build, ctypes loading, launch counters
   models         -- process_frame, process_frame_lowres,
-                    synthesize_interlace, synthesize_views
-  utils          -- BMP reader, stage annotation and timing
+                    synthesize_interlace, synthesize_views (both
+                    engines: cfg.engine "band"/"auto" or "xla");
+                    models.stream, the stream driver and its sources
+  native         -- ctypes binding of native/stm_native.cpp (BMP, decode
+                    queue, Y4M), built with the host compiler
+  utils          -- BMP reader/writer, Y4M, PNG, dumps, live preview,
+                    device report, stage annotation and timing
+  apps           -- image_io, video_io: the command-line apps
 """
 
 from stereo_to_multiview_tpu_torch.config import (

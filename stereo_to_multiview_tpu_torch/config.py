@@ -64,8 +64,9 @@ class PipelineConfig:
 
     # --- compute engine ---
     engine: str = "auto"         # "auto" / "band": the quantized band
-                                 # engine (the port's only engine);
-                                 # "xla" is not ported
+                                 # engine; "xla": the XLA engine (float32
+                                 # (D, H, W) volumes, plain torch beside
+                                 # B1, B7, B8/B9 and the occlusion stage)
     band_nsplit: int = 2         # JAX float band sums only
     band_digits: int = 3         # aggregation precision: the rescale
                                  # shifts keep each pass's input below
@@ -74,7 +75,7 @@ class PipelineConfig:
     band_qscale: float = 127.0   # cost quantization scale (127 = u8;
                                  # int16 costs above 127.5, <= 16383)
     band_lossy_wta: bool = False # pass-4 bf16 WTA dial
-    xla_agg_qscale: float = 0.0  # JAX XLA engine only
+    xla_agg_qscale: float = 0.0  # XLA engine: integer costs (exact sums)
     band_row_chunk: int = 0      # stereo-core rows per chunk (0 = whole)
     irv_row_chunk: int = 0       # IRV rows per chunk (0 = whole frame)
 

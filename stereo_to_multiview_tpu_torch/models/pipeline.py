@@ -1,7 +1,8 @@
 """Whole-frame pipeline: SBS uint8 frame in -> (disp_l, disp_r,
 interlaced) out.
 
-Stage order, with the hand-written CUDA kernel of each stage:
+Stage order of the band engine (`engine="band"` or `"auto"`), with the
+hand-written CUDA kernel of each stage:
   demux_sbs -> cross arms of both eyes (B1, one launch) -> stereo core
   (cost init with the census B2, shear B3, H,V,V,H aggregation B4/B5,
   WTA B6; with use_hslo the pass-4 volumes and the scanline
@@ -15,18 +16,31 @@ Stage order, with the hand-written CUDA kernel of each stage:
      the one view it selects, sampled bilinearly where the output
      resolution differs; no view stack is written
 
+The XLA engine (`engine="xla"`) is the JAX package's other engine: the
+same arms (B1), then a (D, H, W) float32 cost volume, optionally
+integer-quantized (`xla_agg_qscale`), float32 prefix-window
+aggregation, [scanline optimisation,] first-min WTA, all plain torch;
+the same labels (B7) and IRV (B8/B9, fixed rounds or their bit-equal
+early stop); the bilateral filter in the XLA tap order at any radius
+(plain torch); the fused occlusion stage (B7's hits and B11); then the
+feather, bounded backward warps, the merge and `mux_multiview`, plain
+torch, as the JAX package computes them outside any Pallas kernel.  Its
+float stages follow the arithmetic of the JAX package's jitted CPU
+executable (XLA's exp, its blocked cumsum, multiply-adds where its loops
+contract them), so a frame equals JAX's.  `engine="auto"` is the band
+engine.
+
 `process_frame_lowres` computes the disparities on a downscaled pair and
 scales them back up before the synthesis.
 
-The stereo core has band-engine semantics (quantized cost, exact integer
-aggregation, first-min WTA); the kernels' plain versions follow the JAX
-package's XLA-engine functions, which its tests hold equal to its
+The band engine's stereo core has quantized cost, exact integer
+aggregation and a first-min WTA; the kernels' plain versions follow the
+JAX package's XLA-engine functions, which its tests hold equal to its
 band-engine kernels.
 
 Entry points run on the CUDA device unless the caller passes
 `device="cpu"` (the tests do); without a GPU and without that request
-they raise.  Knobs the port does not have yet raise NotImplementedError
-naming their ROADMAP item.
+they raise.
 """
 
 from __future__ import annotations
@@ -37,18 +51,25 @@ import torch
 
 from stereo_to_multiview_tpu_torch.config import PipelineConfig
 from stereo_to_multiview_tpu_torch.ops.band import band_stereo_core_chunked
+from stereo_to_multiview_tpu_torch.ops.cost import ci_adcensus
 from stereo_to_multiview_tpu_torch.ops.costkern import cost_dtype
-from stereo_to_multiview_tpu_torch.ops.cross import cross_arms_lr
+from stereo_to_multiview_tpu_torch.ops.cross import (
+    cross_aggregate, cross_arms_lr)
 from stereo_to_multiview_tpu_torch.ops.dcc import dr_dcc
 from stereo_to_multiview_tpu_torch.ops.demux import demux_sbs
 from stereo_to_multiview_tpu_torch.ops.dibr import (
-    dibr_feather_mask, dibr_occl_masks, synth_shifts, warp_merge_interlace,
-    warp_merge_views)
+    dibr_backward_warp, dibr_feather_mask, dibr_occl_masks, op_invertnormf,
+    synth_shifts, warp_merge_interlace, warp_merge_views)
 from stereo_to_multiview_tpu_torch.ops.filters import (
-    filter_bilateral, filter_median)
+    filter_bilateral, filter_bilateral_wide, filter_gaussian_lift,
+    filter_median)
+from stereo_to_multiview_tpu_torch.ops.hslo import dc_hslo
 from stereo_to_multiview_tpu_torch.ops.irv import dr_irv_early_stop
+from stereo_to_multiview_tpu_torch.ops.mux import (
+    f32, mux_average, mux_merge_ab, mux_multiview)
 from stereo_to_multiview_tpu_torch.ops.scale import (
     tx_disp_scale, tx_scale_bilinear)
+from stereo_to_multiview_tpu_torch.ops.wta import dc_wta
 from stereo_to_multiview_tpu_torch.utils.profiling import (
     StageTimer, stage_scope)
 
@@ -64,17 +85,72 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def check_ported(cfg: PipelineConfig):
-    """Raise NotImplementedError for a knob that is not ported yet (the
-    XLA engine), ValueError for a value out of range."""
-    if cfg.engine == "xla":
-        raise NotImplementedError(
-            "engine='xla' is not ported yet (ROADMAP A.4)")
-    if cfg.engine not in ("auto", "band"):
+def use_xla(cfg: PipelineConfig) -> bool:
+    """True for the XLA engine; "auto" and "band" take the band engine
+    (the JAX package's resolution on a TPU)."""
+    if cfg.engine not in ("auto", "band", "xla"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
+    return cfg.engine == "xla"
+
+
+def check_ported(cfg: PipelineConfig):
+    """Raise ValueError, before a frame starts, for a value the engine
+    refuses: the band engine's dials out of range, or an
+    `xla_agg_qscale` whose prefix sums would not be exact."""
+    if use_xla(cfg):
+        xla_qscale_check(cfg)
+        return
     if cfg.band_digits not in (1, 2, 3):
         raise ValueError("band_digits must be 1, 2 or 3")
     cost_dtype(cfg.band_qscale)
+
+
+def xla_qscale_check(cfg: PipelineConfig):
+    """With xla_agg_qscale > 0 every prefix of the four passes must stay
+    below 2^24 (exact in float32) at the configured geometry; raise
+    ValueError otherwise."""
+    if cfg.xla_agg_qscale <= 0:
+        return
+    wmax = 2 * cfg.usd + 1
+    v = 2.0 * cfg.xla_agg_qscale              # cost <= 2
+    hh, ww = cfg.num_rows + 2 * 64, cfg.num_cols + 2 * 64
+    for axis_len in (ww, hh, hh, ww):         # H, V, V, H pass prefixes
+        if v * axis_len >= 2.0 ** 24:
+            raise ValueError("xla_agg_qscale too large for exact integer "
+                             "aggregation at this geometry")
+        v = v * wmax
+
+
+def xla_quant_costs(cost_l, cost_r, cfg: PipelineConfig):
+    """cfg.xla_agg_qscale > 0: rint(cost * qscale), so the XLA engine's
+    float32 aggregation adds integers and is exact (its geometry is
+    checked first); qscale 0 returns the costs untouched."""
+    if cfg.xla_agg_qscale <= 0:
+        return cost_l, cost_r
+    xla_qscale_check(cfg)
+    q = f32(cfg.xla_agg_qscale)
+    return torch.round(cost_l * q), torch.round(cost_r * q)
+
+
+def xla_stereo_core(img_l, img_r, arms_l, arms_r, cfg: PipelineConfig):
+    """The XLA engine's cost init, aggregation, [scanline optimisation]
+    and WTA: (disp_l, disp_r) float32, plain torch on every device."""
+    costs = list(xla_quant_costs(*ci_adcensus(
+        img_l, img_r, cfg.ad_coeff, cfg.census_coeff, cfg.num_disp,
+        cfg.zero_disp), cfg))
+    disps = []
+    for eye, (arms, sign) in enumerate(((arms_l, +1), (arms_r, -1))):
+        acost = cross_aggregate(costs[eye], arms, max_arm=cfg.usd)
+        costs[eye] = None               # one eye's volumes at a time
+        if cfg.use_hslo:
+            # quantized costs scale the aggregate's units, and the
+            # penalties with them
+            kq = cfg.xla_agg_qscale if cfg.xla_agg_qscale > 0 else 1.0
+            acost = dc_hslo(acost, mux_average(img_l), mux_average(img_r),
+                            cfg.num_disp, cfg.zero_disp, cfg.hslo_T,
+                            cfg.hslo_H1 * kq, cfg.hslo_H2 * kq, sign=sign)
+        disps.append(dc_wta(acost, cfg.zero_disp))
+    return tuple(disps)
 
 
 def raw_disparities(img_l, img_r, cfg: PipelineConfig,
@@ -86,8 +162,8 @@ def raw_disparities(img_l, img_r, cfg: PipelineConfig,
         arms_l, arms_r = cross_arms_lr(img_l, img_r, cfg.ucd, cfg.lcd,
                                        cfg.usd, cfg.lsd)
     with stage_scope("stereo_core", timer):
-        disp_l, disp_r = band_stereo_core_chunked(img_l, img_r, arms_l,
-                                                  arms_r, cfg)
+        core = xla_stereo_core if use_xla(cfg) else band_stereo_core_chunked
+        disp_l, disp_r = core(img_l, img_r, arms_l, arms_r, cfg)
     with stage_scope("dr_dcc", timer):
         out_l, out_r = dr_dcc(disp_l, disp_r, cfg.dcc_thresh)
     with stage_scope("dr_irv", timer):
@@ -109,9 +185,11 @@ def compute_disparities(img_l, img_r, cfg: PipelineConfig,
         with stage_scope("filter_median", timer):
             disp_l, disp_r = filter_median(disp_l), filter_median(disp_r)
     with stage_scope("filter_bilateral", timer):
-        blf = lambda d: filter_bilateral(d, cfg.bilateral_radius,
-                                         cfg.bilateral_sigma_color,
-                                         cfg.bilateral_sigma_spatial)
+        # the XLA engine's filter at every radius: its own tap order
+        filt = filter_bilateral_wide if use_xla(cfg) else filter_bilateral
+        blf = lambda d: filt(d, cfg.bilateral_radius,
+                             cfg.bilateral_sigma_color,
+                             cfg.bilateral_sigma_spatial)
         disp_l, disp_r = blf(disp_l), blf(disp_r)
     return disp_l, disp_r, out_l, out_r
 
@@ -136,13 +214,42 @@ def synthesis_masks(disp_l, disp_r, cfg: PipelineConfig,
                     timer: StageTimer | None = None):
     """The synthesis' masks from the disparities: (mask_l, mask_r) float32
     {0, 1} (occlusion hits B7 and bleed B11 in one launch) and the
-    feathered blend weight (G1)."""
+    feathered blend weight: G1 on the band engine; on the XLA engine the
+    plain torch feather in the JAX package's jitted CPU order
+    (`filter_gaussian_lift(..., contract=True)`), which G1 is not."""
     with stage_scope("dibr_occl", timer):
         mask_l, mask_r = dibr_occl_masks(disp_l, disp_r, cfg.bleed_radius)
     with stage_scope("dibr_feather", timer):
-        feathered = dibr_feather_mask(mask_r, cfg.feather_radius,
-                                      cfg.feather_sigma)
+        if use_xla(cfg):
+            feathered = filter_gaussian_lift(op_invertnormf(mask_r),
+                                             cfg.feather_radius,
+                                             cfg.feather_sigma,
+                                             contract=True)
+        else:
+            feathered = dibr_feather_mask(mask_r, cfg.feather_radius,
+                                          cfg.feather_sigma)
     return mask_l, mask_r, feathered
+
+
+def xla_views(img_l, img_r, disp_l, disp_r, mask_l, mask_r, feathered,
+              cfg: PipelineConfig) -> torch.Tensor:
+    """The XLA engine's intermediate views, (nv, H, W, 3) u8: for each
+    shift, the left image warped with disp_r at -shift and the right one
+    with disp_l at 1 - shift (bounded warps, `dibr_backward_warp`),
+    merged with the feathered mask; plain torch, each lerp's second term
+    added by a fused multiply-add as in the JAX package's jitted
+    frame."""
+    nd_s, zd_s = synth_disp_bounds(cfg)
+    shifts = synth_shifts(cfg.num_views)
+    if not shifts:
+        return img_l.new_empty((0, *img_l.shape))
+    return torch.stack([
+        mux_merge_ab(
+            dibr_backward_warp(img_l, mask_r, disp_r, -s, nd_s, zd_s, True),
+            dibr_backward_warp(img_r, mask_l, disp_l, 1.0 - s, nd_s, zd_s,
+                               True),
+            feathered)
+        for s in shifts])
 
 
 def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
@@ -150,11 +257,15 @@ def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
     """DIBR half: images + disparities -> (V, H, W, 3) u8 view stack.
     View 0 = right source, view V-1 = left source; intermediate view v
     warps L with disp_r at -shift and R with disp_l at 1 - shift,
-    shift = 1 - v/(V-1), and merges them with the feathered mask (B12)."""
+    shift = 1 - v/(V-1), and merges them with the feathered mask: B12 on
+    the band engine, the bounded plain-torch warps on the XLA engine."""
     masks = synthesis_masks(disp_l, disp_r, cfg, timer)
     with stage_scope("dibr_dbm", timer):
-        mids = warp_merge_views(img_l, img_r, disp_l, disp_r, *masks,
-                                synth_shifts(cfg.num_views))
+        if use_xla(cfg):
+            mids = xla_views(img_l, img_r, disp_l, disp_r, *masks, cfg)
+        else:
+            mids = warp_merge_views(img_l, img_r, disp_l, disp_r, *masks,
+                                    synth_shifts(cfg.num_views))
     return torch.cat([img_r[None], mids, img_l[None]])
 
 
@@ -162,10 +273,16 @@ def synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
                          timer: StageTimer | None = None) -> torch.Tensor:
     """Views synthesis + lenticular interlace: images + disparities ->
     (num_rows_out, num_cols_out, 3) u8, equal to
-    `mux_multiview(synthesize_views(...), ...)`.  The warps, merge and
-    interlace run as one kernel (B12's interlace mode), which computes
-    each output subpixel from the one view it selects and writes no view
-    stack; any number of views, bleed radius and output size."""
+    `mux_multiview(synthesize_views(...), ...)`.  On the band engine the
+    warps, merge and interlace run as one kernel (B12's interlace mode),
+    which computes each output subpixel from the one view it selects and
+    writes no view stack; any number of views, bleed radius and output
+    size.  On the XLA engine it is that composition, in plain torch."""
+    if use_xla(cfg):
+        views = synthesize_views(img_l, img_r, disp_l, disp_r, cfg, timer)
+        with stage_scope("mux_multiview", timer):
+            return mux_multiview(views, cfg.num_rows_out, cfg.num_cols_out,
+                                 cfg.angle, contract=True)
     masks = synthesis_masks(disp_l, disp_r, cfg, timer)
     with stage_scope("dibr_dbm", timer):
         return warp_merge_interlace(img_l, img_r, disp_l, disp_r, *masks,

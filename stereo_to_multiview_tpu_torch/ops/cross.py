@@ -130,3 +130,76 @@ def cross_arms_lr(img_l: torch.Tensor, img_r: torch.Tensor, ucd: float,
     """(arms_l, arms_r), each equal to `cross_arms` of its image, in one
     launch of kernel B1: the JAX package's `cross_arms_kern_lr`."""
     return cross_arms_eyes((img_l, img_r), ucd, lcd, usd, lsd)
+
+
+# ---- the XLA engine's aggregation: float32 prefix windows --------------
+
+SCAN_BLOCK = 16
+
+
+def _scan_f32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 prefix sums along dim 0 in the order of XLA's
+    CPU cumsum: up to 16 values a sequential running sum; beyond, blocks
+    of 16 each summed sequentially, then each block's sums plus the
+    prefix (this same scan) of the totals of the blocks before it."""
+    n = x.shape[0]
+    nb = -(-n // SCAN_BLOCK)
+    if nb > 1:
+        pad = x.new_zeros((nb * SCAN_BLOCK - n, *x.shape[1:]))
+        x = torch.cat([x, pad]).reshape(nb, SCAN_BLOCK, *x.shape[1:])
+    else:
+        x = x[None]
+    inner = torch.empty_like(x)
+    inner[:, 0] = x[:, 0]
+    for j in range(1, x.shape[1]):
+        inner[:, j] = inner[:, j - 1] + x[:, j]
+    if nb > 1:
+        carry = _scan_f32(inner[:nb - 1, -1])
+        inner[1:] += carry[:, None]
+    return inner.reshape(-1, *inner.shape[2:])[:n]
+
+
+def prefix_sum_f32(vol: torch.Tensor, axis: int) -> torch.Tensor:
+    """Exclusive float32 prefix sums of a volume along `axis`, one longer
+    than it (a leading 0), summed in the order of XLA's CPU cumsum
+    (`_scan_f32`), the same on every device.  torch.cumsum accumulates in
+    float64 on the CPU and in a tree on the card."""
+    x = vol.to(torch.float32).movedim(axis, 0)
+    out = torch.cat([x.new_zeros((1, *x.shape[1:])), _scan_f32(x)])
+    return out.movedim(0, axis)
+
+
+def _span_sum(vol: torch.Tensor, arm_neg: torch.Tensor,
+              arm_pos: torch.Tensor, axis: int, max_arm: int | None):
+    """Half-open span sum along `axis` (1: rows, 2: columns) of a (D, H,
+    W) float32 volume: out[i] = sum vol[i - arm_neg[i] : i + arm_pos[i]],
+    from the exclusive float32 prefix sums read at the two endpoints.  An
+    endpoint offset outside [0, m] (m = min(max_arm, n)) reads at the
+    range's low end, as the JAX package's bounded select chain does."""
+    n = vol.shape[axis]
+    m = n if max_arm is None else min(int(max_arm), n)
+    cs = prefix_sum_f32(vol, axis)
+    h, w = arm_neg.shape
+    dev = vol.device
+    pos = torch.arange(n, device=dev)
+    pos = pos[:, None] if axis == 1 else pos[None, :]
+    hi_off = torch.where((arm_pos >= 0) & (arm_pos <= m), arm_pos, 0)
+    lo_off = torch.where((arm_neg >= 0) & (arm_neg <= m), -arm_neg, -m)
+    hi = (pos + hi_off).clamp(0, n)
+    lo = (pos + lo_off).clamp(0, n)
+    if axis == 1:
+        cols = torch.arange(w, device=dev)[None, :].expand(h, w)
+        return cs[:, hi, cols] - cs[:, lo, cols]
+    rows = torch.arange(h, device=dev)[:, None].expand(h, w)
+    return cs[:, rows, hi] - cs[:, rows, lo]
+
+
+def cross_aggregate(cost: torch.Tensor, arms: torch.Tensor,
+                    max_arm: int | None = None) -> torch.Tensor:
+    """The XLA engine's four-pass aggregation of a (D, H, W) float32
+    volume in the order H, V, V, H, each pass over the previous one's
+    output; `max_arm` bounds the arms (the config's usd)."""
+    a = _span_sum(cost, arms[LEFT], arms[RIGHT], 2, max_arm)
+    a = _span_sum(a, arms[UP], arms[DOWN], 1, max_arm)
+    a = _span_sum(a, arms[UP], arms[DOWN], 1, max_arm)
+    return _span_sum(a, arms[LEFT], arms[RIGHT], 2, max_arm)

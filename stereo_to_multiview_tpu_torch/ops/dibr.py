@@ -21,6 +21,7 @@ import torch
 
 from stereo_to_multiview_tpu_torch import kernels
 from stereo_to_multiview_tpu_torch.ops.dcc import launch_dcc, scatter_hit
+from stereo_to_multiview_tpu_torch.ops.fastmath import fma
 from stereo_to_multiview_tpu_torch.ops.filters import (
     filter_bleed, filter_gaussian_lift, gaussian_lift_constants)
 from stereo_to_multiview_tpu_torch.ops.mux import (
@@ -195,31 +196,74 @@ def dibr_feather_mask(mask_r: torch.Tensor, feather_radius: int,
 
 
 def warp_interp_u8(img_in: torch.Tensor, disp: torch.Tensor,
-                   shift: float) -> torch.Tensor:
+                   shift: float, bounds=None,
+                   contract: bool = False) -> torch.Tensor:
     """The un-masked part of the gather warp: sample img_in at c =
     clamp(x + disp*shift, 0, W-1) with x-only linear interpolation and
     truncate to u8.  The two weights are the triangle weights
     max(1 - |c - x0|, 0) and max(1 - |c - (x0 + 1)|, 0) at x0 = floor(c),
-    each evaluated in float32 exactly as the JAX package does."""
+    each evaluated in float32 exactly as the JAX package does, and the
+    two terms are added in that order.  With bounds=(lo, hi), a term
+    whose offset (its column minus x) lies outside [lo, hi + 1] is
+    dropped: the JAX package's bounded sum over a static offset range,
+    which gives part of a sample just outside that range.  With
+    `contract` (bounds required) the arithmetic is that of the JAX
+    package's jitted CPU executable, whose loops contract a product into
+    the add that consumes it: c = fma(disp, shift, x), and the sum over
+    the range fuses each product into the running sum, the first two as
+    fma(t0, t1); otherwise each product is rounded, as its op-by-op
+    evaluation and the warp kernels do."""
     h, w, _ = img_in.shape
     xs = torch.arange(w, dtype=F32, device=img_in.device)
-    c = (xs[None, :] + disp.to(F32) * f32(shift)).clamp(0.0, float(w - 1))
+    if contract:
+        c = fma(disp.to(F32), f32(shift), xs[None, :])
+    else:
+        c = xs[None, :] + disp.to(F32) * f32(shift)
+    c = c.clamp(0.0, float(w - 1))
     x0 = torch.floor(c)
     w0 = (1.0 - (c - x0).abs()).clamp(min=0.0)
     w1 = (1.0 - (c - (x0 + 1.0)).abs()).clamp(min=0.0)
+    k0 = x0 - xs[None, :]
+    if bounds is not None:
+        lo, hi = float(bounds[0]), float(bounds[1] + 1)
+        w0 = torch.where((k0 >= lo) & (k0 <= hi), w0, 0.0)
+        w1 = torch.where((k0 + 1.0 >= lo) & (k0 + 1.0 <= hi), w1, 0.0)
     i0 = x0.to(torch.int64)
     i1 = (i0 + 1).clamp(max=w - 1)
     img = img_in.to(F32)
     v0 = torch.gather(img, 1, i0[:, :, None].expand(h, w, 3))
     v1 = torch.gather(img, 1, i1[:, :, None].expand(h, w, 3))
-    return (w0[:, :, None] * v0 + w1[:, :, None] * v1).to(torch.uint8)
+    w0, w1 = w0[:, :, None], w1[:, :, None]
+    if not contract:
+        return (w0 * v0 + w1 * v1).to(torch.uint8)
+    # the executable's sum over the offset range fuses each product into
+    # the running sum, except the first pair: fma(t0, t1 rounded)
+    first = (k0 == float(bounds[0]))[:, :, None]
+    return torch.where(first, fma(w0, v0, w1 * v1),
+                       fma(w1, v1, w0 * v0)).to(torch.uint8)
 
 
 def dibr_backward_warp(img_in: torch.Tensor, mask: torch.Tensor,
-                       disp: torch.Tensor, shift: float) -> torch.Tensor:
-    """Gather warp: `warp_interp_u8`, multiplied by mask, truncated
-    again."""
-    interp = warp_interp_u8(img_in, disp, shift)
+                       disp: torch.Tensor, shift: float,
+                       num_disp: int | None = None,
+                       zero_disp: int | None = None,
+                       contract: bool = False) -> torch.Tensor:
+    """Gather warp of the XLA engine's synthesis: `warp_interp_u8`
+    bounded by the `offset_range` of the disparity range [-zero_disp,
+    num_disp - zero_disp] (without one, [-(W - 1), W - 1]), multiplied
+    by mask, truncated again; `contract` as there.  Plain torch on every
+    device, as in the JAX package."""
+    w = img_in.shape[1]
+    if num_disp is None or zero_disp is None:
+        bounds = offset_range(-(w - 1), w - 1, shift)
+    else:
+        bounds = offset_range(-zero_disp, num_disp - zero_disp, shift)
+    return masked(warp_interp_u8(img_in, disp, shift, bounds, contract),
+                  mask)
+
+
+def masked(interp: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """u8 warp times a float mask, truncated to u8."""
     return (interp.to(F32) * mask.to(F32)[:, :, None]).to(torch.uint8)
 
 
@@ -240,12 +284,13 @@ def merge_shifts(shifts):
 
 def warp_merge_views_plain(img_l, img_r, disp_l, disp_r, mask_l, mask_r,
                            feathered, shifts) -> torch.Tensor:
-    """Plain version of `warp_merge_views`: two warps and a merge per
-    view."""
+    """Plain version of `warp_merge_views`: two warps (unbounded, as the
+    kernel) and a merge per view."""
     sl, sr = merge_shifts(shifts)
     return torch.stack([
-        mux_merge_ab(dibr_backward_warp(img_l, mask_r, disp_r, a),
-                     dibr_backward_warp(img_r, mask_l, disp_l, b), feathered)
+        mux_merge_ab(masked(warp_interp_u8(img_l, disp_r, a), mask_r),
+                     masked(warp_interp_u8(img_r, disp_l, b), mask_l),
+                     feathered)
         for a, b in zip(sl, sr)])
 
 

@@ -8,6 +8,11 @@ rint(127 * ((1 - e^-a) + (1 - e^-c))) unchanged over all 766 x 49
 integer (AD, Hamming) inputs; elsewhere they keep `exp`.  Either way the
 u8 values are those of the exp table, which is what the port computes:
 it checks the same proof and keeps its table (`costkern`).
+
+Also `exp_xla`: e^x as XLA's CPU backend evaluates float32 `exp` (the
+Cephes reduction and degree-5 polynomial, each step a fused
+multiply-add), so the port's copies of the JAX package's XLA float
+filters give its CPU values to the bit, on every device.
 """
 
 from __future__ import annotations
@@ -70,3 +75,62 @@ def cost_flip_count(inv_ad: float, inv_cen: float, max_ad: int = 765,
     got = np.rint(((f(1.0) - exp_neg_np(za))[:, None]
                    + (f(1.0) - exp_neg_np(zc))[None, :]) * f(127.0))
     return int((ref != got).sum())
+
+
+# XLA's CPU float32 exp: n = floor(x log2(e) + 1/2) clamped to [-127,
+# 127], a = x - n C1 - n C2 (ln 2 = C1 + C2), e^a by a Cephes polynomial,
+# times 2^n built in the exponent bits (0 at n = -127)
+_LOG2EF = 1.44269504088896341
+_EXP_C1, _EXP_C2 = 0.693359375, -2.12194440e-4
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+          4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once (b, c tensors or float32 constants):
+    the float32 product is exact in float64."""
+    wide = lambda v: (v.to(torch.float64) if isinstance(v, torch.Tensor)
+                      else float(np.float32(v)))
+    return (a.to(torch.float64) * wide(b) + wide(c)).to(torch.float32)
+
+
+def exp_xla(x: torch.Tensor) -> torch.Tensor:
+    """e^x of a float32 tensor with the op sequence of XLA's CPU `exp`
+    (a subnormal result flushed to 0);
+    equal to it to the bit on random inputs in [-87, 5]
+    (`tests/test_torch_xla_engine.py`), where torch.exp differs in the
+    last ulp at about one input in ten."""
+    x = x.to(torch.float32).clamp(float(np.float32(-87.8)),
+                                  float(np.float32(88.8)))
+    n = torch.floor(fma(x, _LOG2EF, 0.5)).clamp(-127.0, 127.0)
+    a = fma(n, -np.float32(_EXP_C1), x)
+    a = fma(n, -np.float32(_EXP_C2), a)
+    z = fma(a, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        z = fma(z, a, c)
+    z = 1.0 + fma(z, a * a, a)
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return flush_denormals(z * pow2)
+
+
+FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def flush_denormals(x: torch.Tensor) -> torch.Tensor:
+    """x with its subnormal values set to 0, as XLA's CPU executables
+    run (flush-to-zero): a float32 result below 2^-126 in magnitude."""
+    return torch.where(x.abs() < FLT_MIN, torch.zeros_like(x), x)
+
+
+def contracted_sum(pairs):
+    """sum of a * b over the (a, b) pairs, in order, as a jitted XLA CPU
+    loop adds a chain of products: each product fused into the running
+    sum by a multiply-add, the first two as fma(a0, b0, a1 * b1)."""
+    pairs = list(pairs)
+    if len(pairs) == 1:
+        return pairs[0][0] * pairs[0][1]
+    (a0, b0), (a1, b1) = pairs[:2]
+    acc = fma(a0, b0, a1 * b1)
+    for a, b in pairs[2:]:
+        acc = fma(a, b, acc)
+    return acc

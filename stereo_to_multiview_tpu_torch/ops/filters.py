@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from stereo_to_multiview_tpu_torch import kernels
+from stereo_to_multiview_tpu_torch.ops.fastmath import (
+    contracted_sum, exp_xla, flush_denormals)
 from stereo_to_multiview_tpu_torch.ops.cost import clamp_index
 from stereo_to_multiview_tpu_torch.ops.mux import f32
 
@@ -51,14 +53,24 @@ def gaussian_lift_constants(radius: int, sigma: float):
     return k1.astype(np.float32), np.float32(scale / k2d_sum)
 
 
-def filter_gaussian_lift(img: torch.Tensor, radius: int, sigma: float):
+def filter_gaussian_lift(img: torch.Tensor, radius: int, sigma: float,
+                         contract: bool = False):
     """out = max(input, gaussian_blur(input)), clamp-to-edge, normalized
     by the full 2D kernel sum; the blur runs as an x pass then a y pass
-    with float32 taps."""
+    with float32 taps.  With `contract` each pass adds its products as
+    the JAX package's jitted CPU executable does
+    (`fastmath.contracted_sum`); otherwise each product is rounded, as
+    its op-by-op evaluation and the feather kernel do."""
     k1, post = gaussian_lift_constants(radius, sigma)
     a = img.to(F32)
     p = edge_pad(a, radius)
     h, w = img.shape
+    if contract:
+        acc_r = contracted_sum((f32(kv), p[:, j:j + w])
+                               for j, kv in enumerate(k1))
+        acc = contracted_sum((f32(kv), acc_r[i:i + h])
+                             for i, kv in enumerate(k1))
+        return torch.maximum(a, acc * f32(post))
     acc_r = torch.zeros((h + 2 * radius, w), dtype=F32, device=img.device)
     for j, kv in enumerate(k1):
         acc_r = acc_r + f32(kv) * p[:, j:j + w]
@@ -124,22 +136,64 @@ def filter_bilateral_plain(img: torch.Tensor, radius: int,
                           [(dx, dy) for dx in r for dy in r])
 
 
+@functools.lru_cache(maxsize=16)
+def _range_weights_xla(inv_2var: float) -> torch.Tensor:
+    """exp_xla(-(t * t) * inv_2var) for the integers t = 0, 1, ... up to
+    the first whose argument reaches -87.8, where XLA's exp is 0 and stays
+    0 (the table's last entry): the bilateral's range weight by its
+    integer index t, the same values as evaluating it tap by tap."""
+    t = 0
+    while float(np.float32(t * t) * np.float32(inv_2var)) < 87.8:
+        t += 1
+    ts = torch.arange(t + 1, dtype=F32)
+    return exp_xla(-(ts * ts) * f32(inv_2var))
+
+
 def filter_bilateral_wide(img: torch.Tensor, radius: int,
-                          sigma_color: float,
-                          sigma_spatial: float) -> torch.Tensor:
+                          sigma_color: float, sigma_spatial: float,
+                          contract: bool = True) -> torch.Tensor:
     """The bilateral filter as the JAX package's XLA filter computes it
     (stereo_to_multiview_tpu/ops/filters.py `filter_bilateral`), the one
-    its band engine runs above radius 8: taps dy outer, dx inner, and
-    sigma_color squared in float32.  Plain torch on every device: no TPU
-    kernel runs there."""
+    its band engine runs above radius 8 and its XLA engine at every
+    radius, in the order its jitted CPU executable evaluates it: taps dy
+    outer, dx inner; sigma_color squared in float32; each tap's weight
+    e^{-t^2 / 2 s_c^2} times one float32 constant, the range scale times
+    the spatial tap (XLA folds the two); the exp as XLA's CPU `exp`
+    (`fastmath.exp_xla`); subnormal weights flushed to 0, as XLA's CPU
+    executables run; the numerator's products added with fused
+    multiply-adds (`fastmath.contracted_sum`), the weights added
+    plainly.  Equal to the JAX package's CPU values to the bit.  With
+    contract=False, the order of its op-by-op evaluation instead: the
+    spatial tap times (range weight times range scale), each product
+    rounded.  Plain torch on every device: no TPU kernel runs there."""
     var = np.float32(sigma_color) ** 2
-    lut_scale = f32(1.0 / float(np.sqrt(2 * np.pi * var)))
+    lut_scale = np.float32(1.0 / float(np.sqrt(2 * np.pi * var)))
     inv_2var = f32(1.0 / (2.0 * float(var)))
-    r = range(-radius, radius + 1)
-    return _bilateral_sum(img, radius, gaussian_kernel_2d(radius,
-                                                          sigma_spatial),
-                          inv_2var, lut_scale,
-                          [(dx, dy) for dy in r for dx in r])
+    sk = gaussian_kernel_2d(radius, sigma_spatial)
+    h, w = img.shape
+    a = img.to(F32)
+    p = edge_pad(a, radius)
+    table = _range_weights_xla(float(inv_2var)).to(img.device)
+    weights, samples = [], []
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            s = p[dy + radius:dy + radius + h, dx + radius:dx + radius + w]
+            t = torch.floor((a - s).abs()).clamp(max=len(table) - 1)
+            rw = table[t.to(torch.int64)]
+            tap = np.float32(sk[dy + radius, dx + radius])
+            weights.append(flush_denormals(
+                rw * f32(lut_scale * tap) if contract else
+                f32(tap) * (rw * f32(lut_scale))))
+            samples.append(s)
+    den = weights[0]
+    for wgt in weights[1:]:
+        den = den + wgt
+    if contract:
+        return contracted_sum(zip(weights, samples)) / den
+    num = weights[0] * samples[0]
+    for wgt, s in zip(weights[1:], samples[1:]):
+        num = num + wgt * s
+    return num / den
 
 
 @kernels.kernel_wrapper

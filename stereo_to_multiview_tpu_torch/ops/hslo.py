@@ -103,3 +103,14 @@ def dc_hslo_hwd(cost: torch.Tensor, gray_l: torch.Tensor,
     c = cost.to(F32)
     return (scan_dir_hwd(c, p1, p2, False)
             + scan_dir_hwd(c, p1, p2, True)) * 0.5
+
+
+def dc_hslo(cost: torch.Tensor, gray_l: torch.Tensor, gray_r: torch.Tensor,
+            num_disp: int, zero_disp: int, T: float = 15.0, H1: float = 1.0,
+            H2: float = 3.0, sign: int = +1) -> torch.Tensor:
+    """`dc_hslo_hwd` on a (D, H, W) volume, the XLA engine's layout: the
+    same float32 steps, so the same values (each direction's first
+    column is its own cost)."""
+    out = dc_hslo_hwd(cost.permute(1, 2, 0), gray_l, gray_r, num_disp,
+                      zero_disp, T, H1, H2, sign)
+    return out.permute(2, 0, 1).contiguous()

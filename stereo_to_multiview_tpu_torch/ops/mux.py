@@ -78,23 +78,27 @@ def mux_view_pattern(v_cnt: int, rows: int, cols: int, angle: float,
 
 
 def resample_views_f32(views_f32: torch.Tensor, num_rows_out: int,
-                       num_cols_out: int) -> torch.Tensor:
+                       num_cols_out: int,
+                       contract: bool = False) -> torch.Tensor:
     """(V, H, W, 3) float32 -> (V, H_out, W_out, 3) float32 bilinear
-    resample of every view: the x-lerps, then the y-lerp."""
-    return lerp_axis(lerp_axis(views_f32, 2, num_cols_out), 1, num_rows_out)
+    resample of every view: the x-lerps, then the y-lerp (`contract` as
+    in `lerp_axis`)."""
+    return lerp_axis(lerp_axis(views_f32, 2, num_cols_out, contract), 1,
+                     num_rows_out, contract)
 
 
 def mux_multiview(views: torch.Tensor, num_rows_out: int, num_cols_out: int,
-                  angle: float) -> torch.Tensor:
+                  angle: float, contract: bool = False) -> torch.Tensor:
     """Slanted-lenticular interlace of (V, H, W, 3) uint8 views into
     (H_out, W_out, 3).  View 0 = right source, view V-1 = left source.
     At identity resolution each output subpixel is the selected view's
     own subpixel; otherwise every view is first resampled bilinearly to
-    the output resolution with a truncating u8 store."""
+    the output resolution with a truncating u8 store (`contract`: each
+    lerp in the JAX package's jitted order, `lerp_axis`)."""
     v_cnt, h_in, w_in = views.shape[:3]
     if (h_in, w_in) != (num_rows_out, num_cols_out):
         views = resample_views_f32(views.to(F32), num_rows_out,
-                                   num_cols_out).to(torch.uint8)
+                                   num_cols_out, contract).to(torch.uint8)
     vid = mux_view_pattern(v_cnt, num_rows_out, num_cols_out, angle,
                            views.device)
     return torch.gather(views, 0, vid[None])[0]

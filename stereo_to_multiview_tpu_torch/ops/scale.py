@@ -37,14 +37,21 @@ def lerp_taps(n_out: int, n_in: int, device):
             torch.from_numpy(w).to(device))
 
 
-def lerp_axis(a: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
-    """Linear resample of float32 `a` along `axis` to n_out samples."""
+def lerp_axis(a: torch.Tensor, axis: int, n_out: int,
+              contract: bool = False) -> torch.Tensor:
+    """Linear resample of float32 `a` along `axis` to n_out samples:
+    a0 * (1 - w) + a1 * w, each product rounded, or with `contract` the
+    first fused into the add, fma(a0, 1 - w, a1 * w), as the JAX
+    package's jitted CPU executable computes its interlace's resample."""
     i0, i1, w = lerp_taps(n_out, a.shape[axis], a.device)
     shape = [1] * a.dim()
     shape[axis] = n_out
     w = w.reshape(shape)
-    return (a.index_select(axis, i0) * (1.0 - w)
-            + a.index_select(axis, i1) * w)
+    a0, a1 = a.index_select(axis, i0), a.index_select(axis, i1)
+    if contract:
+        from stereo_to_multiview_tpu_torch.ops.fastmath import fma
+        return fma(a0, 1.0 - w, a1 * w)
+    return a0 * (1.0 - w) + a1 * w
 
 
 def resize_bilinear_f32(img: torch.Tensor, out_rows: int,

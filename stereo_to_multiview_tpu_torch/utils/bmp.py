@@ -1,4 +1,4 @@
-"""24/32bpp BMP reader (numpy only).
+"""24/32bpp BMP reader and 24bpp writer (numpy only).
 
 Arrays are (H, W, 3) uint8 in BGR channel order, the memory layout of the
 bundled fixtures, so per-pixel comparisons line up 1:1.
@@ -42,3 +42,27 @@ def read_bmp(path: str) -> np.ndarray:
         img = img[::-1]
     return np.ascontiguousarray(img)
 
+
+
+def write_bmp(path: str, img: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 BGR array (or an (H, W) gray one) as a
+    24bpp bottom-up BMP."""
+    img = np.asarray(img, dtype=np.uint8)
+    if img.ndim == 2:
+        img = np.repeat(img[:, :, None], 3, axis=2)
+    h, w, c = img.shape
+    if c != 3:
+        raise ValueError("expected (H, W, 3) BGR")
+    row_sz = (w * 3 + 3) & ~3
+    pad = row_sz - w * 3
+    pixel_bytes = row_sz * h
+    header = struct.pack("<2sIHHI", b"BM", 14 + 40 + pixel_bytes, 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, pixel_bytes,
+                       2835, 2835, 0, 0)
+    rows = img[::-1].reshape(h, w * 3)                # bottom-up
+    if pad:
+        rows = np.concatenate([rows, np.zeros((h, pad), np.uint8)], axis=1)
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(info)
+        f.write(rows.tobytes())

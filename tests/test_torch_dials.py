@@ -94,13 +94,13 @@ def test_band_aggregate_q_refuses_other_dials():
         tband.band_aggregate_q(cost, arms, 2, 1, digits=4)
     with pytest.raises(ValueError, match="band_digits"):
         tpipe.check_ported(tconfig.PipelineConfig(band_digits=0))
-    # the qscale and lossy-WTA dials are ported: only the XLA engine is
-    # refused, and a qscale whose costs would not fit int16
+    # the qscale and lossy-WTA dials are ported, and so is the XLA
+    # engine, which never reads the band engine's dials; only a qscale
+    # whose costs would not fit int16 is refused
     for knobs in (dict(band_qscale=255.0), dict(band_qscale=4000.0),
-                  dict(band_lossy_wta=True)):
+                  dict(band_lossy_wta=True), dict(engine="xla"),
+                  dict(engine="xla", band_digits=0)):
         tpipe.check_ported(tconfig.PipelineConfig(**knobs))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        tpipe.check_ported(tconfig.PipelineConfig(engine="xla"))
     with pytest.raises(ValueError, match="int16"):
         tpipe.check_ported(tconfig.PipelineConfig(band_qscale=16384.0))
 

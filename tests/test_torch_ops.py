@@ -83,20 +83,34 @@ def test_config_checks_and_unknown_fields():
 
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither JAX nor the JAX
-    package (a fresh interpreter, so this test's own imports don't count)."""
+    package (a fresh interpreter, so this test's own imports don't count),
+    the runtime's modules, its native binding and the apps included."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import stereo_to_multiview_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__,"
+        " p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'stereo_to_multiview_tpu'"
         " or m.startswith('stereo_to_multiview_tpu.')]\n"
         "print(bad)\n"
+        "print(' '.join(names))\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    walked = set(res.stdout.split())
+    pkg = "stereo_to_multiview_tpu_torch."
+    for name in ("apps.image_io", "apps.video_io", "models.stream",
+                 "native", "utils.device", "utils.dump", "utils.imageio",
+                 "utils.preview", "utils.timing", "utils.y4m", "ops.wta"):
+        assert pkg + name in walked, name
+    # chip_smoke.py, the port's script on the card, imports neither
+    src = open(os.path.join(REPO, "chip_smoke.py")).read()
+    assert "import jax" not in src and "stereo_to_multiview_tpu." not in \
+        src.replace("stereo_to_multiview_tpu_torch", "")
 
 
 def test_process_frame_without_gpu_raises(monkeypatch):
@@ -110,18 +124,23 @@ def test_process_frame_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(engine="xla"), dict(engine="xla", band_qscale=255.0),
-    dict(engine="xla", band_lossy_wta=True)])
+    dict(engine="xla"), dict(engine="xla", band_qscale=20000.0),
+    dict(engine="xla", band_lossy_wta=True, band_digits=0)])
 def test_unported_knobs_raise(knob):
-    """A knob the port lacks raises, naming its ROADMAP item: the XLA
-    engine (A.4), with or without the band engine's dials, which are
-    ported."""
+    """No knob is refused any more: the XLA engine (ROADMAP A.4) runs,
+    and the band engine's dials, out of the band engine's range too, do
+    not reach it (the JAX package's XLA engine never reads them)."""
     base = dict(num_rows=8, num_cols=16, num_rows_out=8, num_cols_out=16,
                 num_disp=4, zero_disp=2, usd=2, lsd=1)
     cfg = tconfig.PipelineConfig(**{**base, **knob})
-    sbs = np.zeros(cfg.sbs_shape, np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        tpipe.process_frame(sbs, cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    sbs = rng.integers(0, 256, cfg.sbs_shape, dtype=np.uint8)
+    got = tpipe.process_frame(sbs, cfg, device="cpu")
+    ref = tpipe.process_frame(
+        sbs, tconfig.PipelineConfig(**base, engine="xla"), device="cpu")
+    assert [tuple(x.shape) for x in got] == [(8, 16), (8, 16), (8, 16, 3)]
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 def test_kernel_wrapper_rejects_other_devices():
@@ -283,7 +302,9 @@ def test_synthesize_views_and_interlace(images):
     args = [jnp.asarray(a) for a in (l, r, dl, dr)]
     views = jpipe.synthesize_views(*args, cfg)
     ref = _np(jops.mux_multiview(views, H, W, cfg.angle))
-    tcfg = tconfig.config_from_dict(dataclasses.asdict(cfg))
+    # the port's band route (B12's view stack): the JAX pair's op order
+    tcfg = tconfig.config_from_dict(dataclasses.asdict(cfg)).replace(
+        engine="band")
     tviews = tpipe.synthesize_views(_t(l), _t(r), _t(dl), _t(dr), tcfg)
     np.testing.assert_array_equal(_np(views), _np(tviews))
     got = _np(tmux.mux_multiview(tviews, H, W, cfg.angle))

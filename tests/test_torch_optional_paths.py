@@ -162,10 +162,14 @@ def test_row_chunks_stay_exact_with_hslo(sbs):
     dict(engine="xla"), dict(engine="xla", band_qscale=255.0),
     dict(engine="xla", band_lossy_wta=True)])
 def test_check_ported_still_refuses(knob):
-    """Only the XLA engine is refused now, whatever the dials say."""
+    """Nothing is refused now: the XLA engine (ROADMAP A.4) is accepted,
+    whatever the band engine's dials say; only an xla_agg_qscale whose
+    prefix sums would pass 2^24 at the geometry raises ValueError."""
     cfg = tconfig.PipelineConfig(**{**dict(usd=2, lsd=1), **knob})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        tpipe.check_ported(cfg)
+    tpipe.check_ported(cfg)
+    tpipe.check_ported(cfg.replace(xla_agg_qscale=8.0))
+    with pytest.raises(ValueError, match="xla_agg_qscale"):
+        tpipe.check_ported(cfg.replace(xla_agg_qscale=1000.0))
 
 
 @pytest.mark.parametrize("knob", [

@@ -70,6 +70,13 @@ def frame():
     return [np.ascontiguousarray(a) for a in (l, r, dl, dr)]
 
 
+def _band(cfg):
+    """The port's configuration of the route under test: the band engine
+    (B12's interlace mode; `cfg` names the XLA engine for the JAX
+    reference chain)."""
+    return config_from_dict(dataclasses.asdict(cfg)).replace(engine="band")
+
+
 def _jax_unfused(frame, cfg):
     views = jpipe.synthesize_views(*(jnp.asarray(a) for a in frame), cfg)
     return np.asarray(jops.mux_multiview(views, cfg.num_rows_out,
@@ -82,8 +89,7 @@ def test_synthesize_interlace_matches_jax_unfused(frame, name):
     synthesize_views(engine="xla")): exact."""
     cfg = CASES[name]
     ref = _jax_unfused(frame, cfg)
-    got = tpipe.synthesize_interlace(
-        *(_t(a) for a in frame), config_from_dict(dataclasses.asdict(cfg)))
+    got = tpipe.synthesize_interlace(*(_t(a) for a in frame), _band(cfg))
     assert got.dtype == torch.uint8
     assert tuple(got.shape) == (cfg.num_rows_out, cfg.num_cols_out, 3)
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -101,9 +107,8 @@ def test_synthesize_interlace_matches_jax_band(frame, name):
     band = np.asarray(jpipe.synthesize_interlace(
         *(jnp.asarray(a) for a in frame), cfg.replace(engine="band")))
     unfused = _jax_unfused(frame, cfg)
-    got = tpipe.synthesize_interlace(
-        *(_t(a) for a in frame),
-        config_from_dict(dataclasses.asdict(cfg))).numpy()
+    got = tpipe.synthesize_interlace(*(_t(a) for a in frame),
+                                     _band(cfg)).numpy()
     diff = got != band
     assert np.all(np.abs(got.astype(int) - band)[diff] == 1)
     assert np.all((unfused != band)[diff])
