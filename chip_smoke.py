@@ -111,6 +111,24 @@
    frames, peak memory, the share of disparities equal to the band
    engine's), and three 96x160 frames of it card vs CPU (exact at
    xla_agg_qscale 8).
+6. Sharding (`stereo_to_multiview_tpu_torch/parallel/`): B1's halo-shard
+   mode against its plain version on extended row shards (the top, a
+   middle and the bottom shard with its 3 * usd halo of the 1080p frame
+   at 2 and 4 shards, a shard of the 4K frame, usd 34 and 64); then, in
+   four gloo ranks that time-share the card (parallel.launch), the halo
+   path at HD1080_D128 over 2 and 4 ranks, UHD4K_16V over 2 ranks and on
+   a (2, 2) row x view mesh (its interlace also equal to the row-only
+   mesh's), HD1080_D128_HSLO_4K without the median (a resampled output)
+   over 2 ranks, the disparity planes at HD1080_D128 (core and frame)
+   and with use_hslo over 4 ranks, and the XLA engine's row strategy and
+   halo path at 96x64; last, NCCL as a world of one.  Each path's launch
+   counts are zeroed in every rank just before its counted frame and
+   read just after (its kernels launched, the kernels it replaces not),
+   its assembled outputs must equal the unsharded ones (`process_frame`,
+   the unsharded band core, or the core and `replicated_tail`) bit for
+   bit, and its ms a frame, ms in exchanges, peak memory per rank and
+   the collectives staged through host memory are printed: ranks
+   time-sharing one card measure contention, not scaling.
 
 `python3 chip_smoke.py --frames N [--package-root DIR]` instead times only
 the four preset paths (HD1080_D128, HSLO_4K, LOWRES, UHD4K_16V) and the
@@ -127,7 +145,8 @@ broken copy of one fails, and to time two commits' kernels in turns.
 kernels: the occlusion stage (fused, and B7's hits and B11 unfused), the
 feather G1 and B12 (its view stack and its interlace mode) at their
 edges, and each preset path's interlaced frame against the
-plain chain.  `--runtime-checks` runs phase 5 alone.
+plain chain.  `--runtime-checks` runs phase 5 alone, `--shard-checks`
+phase 6 alone.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
 a `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -614,6 +633,70 @@ NOT_ON_PATH[XLA] = (LANE_CORE_WRAPPERS | HSLO_WRAPPERS | DM_WRAPPERS
 EXACT_LAUNCHES[XLA] = {"cross_arms_eyes": 1, "dr_dcc": 1,
                        "dibr_occl_masks": 1}
 
+# ---- phase 6, sharding over torch.distributed -------------------------
+# Ranks that time-share the one card over gloo (the launch module, one
+# process each), and NCCL as a world of one.  Every sharded path runs in
+# the ranks; its launch counts are zeroed just before its counted frame
+# and read just after, in every rank of its mesh.
+SHARD_RANKS = 4
+HALO2 = "halo_process_frame HD1080_D128 2 ranks"
+HALO4 = "halo_process_frame HD1080_D128 4 ranks"
+HALO4K_ROW = "halo_process_frame UHD4K_16V 2 ranks"
+HALO4K_2D = "halo_process_frame UHD4K_16V (2, 2) row x view"
+HALO_HSLO = "halo_process_frame HD1080_D128_HSLO_4K use_median=False 2 ranks"
+DISP4 = "disp_sharded_disparities HD1080_D128 4 ranks"
+DISP4_FRAME = "disp_sharded_process_frame HD1080_D128 4 ranks"
+DISP4_HSLO = "disp_sharded_disparities HD1080_D128_HSLO_4K 4 ranks"
+XLA_HALO = "halo_process_frame engine=xla 96x64 4 ranks"
+XLA_SHARDED = "sharded_process_frame 96x64 4 ranks"
+NCCL1 = "halo_process_frame HD1080_D128 NCCL world of one"
+# what each sharded path must launch (every wrapper listed at least once
+# in every rank) and must not
+_HALO_BAND = {"cross_arms_eyes", "cost_pair", "shear_right", "h_pass_sum",
+              "vv_pass", "h_pass_wta", "dr_dcc", "irv_rowspan", "irv_vote",
+              "filter_bilateral", "dibr_occl", "dibr_bleed_mask",
+              "dibr_feather_mask", "warp_views"}
+_HALO_NOT = {"dibr_occl_masks", "warp_merge_interlace", "warp_merge_views"}
+_DISP_CORE = {"cross_arms_eyes", "h_pass_sum", "vv_pass"}
+SHARD_LAUNCHES = {
+    HALO2: (_HALO_BAND, _HALO_NOT),
+    HALO4: (_HALO_BAND, _HALO_NOT),
+    HALO4K_ROW: (_HALO_BAND, _HALO_NOT),
+    HALO4K_2D: (_HALO_BAND - {"warp_views"}, _HALO_NOT | {"warp_views"}),
+    HALO_HSLO: (_HALO_BAND - {"h_pass_wta"} | {"dc_hslo_wta_eyes"},
+                _HALO_NOT | {"h_pass_wta"}),
+    DISP4: (_DISP_CORE, {"cost_pair", "h_pass_wta"}),
+    DISP4_FRAME: (_DISP_CORE | {"dr_dcc", "irv_rowspan", "irv_vote",
+                                "dibr_occl_masks"},
+                  {"cost_pair", "h_pass_wta", "filter_bilateral"}),
+    DISP4_HSLO: (_DISP_CORE | {"dc_hslo_wta_eyes"},
+                 {"cost_pair", "h_pass_wta"}),
+    XLA_HALO: ({"cross_arms_eyes", "dr_dcc", "irv_rowspan", "irv_vote",
+                "dibr_occl", "dibr_bleed_mask"},
+               {"cost_pair", "filter_bilateral", "dibr_feather_mask",
+                "warp_views"}),
+    NCCL1: (_HALO_BAND, _HALO_NOT),
+}
+SHARD_LAUNCHES[XLA_SHARDED] = SHARD_LAUNCHES[XLA_HALO]
+# B1's halo-shard mode: extended row shards (the shard's rows and the
+# image halo of 3 * usd rows, edge rows replicated outside the frame) of
+# the 1080p frame at 2 and 4 row shards, of the 4K frame, at usd 34 and
+# 64; its launches are the 2-rank 1080p halo path's
+B1_HALO = {
+    f" (halo-shard mode: {pos} of {n}, 1080p, usd {usd})": (n, i, usd, MAIN)
+    for n, shards in ((2, (("top", 0), ("bottom", 1))),
+                      (4, (("top", 0), ("middle", 1), ("bottom", 3))))
+    for pos, i in shards for usd in (34,)}
+B1_HALO.update({
+    " (halo-shard mode: middle of 4, UHD4K_16V, usd 34)": (4, 1, 34, UHD4K),
+    " (halo-shard mode: top of 4, 1080p, usd 64)": (4, 0, 64, MAIN),
+    " (halo-shard mode: middle of 4, 1080p, usd 64)": (4, 1, 64, MAIN)})
+for _suffix in B1_HALO:
+    _w, _s, _r, _ = KERNELS["B1 cross_arms"]
+    KERNELS["B1 cross_arms" + _suffix] = (_w, _s, _r, HALO2)
+# B14 returns to a path (the halo path's views): its launches there
+KERNELS["B14 warp_views"] = (*KERNELS["B14 warp_views"][:3], HALO2)
+
 
 class SmokeFailure(Exception):
     pass
@@ -756,13 +839,15 @@ class KernelChecks:
               f"{b_by}, library {r['library_ms']})", flush=True)
 
 
-def record_arms(chk, name, img_l, img_r, arm_args):
+def record_arms(chk, name, img_l, img_r, arm_args, halo=None):
     """One B1 entry: both eyes in one launch (`cross_arms_lr`) against the
-    plain version of each.  Bound: each walked step takes two 3-channel
+    plain version of each; `halo` = (row_offset, global_h) of the
+    halo-shard mode.  Bound: each walked step takes two 3-channel
     max-abs-diffs and the tests (~14 integer operations), and a walk ends
     at its arm's end or one past it.  Returns the kernel's arms."""
     from stereo_to_multiview_tpu_torch.ops import cross
     h, w = img_l.shape[:2]
+    arm_args = (*arm_args, *(halo or ()))
     got = cross.cross_arms_lr(img_l, img_r, *arm_args)
     plain = lambda: tuple(cross.cross_arms_plain(t, *arm_args)
                           for t in (img_l, img_r))
@@ -3342,6 +3427,294 @@ def runtime_checks(card) -> dict:
     return rep
 
 
+def halo_rows(rows: int, n: int, i: int, usd: int):
+    """Shard i of n of a frame of `rows` rows, extended by the image halo
+    of 3 * usd rows as the halo path's exchange fills it (edge rows
+    replicated outside the frame): (row indices into the frame, the
+    extended shard's row offset)."""
+    import numpy as np
+    halo, loc = 3 * usd, rows // n
+    row0 = i * loc - halo
+    return np.clip(np.arange(row0, row0 + loc + 2 * halo), 0, rows - 1), row0
+
+
+def check_arms_halo(chk, frames: dict):
+    """B1's halo-shard mode (`B1_HALO`) against its plain version: both
+    eyes of each extended shard in one launch."""
+    import torch
+    from stereo_to_multiview_tpu_torch import config
+    for suffix, (n, i, usd, preset) in B1_HALO.items():
+        cfg = config.HD1080_D128 if preset == MAIN else config.UHD4K_16V
+        img_l, img_r = frames[preset]
+        idx, row0 = halo_rows(cfg.num_rows, n, i, usd)
+        idx = torch.from_numpy(idx).to(img_l.device)
+        ext = [t.index_select(0, idx).contiguous() for t in (img_l, img_r)]
+        arms = record_arms(chk, "B1 cross_arms" + suffix, *ext,
+                           (cfg.ucd, cfg.lcd, usd, cfg.lsd),
+                           halo=(row0, cfg.num_rows))
+        print(f"  B1{suffix}: {ext[0].shape[0]} rows from frame row "
+              f"{row0}, mean UP arm {float(arms[0][0].float().mean()):.2f}",
+              flush=True)
+        del ext, arms
+    torch.cuda.empty_cache()
+
+
+def smooth_sbs(rows: int, cols: int, seed: int, shift: int):
+    """A small SBS frame of smoothed noise, the right eye `shift` columns
+    over (the frames of the JAX package's sharding tests)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (rows, cols + 2 * shift, 3)).astype(
+        np.float32)
+    k = np.ones(3) / 3.0
+    for ax in (0, 1):
+        base = np.apply_along_axis(
+            lambda m: np.convolve(m, k, mode="same"), ax, base)
+    return np.concatenate([base[:, :cols].astype(np.uint8),
+                           base[:, shift:shift + cols].astype(np.uint8)],
+                          axis=1)
+
+
+def shard_small_cfg():
+    """The XLA engine's row strategies at the sizes of the JAX package's
+    halo test: 96x64, D = 8, usd 7, integer costs (xla_agg_qscale 8)."""
+    from stereo_to_multiview_tpu_torch.config import PipelineConfig
+    return PipelineConfig(num_rows=96, num_cols=64, num_rows_out=96,
+                          num_cols_out=64, num_disp=8, zero_disp=4, usd=7,
+                          lsd=3, irv_iterations=2, bilateral_radius=2,
+                          feather_radius=3, num_views=4, engine="xla",
+                          xla_agg_qscale=8.0)
+
+
+def shard_jobs():
+    """Phase 6's sharded paths: (name, kind, config name, mesh name, timed
+    frames)."""
+    return [
+        (HALO2, "halo", "HD1080_D128", "row2", 3),
+        (HALO4, "halo", "HD1080_D128", "row4", 3),
+        (HALO4K_ROW, "halo", "UHD4K_16V", "row2", 2),
+        (HALO4K_2D, "view", "UHD4K_16V", "row2_view2", 2),
+        (HALO_HSLO, "halo", "HSLO_4K_NO_MEDIAN", "row2", 2),
+        (DISP4, "disp", "HD1080_D128", "disp4", 2),
+        (DISP4_FRAME, "disp_frame", "HD1080_D128", "disp4", 2),
+        (DISP4_HSLO, "disp", "HSLO_4K_NO_MEDIAN", "disp4", 2),
+        (XLA_HALO, "halo", "SMALL_XLA", "row4", 3),
+        (XLA_SHARDED, "sharded", "SMALL_XLA", "row4", 3),
+    ]
+
+
+def shard_cfg(name: str):
+    from stereo_to_multiview_tpu_torch import config
+    return {"HD1080_D128": config.HD1080_D128,
+            "UHD4K_16V": config.UHD4K_16V,
+            "HSLO_4K_NO_MEDIAN": config.HD1080_D128_HSLO_4K.replace(
+                use_median=False),
+            "SMALL_XLA": shard_small_cfg()}[name]
+
+
+def shard_frame(cfg_name: str):
+    cfg = shard_cfg(cfg_name)
+    if cfg_name == "SMALL_XLA":
+        return smooth_sbs(cfg.num_rows, cfg.num_cols, 7, 4)
+    return stereo_sbs(cfg.num_rows, cfg.num_cols)
+
+
+def run_shard_job(job, meshes, frames):
+    """One sharded path in one rank: the counted frame (launch counts,
+    collectives and peak memory from zero), then the timed frames (host
+    clock, device synchronized; ranks time-share the card).  Returns the
+    rank's report, with the assembled outputs on the mesh's first rank."""
+    import torch
+    import torch.distributed as dist
+    from stereo_to_multiview_tpu_torch import kernels
+    from stereo_to_multiview_tpu_torch.models.pipeline import demux_sbs
+    from stereo_to_multiview_tpu_torch.parallel import (
+        disp_sharded_disparities, disp_sharded_process_frame, gather_rows,
+        halo_process_frame, shard_rows, sharded_process_frame)
+    name, kind, cfg_name, mesh_name, n_frames = job
+    mesh, cfg = meshes[mesh_name], shard_cfg(cfg_name)
+    dist.barrier()
+    if not mesh.member:
+        return None
+    if cfg_name not in frames:
+        frames[cfg_name] = shard_frame(cfg_name)
+    sbs = frames[cfg_name]
+    if kind in ("disp", "disp_frame"):
+        fn = (disp_sharded_disparities(mesh, cfg) if kind == "disp"
+              else disp_sharded_process_frame(mesh, cfg))
+        arg = (sbs if kind == "disp_frame" else tuple(
+            t.contiguous() for t in demux_sbs(torch.from_numpy(sbs))))
+    else:
+        view = "view" if kind == "view" else None
+        fn = (sharded_process_frame(mesh, cfg) if kind == "sharded"
+              else halo_process_frame(mesh, cfg, view_axis=view))
+        arg = (shard_rows(sbs, mesh, "row"),)
+    arg = arg if isinstance(arg, tuple) else (arg,)
+    arg = tuple(torch.as_tensor(a).cuda() for a in arg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    mesh.stats.clear()
+    out = fn(*arg)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in kernels.wrappers().items()}
+    comm_first = {op: dict(v) for op, v in mesh.stats.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mesh.stats.clear()
+    t0 = time.perf_counter()
+    for _ in range(n_frames):
+        out = fn(*arg)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    exch_ms = sum(v["seconds"] for v in mesh.stats.values()) * 1e3 \
+        / n_frames
+    if kind not in ("disp", "disp_frame"):
+        out = tuple(gather_rows(o, mesh, "row") for o in out)
+    first = mesh.rank == int(mesh.ranks.flat[0])
+    return dict(launches=launches, comm=comm_first, frame_ms=frame_ms,
+                exchange_ms=exch_ms, peak_memory_gb=peak_gb,
+                out=tuple(o.cpu() for o in out) if first else None)
+
+
+def shard_rank(jobs):
+    """The rank function of phase 6 (run through parallel.launch): build
+    every mesh (collectively, in one order on every rank), then run each
+    job; returns {job name: report}."""
+    from stereo_to_multiview_tpu_torch.parallel import make_mesh
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    meshes = {}
+    if world == 1:
+        meshes["row1"] = make_mesh((1,), ("row",))
+    else:
+        meshes["row2"] = make_mesh((2,), ("row",), [0, 1])
+        meshes["row4"] = make_mesh((4,), ("row",))
+        meshes["row2_view2"] = make_mesh((2, 2), ("row", "view"))
+        meshes["disp4"] = make_mesh((4,), ("disp",))
+    frames = {}
+    return {job[0]: run_shard_job(job, meshes, frames) for job in jobs}
+
+
+def shard_references(card):
+    """The unsharded outputs each sharded path must equal, computed on
+    the card in this process: `process_frame` (the row strategies), the
+    unsharded band core and `replicated_tail` of it (the disparity
+    planes).  Moved to the host."""
+    import torch
+    from stereo_to_multiview_tpu_torch.models import pipeline
+    from stereo_to_multiview_tpu_torch.ops.band import (
+        band_stereo_core_chunked)
+    from stereo_to_multiview_tpu_torch.ops.cross import cross_arms_lr
+    from stereo_to_multiview_tpu_torch.parallel.dispshard import (
+        replicated_tail)
+    refs = {}
+    for name, kind, cfg_name, _, _ in shard_jobs():
+        cfg, sbs = shard_cfg(cfg_name), shard_frame(cfg_name)
+        sbs_dev = torch.from_numpy(sbs).cuda()
+        if kind in ("halo", "view", "sharded"):
+            out = pipeline.process_frame(sbs_dev, cfg)
+        else:
+            img_l, img_r = (t.contiguous() for t in pipeline.demux_sbs(
+                sbs_dev))
+            arms = cross_arms_lr(img_l, img_r, cfg.ucd, cfg.lcd, cfg.usd,
+                                 cfg.lsd)
+            out = band_stereo_core_chunked(img_l, img_r, *arms, cfg)
+            if kind == "disp_frame":
+                out = replicated_tail(img_l, img_r, *out, *arms, cfg)
+            del img_l, img_r, arms
+        refs[name] = tuple(o.cpu() for o in out)
+        del out, sbs_dev
+        torch.cuda.empty_cache()
+    return refs
+
+
+def check_shard_path(name, reports, ref, card):
+    """One sharded path's reports from its ranks: every rank launched the
+    path's kernels (and none it replaces), the assembled outputs equal
+    the unsharded ones bit for bit; prints its ms a frame, ms in
+    exchanges and peak memory per rank, as ranks time-sharing one card."""
+    import torch
+    want, never = SHARD_LAUNCHES[name]
+    mine = [r for r in reports if r is not None]
+    for k, r in enumerate(mine):
+        missing = sorted(n for n in want if r["launches"].get(n, 0) < 1)
+        stray = sorted(n for n in never if r["launches"].get(n, 0))
+        if missing or stray:
+            raise SmokeFailure(f"path {name}: rank {k} did not launch "
+                               f"{missing}, launched {stray}")
+    out = mine[0]["out"]
+    if len(out) != len(ref):
+        raise SmokeFailure(f"path {name}: {len(out)} outputs, expected "
+                           f"{len(ref)}")
+    for i, (o, r) in enumerate(zip(out, ref)):
+        if o.shape != r.shape or o.dtype != r.dtype or not torch.equal(o, r):
+            bad = (int((o != r).sum()) if o.shape == r.shape else "shape")
+            raise SmokeFailure(f"path {name}: output {i} differs from the "
+                               f"unsharded one ({bad})")
+    rep = dict(launches=mine[0]["launches"], ranks=len(mine),
+               shard_ms=max(r["frame_ms"] for r in mine),
+               exchange_ms=max(r["exchange_ms"] for r in mine),
+               peak_memory_gb=[r["peak_memory_gb"] for r in mine],
+               collectives=mine[0]["comm"])
+    staged = {op: v["staged"] for op, v in rep["collectives"].items()}
+    print(f"path {name}: bit-equal to the unsharded outputs; "
+          f"{rep['shard_ms']:.2f} ms a frame, {rep['exchange_ms']:.2f} ms "
+          f"in exchanges, peak memory per rank "
+          f"{', '.join(f'{g:.3f}' for g in rep['peak_memory_gb'])} GB "
+          f"({rep['ranks']} ranks time-sharing one card, not a scaling "
+          f"result; {card})", flush=True)
+    print(f"path {name}: collectives of the counted frame "
+          f"{ {op: v['calls'] for op, v in rep['collectives'].items()} }, "
+          f"staged through pinned host memory {staged}", flush=True)
+    print(f"path {name}: launches (rank 0) "
+          f"{ {n: c for n, c in rep['launches'].items() if c} }", flush=True)
+    return rep
+
+
+def shard_checks(chk, card) -> dict:
+    """Phase 6: B1's halo-shard mode on the card, then every sharded path
+    in ranks time-sharing the card over gloo, and NCCL as a world of one;
+    returns {path name: report}."""
+    import torch
+    from stereo_to_multiview_tpu_torch import config
+    from stereo_to_multiview_tpu_torch.models import pipeline
+    from stereo_to_multiview_tpu_torch.parallel.launch import launch
+    frames = {}
+    for preset, cfg in ((MAIN, config.HD1080_D128),
+                        (UHD4K, config.UHD4K_16V)):
+        sbs = torch.from_numpy(stereo_sbs(cfg.num_rows, cfg.num_cols))
+        frames[preset] = tuple(t.contiguous().cuda()
+                               for t in pipeline.demux_sbs(sbs))
+    check_arms_halo(chk, frames)
+    del frames
+    refs = shard_references(card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reports = launch(shard_rank, SHARD_RANKS, args=(shard_jobs(),),
+                     backend="gloo", timeout_s=900.0)
+    print(f"sharding: {SHARD_RANKS} gloo ranks on one card ran "
+          f"{len(shard_jobs())} paths in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    paths = {name: check_shard_path(name, [r[name] for r in reports],
+                                    refs[name], card)
+             for name, *_ in shard_jobs()}
+    row_il, view_il = (reports[0][n]["out"][2] for n in (HALO4K_ROW,
+                                                         HALO4K_2D))
+    if not torch.equal(row_il, view_il):
+        raise SmokeFailure(f"{HALO4K_2D}: interlace differs from the "
+                           f"row-only mesh's")
+    print(f"path {HALO4K_2D}: interlace bit-equal to the row-only mesh's",
+          flush=True)
+    # NCCL as a world of one: the NCCL code path, no neighbour traffic
+    job = (NCCL1, "halo", "HD1080_D128", "row1", 3)
+    reports = launch(shard_rank, 1, args=([job],), backend="nccl",
+                     timeout_s=600.0)
+    paths[NCCL1] = check_shard_path(NCCL1, [reports[0][NCCL1]], refs[HALO2],
+                                    card)
+    return paths
+
+
 def time_frames(root: str, n_frames: int) -> int:
     """`--frames N [--package-root DIR]`: the four preset paths and the two
     dial paths (where the package has the dials) alone, N timed frames
@@ -3529,6 +3902,21 @@ def only_runtime_checks() -> int:
     return 0
 
 
+def only_shard_checks() -> int:
+    """`--shard-checks`: phase 6 alone (the kernels built first)."""
+    sys.path.insert(0, HERE)
+    from stereo_to_multiview_tpu_torch import kernels
+    card = gpu_line()
+    print(f"gpu: {card}", flush=True)
+    print_ptxas(kernels.build_kernels())
+    try:
+        shard_checks(KernelChecks(reps=10), card)
+    except (SmokeFailure, RuntimeError, ValueError) as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3547,6 +3935,10 @@ def main() -> int:
     ap.add_argument("--runtime-checks", action="store_true",
                     help="only run the stream driver, the XLA engine and "
                          "the apps (phase 5) and print no result line")
+    ap.add_argument("--shard-checks", action="store_true",
+                    help="only run phase 6 (B1's halo-shard mode and the "
+                         "sharded paths in ranks on the card) and print "
+                         "no result line")
     ap.add_argument("--package-root", default=HERE,
                     help="with --frames, --stream-checks or "
                          "--synth-checks: the checkout whose package runs "
@@ -3568,6 +3960,8 @@ def main() -> int:
         return synth_checks(os.path.abspath(args.package_root))
     if args.runtime_checks:
         return only_runtime_checks()
+    if args.shard_checks:
+        return only_shard_checks()
     sys.path.insert(0, HERE)
     try:
         from stereo_to_multiview_tpu_torch import config, kernels
@@ -3769,6 +4163,8 @@ def main() -> int:
         check_small_dm_core()
         report["runtime"] = runtime_checks(card)
         paths[XLA] = report["runtime"]["xla"]
+        torch.cuda.empty_cache()
+        paths.update(shard_checks(chk, card))
     except (SmokeFailure, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3820,6 +4216,11 @@ def main() -> int:
             print(f"occlusion stage: {p['unfused_ms']:.4f} ms B7's hits "
                   f"and B11 twice, {p['fused_ms']:.4f} ms fused at {name} "
                   f"on {card}")
+        elif "shard_ms" in p:
+            print(f"sharded: {p['shard_ms']:.2f} ms a frame, "
+                  f"{p['exchange_ms']:.2f} ms in exchanges at {name} "
+                  f"({p['ranks']} ranks time-sharing one card, not a "
+                  f"scaling result) on {card}")
         elif "warp_views_ms" in p:
             print(f"warps: {p['warp_views_ms']:.4f} ms B14's volumes at "
                   f"{name} on {card}")

@@ -40,6 +40,21 @@
 // word's top byte, so a step within lsd is one difference against the
 // anchor too.  The walks take two steps an iteration.  Both eyes run in
 // one launch (blockIdx.z).
+//
+// Halo-shard mode (`row0`, `global_h`): the image is a row shard of a
+// frame of global_h rows, extended by halo rows, whose row y is the
+// frame's row g = y + row0 (row0 = 0 and global_h = H without it: one
+// code path).  A vertical step k is in bounds where 0 <= g -+ k <=
+// global_h - 1, the same test as the plain version: for UP the steps
+// k in [max(1, g - global_h + 1), g], for DOWN [max(1, -g),
+// global_h - 1 - g].  The walk runs to the first failure K or to
+// kmax = min(usd, the interval's end), and the arm is the number of
+// in-bounds steps up to there: max(0, min(K, kmax) - start + 1), which
+// is the walk itself where the interval starts at 1 (every row of the
+// frame).  Steps past the image's rows read its edge row, as the
+// plain version's clamped shifts do; the staged edge bits are taken
+// between the clamped pixel and its clamped neighbour, so a step
+// between two reads of one edge row never fails on them.
 
 #include "stm_common.cuh"
 
@@ -149,16 +164,17 @@ __device__ __forceinline__ int arms_walk(const uint32_t* s, int stride,
 
 // The staged word of pixel (y, x) (clamped): b | g << 8 | r << 16 and the
 // edge bits of its steps to the next and the previous pixel along
-// (dy, dx), tested against lcd.
+// (dy, dx), tested against lcd; each neighbour's coordinates are clamped
+// from the unclamped ones, so past an edge both read the edge pixel.
 template <bool SMALL>
 __device__ __forceinline__ uint32_t arms_stage(const uint8_t* img, int H,
                                                int W, int y, int x, int dy,
                                                int dx, const ArmsTest& tl) {
+  const int yn = min(max(y + dy, 0), H - 1), xn = min(max(x + dx, 0), W - 1);
+  const int yp = min(max(y - dy, 0), H - 1), xp = min(max(x - dx, 0), W - 1);
   y = min(max(y, 0), H - 1);
   x = min(max(x, 0), W - 1);
   const uint32_t c = arms_pack(img + ((size_t)y * W + x) * 3);
-  const int yn = min(y + dy, H - 1), xn = min(x + dx, W - 1);
-  const int yp = max(y - dy, 0), xp = max(x - dx, 0);
   const uint32_t n = arms_pack(img + ((size_t)yn * W + xn) * 3);
   const uint32_t p = arms_pack(img + ((size_t)yp * W + xp) * 3);
   uint32_t w = c;
@@ -170,7 +186,7 @@ __device__ __forceinline__ uint32_t arms_stage(const uint8_t* img, int H,
 template <bool SMALL>
 __global__ void __launch_bounds__(ARMS_THREADS)
 cross_arms_kernel(ArmsEyes eyes, int H, int W, ArmsTest tu, ArmsTest tl,
-                  int usd, int lsd, int rv, int rh) {
+                  int usd, int lsd, int rv, int rh, int row0, int gh) {
   extern __shared__ uint32_t arms_smem[];
   const uint8_t* __restrict__ img = eyes.img[blockIdx.z];
   int* __restrict__ arms = eyes.arms[blockIdx.z];
@@ -180,8 +196,8 @@ cross_arms_kernel(ArmsEyes eyes, int H, int W, ArmsTest tu, ArmsTest tl,
   uint32_t* vs = arms_smem;                 // (TH + 2 rv) x TW
   uint32_t* hs = arms_smem + (ARMS_TH + 2 * rv) * ARMS_TW;   // TH x hw
 
-  // stage the cross; reads outside the image clamp (the walks never
-  // reach them: kmax stops at the border)
+  // stage the cross; reads outside the image clamp (the walks reach
+  // them only in the halo-shard mode, where the plain version clamps too)
   const int nv = (ARMS_TH + 2 * rv) * ARMS_TW;
   for (int i = threadIdx.x; i < nv; i += ARMS_THREADS)
     vs[i] = arms_stage<SMALL>(img, H, W, y0 - rv + i / ARMS_TW,
@@ -204,13 +220,18 @@ cross_arms_kernel(ArmsEyes eyes, int H, int W, ArmsTest tu, ArmsTest tl,
     const uint32_t* h = hs + ty * hw + rh + tx;
     int* o = arms + (size_t)y * W + x;
     // UP and LEFT step from pixel k - 1 to k = the next pixel's edge
-    // (k to k + 1) seen from k; DOWN and RIGHT the previous one's
-    int kmax = min(usd, y);
-    o[0] = arms_walk<SMALL>(v, -ARMS_TW, kmax, min(lsd, kmax),
-                            ARMS_EDGE_NEXT, tl, tu);
-    kmax = min(usd, H - 1 - y);
-    o[plane] = arms_walk<SMALL>(v, ARMS_TW, kmax, min(lsd, kmax),
-                                ARMS_EDGE_PREV, tl, tu);
+    // (k to k + 1) seen from k; DOWN and RIGHT the previous one's.  The
+    // vertical steps in bounds: UP [max(1, g - gh + 1), g], DOWN
+    // [max(1, -g), gh - 1 - g] (g the frame's row)
+    const int g = y + row0;
+    int kmax = max(min(usd, g), 0);
+    int k0 = max(1, g - gh + 1);
+    o[0] = max(arms_walk<SMALL>(v, -ARMS_TW, kmax, min(lsd, kmax),
+                                ARMS_EDGE_NEXT, tl, tu) - k0 + 1, 0);
+    kmax = max(min(usd, gh - 1 - g), 0);
+    k0 = max(1, -g);
+    o[plane] = max(arms_walk<SMALL>(v, ARMS_TW, kmax, min(lsd, kmax),
+                                    ARMS_EDGE_PREV, tl, tu) - k0 + 1, 0);
     kmax = min(usd, x);
     o[2 * plane] = arms_walk<SMALL>(h, -1, kmax, min(lsd, kmax),
                                     ARMS_EDGE_NEXT, tl, tu);
@@ -229,15 +250,19 @@ static size_t arms_smem_bytes(int rv, int rh) {
 // img_l, img_r: (H, W, 3) u8 contiguous; arms_l, arms_r: (4, H, W) i32;
 // n_eyes 1 (img_l alone) or 2.  cu, cl: the integer thresholds of ucd and
 // lcd (a step fails where a channel difference is >= c, c in 0..256).
+// row0, global_h: the halo-shard mode (0 and H without it).
 STM_API int stm_cross_arms(const void* img_l, const void* img_r,
                            void* arms_l, void* arms_r, int n_eyes, int H,
-                           int W, int cu, int cl, int usd, int lsd,
-                           void* stream) {
+                           int W, int cu, int cl, int usd, int lsd, int row0,
+                           int global_h, void* stream) {
   if (H <= 0 || W <= 0 || usd < 0 || lsd < 0 || n_eyes < 1 || n_eyes > 2 ||
-      cu < 0 || cu > 256 || cl < 0 || cl > 256 || (H + ARMS_TH - 1) /
-      ARMS_TH > 65535)
+      cu < 0 || cu > 256 || cl < 0 || cl > 256 || global_h <= 0 ||
+      (H + ARMS_TH - 1) / ARMS_TH > 65535)
     return (int)cudaErrorInvalidValue;
-  const int rv = min(usd, H - 1), rh = min(usd, W - 1);
+  // the vertical reach: the longest in-bounds walk of any row, UP from
+  // the last row (g = H - 1 + row0) or DOWN from the first (g = row0)
+  const int reach = max(H - 1 + row0, global_h - 1 - row0);
+  const int rv = max(min(usd, reach), 0), rh = min(usd, W - 1);
   const size_t smem = arms_smem_bytes(rv, rh);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   const bool small = cu >= 1 && cu <= 128 && cl >= 1 && cl <= 128;
@@ -252,6 +277,7 @@ STM_API int stm_cross_arms(const void* img_l, const void* img_r,
   dim3 grid((W + ARMS_TW - 1) / ARMS_TW, (H + ARMS_TH - 1) / ARMS_TH,
             n_eyes);
   kernel<<<grid, ARMS_THREADS, smem, (cudaStream_t)stream>>>(
-      eyes, H, W, arms_test(cu), arms_test(cl), usd, lsd, rv, rh);
+      eyes, H, W, arms_test(cu), arms_test(cl), usd, lsd, rv, rh, row0,
+      global_h);
   return (int)cudaGetLastError();
 }

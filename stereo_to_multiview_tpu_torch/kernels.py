@@ -39,7 +39,7 @@ _F = ctypes.c_float
 # C signatures: every pointer (device or host) and the stream as void*,
 # sizes as int, float parameters as float.
 _SIGS = {
-    "stm_cross_arms": [_P] * 4 + [_I] * 7 + [_P],
+    "stm_cross_arms": [_P] * 4 + [_I] * 9 + [_P],
     "stm_cost_pair": [_P] * 6 + [_I] * 9 + [_P],
     "stm_shear_right": [_P, _P] + [_I] * 5 + [_P],
     "stm_hpass_sum_u8": [_P, _LL, _P, _P, _P] + [_I] * 5 + [_P],

@@ -337,3 +337,18 @@ def process_frame_lowres(sbs, cfg: PipelineConfig, device=None,
     interlaced = synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg,
                                       timer)
     return disp_l, disp_r, interlaced
+
+
+def make_process_frame(cfg: PipelineConfig, lowres: bool = False,
+                       device=None):
+    """The JAX package's `make_process_frame`: a function SBS frame ->
+    (disp_l, disp_r, interlaced), `process_frame` (or with `lowres`,
+    `process_frame_lowres`) at this config and device."""
+    entry = process_frame_lowres if lowres else process_frame
+    dev = resolve_device(device)
+    check_ported(cfg)
+
+    def fn(sbs):
+        return entry(sbs, cfg, device=dev)
+
+    return fn

@@ -36,7 +36,7 @@ from stereo_to_multiview_tpu_torch.ops.costkern import (
     QSCALE, cost_dm, cost_dtype, cost_pair, pair_margin, shear_right)
 from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
 from stereo_to_multiview_tpu_torch.ops.hslokern import dc_hslo_wta_lr
-from stereo_to_multiview_tpu_torch.ops.irv import vote_rule
+from stereo_to_multiview_tpu_torch.ops.irv import dr_irv_early_stop, vote_rule
 from stereo_to_multiview_tpu_torch.ops.mux import f32, mux_average
 
 _HALO = 64
@@ -666,3 +666,18 @@ def dr_irv_band_lr(disp_l, outl_l, disp_r, outl_r, arms_l, arms_r,
                        torch.cat([arms_l, arms_r], dim=1), thresh_s,
                        thresh_h, num_disp, zero_disp, usd, iterations)
     return (d[:h], o[:h]), (d[h:], o[h:])
+
+
+def dr_irv_band_chunked(disp_l, outl_l, disp_r, outl_r, arms_l, arms_r,
+                        cfg, interpret: bool = False):
+    """The JAX package's IRV of the band engine under its entry name:
+    cfg.irv_iterations rounds of B8 and B9 over row chunks of
+    cfg.irv_row_chunk rows, stopping at the first round that changes no
+    label (`ops.irv.dr_irv_early_stop`, one eye at a time: the JAX entry
+    stacks the eyes along H, which no vote window crosses).  Returns
+    ((disp_l, outl_l), (disp_r, outl_r)); `interpret` has no effect."""
+    return tuple(
+        dr_irv_early_stop(d, o, a, cfg.irv_thresh_s, cfg.irv_thresh_h,
+                          cfg.num_disp, cfg.zero_disp, cfg.usd,
+                          cfg.irv_iterations, row_chunk=cfg.irv_row_chunk)
+        for d, o, a in ((disp_l, outl_l, arms_l), (disp_r, outl_r, arms_r)))

@@ -110,12 +110,13 @@ def ci_adcensus_combine(ad_cost, census_cost, ad_coeff: float,
 
 def ci_adcensus(img_l: torch.Tensor, img_r: torch.Tensor, ad_coeff: float,
                 census_coeff: float, num_disp: int, zero_disp: int,
-                fast_exp: bool = False):
+                fast_exp: bool = False, planes: range | None = None):
     """The XLA engine's cost init: (cost_l, cost_r), each (D, H, W)
     float32, equal to `ci_adcensus_combine(ci_ad, ci_census)` of the
     whole images' census codes.  Each plane looks its two terms up by the
     integer channel-difference sum (0..765) and Hamming count (0..48), so
-    no (D, H, W, 3) stack is held."""
+    no (D, H, W, 3) stack is held.  `planes`: only those disparities, in
+    that order (a disparity shard's slice; default all num_disp)."""
     from stereo_to_multiview_tpu_torch.ops.mux import f32, mux_average
     h, w = img_l.shape[:2]
     dev = img_l.device
@@ -130,15 +131,17 @@ def ci_adcensus(img_l: torch.Tensor, img_r: torch.Tensor, ad_coeff: float,
     imgs = (img_l.to(torch.int32), img_r.to(torch.int32))
     cens = tuple(census_transform_9x7(mux_average(x)) for x in (img_l,
                                                                 img_r))
+    planes = range(num_disp) if planes is None else planes
     out = []
     for own, sign in ((0, +1), (1, -1)):
         oth = 1 - own
-        vol = torch.empty((num_disp, h, w), dtype=torch.float32, device=dev)
-        for d in range(num_disp):
+        vol = torch.empty((len(planes), h, w), dtype=torch.float32,
+                          device=dev)
+        for i, d in enumerate(planes):
             off = sign * (d - zero_disp)
             xs = clamp_index(w, off, w + off, dev)
             ad = (imgs[own] - imgs[oth][:, xs]).abs().sum(-1)
-            vol[d] = ad_terms[ad] + ham_terms[hamming48(cens[own],
+            vol[i] = ad_terms[ad] + ham_terms[hamming48(cens[own],
                                                         cens[oth][:, xs])]
         out.append(vol)
     return tuple(out)

@@ -22,7 +22,8 @@ UP, DOWN, LEFT, RIGHT = 0, 1, 2, 3
 
 
 def _arm_length(img_i32: torch.Tensor, dy: int, dx: int, ucd: float,
-                lcd: float, usd: int, lsd: int) -> torch.Tensor:
+                lcd: float, usd: int, lsd: int, row_offset: int | None = None,
+                global_h: int | None = None) -> torch.Tensor:
     """Arm length (H, W) int32 in direction (dy, dx).
 
     The arm is written *before* the color test, so a color failure at
@@ -30,13 +31,21 @@ def _arm_length(img_i32: torch.Tensor, dy: int, dx: int, ucd: float,
     yields k-1:  arm = sum_k [in_bounds(k) and no color failure at j < k].
     Within lsd a step fails when it differs by more than lcd from the
     anchor or from the previous pixel; beyond lsd, by more than ucd from
-    the anchor (max over channels, compared in float32)."""
+    the anchor (max over channels, compared in float32).
+
+    row_offset/global_h: the image is a halo-extended row shard of a
+    frame of global_h rows whose row y is the frame's row y + row_offset;
+    the vertical in-bounds test then uses that global row, while the
+    reads stay clamped to the tensor's rows."""
     h, w = img_i32.shape[:2]
     dev = img_i32.device
     axis = 0 if dy else 1
     step = dy if dy else dx
     n = h if dy else w
     pos = torch.arange(n, device=dev)
+    g_pos, g_n = pos, n
+    if dy and row_offset is not None:
+        g_pos, g_n = pos + int(row_offset), int(global_h)
     t_lcd, t_ucd = f32(lcd), f32(ucd)
 
     arm = torch.zeros((h, w), dtype=torch.int32, device=dev)
@@ -51,7 +60,7 @@ def _arm_length(img_i32: torch.Tensor, dy: int, dx: int, ucd: float,
             fail = (ac > t_lcd) | (cp > t_lcd)
         else:
             fail = ac > t_ucd
-        in_b = (pos + step * k >= 0) & (pos + step * k <= n - 1)
+        in_b = (g_pos + step * k >= 0) & (g_pos + step * k <= g_n - 1)
         in_b = in_b[:, None] if dy else in_b[None, :]
         arm += (in_b & no_fail_before).to(torch.int32)
         no_fail_before &= ~fail
@@ -60,12 +69,13 @@ def _arm_length(img_i32: torch.Tensor, dy: int, dx: int, ucd: float,
 
 
 def cross_arms_plain(img: torch.Tensor, ucd: float, lcd: float, usd: int,
-                     lsd: int) -> torch.Tensor:
+                     lsd: int, row_offset: int | None = None,
+                     global_h: int | None = None) -> torch.Tensor:
     """Plain version of `cross_arms`: one shifted image per step k."""
     c = img.to(torch.int32)
     return torch.stack([
-        _arm_length(c, -1, 0, ucd, lcd, usd, lsd),
-        _arm_length(c, +1, 0, ucd, lcd, usd, lsd),
+        _arm_length(c, -1, 0, ucd, lcd, usd, lsd, row_offset, global_h),
+        _arm_length(c, +1, 0, ucd, lcd, usd, lsd, row_offset, global_h),
         _arm_length(c, 0, -1, ucd, lcd, usd, lsd),
         _arm_length(c, 0, +1, ucd, lcd, usd, lsd),
     ])
@@ -85,19 +95,26 @@ def arm_threshold(t: float) -> int:
 
 
 @kernels.kernel_wrapper
-def cross_arms_eyes(imgs, ucd: float, lcd: float, usd: int,
-                    lsd: int) -> tuple:
+def cross_arms_eyes(imgs, ucd: float, lcd: float, usd: int, lsd: int,
+                    row_offset: int | None = None,
+                    global_h: int | None = None) -> tuple:
     """(4, H, W) int32 arm lengths (UP, DOWN, LEFT, RIGHT) of each of one
     or two (H, W, 3) uint8 images of one shape, in one launch of kernel
-    B1 (csrc/arms.cu).  Every arm stops at its image's border.  The
-    kernel stages a block's cross in shared memory, which bounds the
-    reach: min(usd, H - 1) and min(usd, W - 1) up to 281 (the band
-    engine takes usd <= 64); beyond it the launch fails and this
-    raises."""
+    B1 (csrc/arms.cu).  Every arm stops at its image's border; with
+    row_offset/global_h (the halo-shard mode) the vertical arms stop at
+    the border of a frame of global_h rows, the image's row y being the
+    frame's row y + row_offset, and reads past the image's rows clamp
+    to its edge rows.  The kernel stages a block's cross in shared
+    memory, which bounds the reach: min(usd, H - 1) (in the halo-shard
+    mode up to usd) and min(usd, W - 1) up to 281 (the band engine
+    takes usd <= 64); beyond it the launch fails and this raises."""
     if not 1 <= len(imgs) <= 2:
         raise ValueError("cross_arms: one or two images")
+    if row_offset is not None and (global_h is None or global_h < 1):
+        raise ValueError("cross_arms: row_offset needs global_h >= 1")
     if kernels.on_cpu(imgs[0]):
-        return tuple(cross_arms_plain(img, ucd, lcd, usd, lsd)
+        return tuple(cross_arms_plain(img, ucd, lcd, usd, lsd, row_offset,
+                                      global_h)
                      for img in imgs)
     for name, img in zip(("img_l", "img_r"), imgs):
         kernels.require(img, name, torch.uint8, 3, imgs[0].device)
@@ -105,31 +122,39 @@ def cross_arms_eyes(imgs, ucd: float, lcd: float, usd: int,
             raise ValueError(f"cross_arms: expected (H, W, 3) images of "
                              f"one shape, got {tuple(img.shape)}")
     h, w = imgs[0].shape[:2]
+    row0, g_h = (0, h) if row_offset is None else (int(row_offset),
+                                                   int(global_h))
     outs = [torch.empty((4, h, w), dtype=torch.int32, device=img.device)
             for img in imgs]
     last = len(imgs) - 1
     rc = kernels.lib("arms").stm_cross_arms(
         imgs[0].data_ptr(), imgs[last].data_ptr(), outs[0].data_ptr(),
         outs[last].data_ptr(), len(imgs), h, w, arm_threshold(ucd),
-        arm_threshold(lcd), usd, lsd, kernels.stream_of(outs[0]))
+        arm_threshold(lcd), usd, lsd, row0, g_h, kernels.stream_of(outs[0]))
     kernels.check_launch(rc, "cross_arms")
     cross_arms_eyes.launches += 1
     return tuple(outs)
 
 
 def cross_arms(img: torch.Tensor, ucd: float, lcd: float, usd: int,
-               lsd: int) -> torch.Tensor:
+               lsd: int, row_offset: int | None = None,
+               global_h: int | None = None) -> torch.Tensor:
     """(4, H, W) int32 arm lengths (UP, DOWN, LEFT, RIGHT) of an (H, W, 3)
-    uint8 image.  Every arm stops at the image border.  Kernel B1
+    uint8 image.  Every arm stops at the image border, or with
+    row_offset/global_h at the frame's (`cross_arms_eyes`).  Kernel B1
     (csrc/arms.cu), one eye."""
-    return cross_arms_eyes((img,), ucd, lcd, usd, lsd)[0]
+    return cross_arms_eyes((img,), ucd, lcd, usd, lsd, row_offset,
+                           global_h)[0]
 
 
 def cross_arms_lr(img_l: torch.Tensor, img_r: torch.Tensor, ucd: float,
-                  lcd: float, usd: int, lsd: int):
+                  lcd: float, usd: int, lsd: int,
+                  row_offset: int | None = None,
+                  global_h: int | None = None):
     """(arms_l, arms_r), each equal to `cross_arms` of its image, in one
     launch of kernel B1: the JAX package's `cross_arms_kern_lr`."""
-    return cross_arms_eyes((img_l, img_r), ucd, lcd, usd, lsd)
+    return cross_arms_eyes((img_l, img_r), ucd, lcd, usd, lsd, row_offset,
+                           global_h)
 
 
 # ---- the XLA engine's aggregation: float32 prefix windows --------------

@@ -196,8 +196,8 @@ def dibr_feather_mask(mask_r: torch.Tensor, feather_radius: int,
 
 
 def warp_interp_u8(img_in: torch.Tensor, disp: torch.Tensor,
-                   shift: float, bounds=None,
-                   contract: bool = False) -> torch.Tensor:
+                   shift: float, bounds=None, contract: bool = False,
+                   first: int | None = None) -> torch.Tensor:
     """The un-masked part of the gather warp: sample img_in at c =
     clamp(x + disp*shift, 0, W-1) with x-only linear interpolation and
     truncate to u8.  The two weights are the triangle weights
@@ -212,7 +212,8 @@ def warp_interp_u8(img_in: torch.Tensor, disp: torch.Tensor,
     the add that consumes it: c = fma(disp, shift, x), and the sum over
     the range fuses each product into the running sum, the first two as
     fma(t0, t1); otherwise each product is rounded, as its op-by-op
-    evaluation and the warp kernels do."""
+    evaluation and the warp kernels do.  `first` is the offset at which
+    the contracted sum starts (default: bounds[0])."""
     h, w, _ = img_in.shape
     xs = torch.arange(w, dtype=F32, device=img_in.device)
     if contract:
@@ -238,8 +239,8 @@ def warp_interp_u8(img_in: torch.Tensor, disp: torch.Tensor,
         return (w0 * v0 + w1 * v1).to(torch.uint8)
     # the executable's sum over the offset range fuses each product into
     # the running sum, except the first pair: fma(t0, t1 rounded)
-    first = (k0 == float(bounds[0]))[:, :, None]
-    return torch.where(first, fma(w0, v0, w1 * v1),
+    at_first = (k0 == float(bounds[0] if first is None else first))
+    return torch.where(at_first[:, :, None], fma(w0, v0, w1 * v1),
                        fma(w1, v1, w0 * v0)).to(torch.uint8)
 
 
@@ -260,6 +261,41 @@ def dibr_backward_warp(img_in: torch.Tensor, mask: torch.Tensor,
         bounds = offset_range(-zero_disp, num_disp - zero_disp, shift)
     return masked(warp_interp_u8(img_in, disp, shift, bounds, contract),
                   mask)
+
+
+def dibr_backward_warp_dyn(img_in: torch.Tensor, mask: torch.Tensor,
+                           disp: torch.Tensor, shift: float, num_disp: int,
+                           zero_disp: int,
+                           contract: bool = False) -> torch.Tensor:
+    """`dibr_backward_warp` with the bound of the JAX package's view-axis
+    warp, whose shift depends on the device: the whole disparity range
+    both ways, [-dmax - 1, dmax + 1] with dmax = max(zero_disp, num_disp
+    - zero_disp), whatever the shift.  On disparities inside the range
+    no term falls outside either bound, so the two warps agree; with
+    `contract` the sum starts its contraction at this shift's own first
+    offset (`offset_range`), where `dibr_backward_warp` starts it, so
+    they agree there too.  Plain torch on every device."""
+    dmax = max(zero_disp, num_disp - zero_disp)
+    first = offset_range(-zero_disp, num_disp - zero_disp, shift)[0]
+    return masked(warp_interp_u8(img_in, disp, shift, (-dmax - 1, dmax + 1),
+                                 contract, first), mask)
+
+
+def dibr_dbm(img_l, img_r, disp_l, disp_r, mask_l, mask_r, shift: float,
+             feather_radius: int = 10, feather_sigma: float = 15.0,
+             feathered_mask=None) -> torch.Tensor:
+    """Backward-mapped intermediate view at fraction `shift` from the
+    right: the LEFT image warped with the RIGHT eye's disparity and mask
+    at -shift and the right image with the left eye's at 1 - shift
+    (`dibr_backward_warp`, unbounded), merged with the feathered
+    inverted right mask (`dibr_feather_mask`, G1, unless
+    `feathered_mask` is given)."""
+    view_from_l = dibr_backward_warp(img_l, mask_r, disp_r, -shift)
+    view_from_r = dibr_backward_warp(img_r, mask_l, disp_l, 1.0 - shift)
+    m = feathered_mask
+    if m is None:
+        m = dibr_feather_mask(mask_r, feather_radius, feather_sigma)
+    return mux_merge_ab(view_from_l, view_from_r, m)
 
 
 def masked(interp: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -102,3 +102,16 @@ def dc_hslo_wta_lr(vol_l: torch.Tensor, vol_r: torch.Tensor,
     kernel B13."""
     return dc_hslo_wta_eyes((vol_l, vol_r), gray_l, gray_r, num_disp,
                             zero_disp, T, H1, H2, +1)
+
+
+def dc_hslo_wta_kern(vol_whd: torch.Tensor, gray_a: torch.Tensor,
+                     gray_b: torch.Tensor, num_disp: int, zero_disp: int,
+                     T: float = 15.0, H1: float = 1.0, H2: float = 3.0,
+                     sign: int = +1, interpret: bool = False) -> torch.Tensor:
+    """The JAX package's entry name of B13: a (W, H, D) W-major
+    aggregated volume -> (H, W) float32 disparities (`dc_hslo_wta` of its
+    (H, W, D) view, copied only where that view is not contiguous).
+    `interpret` has no effect."""
+    vol = vol_whd.transpose(0, 1)
+    return dc_hslo_wta(vol if vol.is_contiguous() else vol.contiguous(),
+                       gray_a, gray_b, num_disp, zero_disp, T, H1, H2, sign)

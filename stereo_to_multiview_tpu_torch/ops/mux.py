@@ -52,25 +52,26 @@ def mux_geometry(v_cnt: int, angle: float):
 
 
 def mux_row_views(v_cnt: int, rows: int, angle: float,
-                  device=None) -> torch.Tensor:
+                  device=None, row0: int = 0) -> torch.Tensor:
     """(rows,) int64 per-row view term trunc((ty % y_mod + 1) * V *
     inv_y), every operation in float32, left to right: what the
     interlace kernel (`ops.dibr.warp_merge_interlace`) computes for each
-    output row."""
+    output row; ty = row0 + the row's index (a row shard's global
+    rows)."""
     y_mod, inv_y = mux_geometry(v_cnt, angle)
-    ty = torch.arange(rows, device=device)
+    ty = torch.arange(rows, device=device) + int(row0)
     y_view = ((ty % y_mod).to(F32) + 1.0) * f32(v_cnt) * f32(inv_y)
     return y_view.to(torch.int64)
 
 
 def mux_view_pattern(v_cnt: int, rows: int, cols: int, angle: float,
-                     device=None) -> torch.Tensor:
+                     device=None, row0: int = 0) -> torch.Tensor:
     """(rows, cols, 3) int64 view id per BGR color subpixel: R at +0,
     G at +1, B at +2 (channel 0 is B, so it gets +2).  Geometry:
     y_interval = V / tan(angle) / 3 in float32; each subpixel selects
     view (3*tx + trunc((ty % round(y_interval) + 1) * V / y_interval))
-    mod V (`mux_row_views`)."""
-    yv = mux_row_views(v_cnt, rows, angle, device)
+    mod V (`mux_row_views`, ty from the global row `row0`)."""
+    yv = mux_row_views(v_cnt, rows, angle, device, row0)
     tx = torch.arange(cols, device=device)
     x_view = (tx[None, :] * 3 + yv[:, None]) % v_cnt
     return torch.stack([(x_view + 2) % v_cnt, (x_view + 1) % v_cnt, x_view],
@@ -101,4 +102,15 @@ def mux_multiview(views: torch.Tensor, num_rows_out: int, num_cols_out: int,
                                    num_cols_out, contract).to(torch.uint8)
     vid = mux_view_pattern(v_cnt, num_rows_out, num_cols_out, angle,
                            views.device)
+    return torch.gather(views, 0, vid[None])[0]
+
+
+def mux_multiview_rows(views: torch.Tensor, angle: float,
+                       row_offset: int) -> torch.Tensor:
+    """`mux_multiview` of a row shard at identity resolution (the
+    interlace is then row-local): (V, h, W, 3) u8 views of the frame's
+    rows row_offset .. row_offset + h - 1 -> their (h, W, 3) interlace,
+    the lenticular row phase taken from the global row."""
+    v_cnt, h, w = views.shape[:3]
+    vid = mux_view_pattern(v_cnt, h, w, angle, views.device, row_offset)
     return torch.gather(views, 0, vid[None])[0]

@@ -43,9 +43,18 @@ def lerp_axis(a: torch.Tensor, axis: int, n_out: int,
     a0 * (1 - w) + a1 * w, each product rounded, or with `contract` the
     first fused into the add, fma(a0, 1 - w, a1 * w), as the JAX
     package's jitted CPU executable computes its interlace's resample."""
-    i0, i1, w = lerp_taps(n_out, a.shape[axis], a.device)
+    return lerp_gather(a, axis, *lerp_taps(n_out, a.shape[axis], a.device),
+                       contract)
+
+
+def lerp_gather(a: torch.Tensor, axis: int, i0: torch.Tensor,
+                i1: torch.Tensor, w: torch.Tensor,
+                contract: bool = False) -> torch.Tensor:
+    """`lerp_axis` from given taps: the samples of `a` at i0 and i1 along
+    `axis` and the second's float32 weight w (a row shard's slice of an
+    axis' `lerp_taps`, its indices moved into the shard's rows)."""
     shape = [1] * a.dim()
-    shape[axis] = n_out
+    shape[axis] = len(w)
     w = w.reshape(shape)
     a0, a1 = a.index_select(axis, i0), a.index_select(axis, i1)
     if contract:

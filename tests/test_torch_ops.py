@@ -84,7 +84,8 @@ def test_config_checks_and_unknown_fields():
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither JAX nor the JAX
     package (a fresh interpreter, so this test's own imports don't count),
-    the runtime's modules, its native binding and the apps included."""
+    the runtime's modules, its native binding, the apps, the sharded paths
+    (parallel/) and their launch module included."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import stereo_to_multiview_tpu_torch as p\n"
@@ -105,7 +106,10 @@ def test_port_imports_no_jax():
     pkg = "stereo_to_multiview_tpu_torch."
     for name in ("apps.image_io", "apps.video_io", "models.stream",
                  "native", "utils.device", "utils.dump", "utils.imageio",
-                 "utils.preview", "utils.timing", "utils.y4m", "ops.wta"):
+                 "utils.preview", "utils.timing", "utils.y4m", "ops.wta",
+                 "parallel.mesh", "parallel.distributed", "parallel.halo",
+                 "parallel.dispshard", "parallel.sharded", "parallel.launch",
+                 "ops.postkern", "ops.irvkern"):
         assert pkg + name in walked, name
     # chip_smoke.py, the port's script on the card, imports neither
     src = open(os.path.join(REPO, "chip_smoke.py")).read()

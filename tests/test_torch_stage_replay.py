@@ -277,24 +277,28 @@ def test_arms_step_test_is_exact():
 CH, EDGE_NEXT, EDGE_PREV = 0x808080, 0x80000000, 0x40000000
 
 
-def replay_cross_arms(img, ucd, lcd, usd, lsd):
+def replay_cross_arms(img, ucd, lcd, usd, lsd, row0=0, gh=None):
     """B1's blocks: the cross-shaped staged tile whose words carry the
     edge bits of the steps to the next and previous pixel (`arms_stage`),
-    8 pixels a thread, the four walks two steps at a time."""
+    8 pixels a thread, the four walks two steps at a time; with row0/gh
+    the halo-shard mode's vertical bounds."""
     h, w = img.shape[:2]
+    gh = h if gh is None else gh
     tl = arms_test(tcross.arm_threshold(lcd))
     tu = arms_test(tcross.arm_threshold(ucd))
-    rv, rh = min(usd, h - 1), min(usd, w - 1)
+    reach = max(h - 1 + row0, gh - 1 - row0)
+    rv, rh = max(min(usd, reach), 0), min(usd, w - 1)
     hw = ARMS_TW + 2 * rh
     arms = np.full((4, h, w), -1, np.int64)
 
     def stage(y, x, dy, dx):
         """arms_stage: the pixel's word and the edge bits of its steps to
-        the next and previous pixel along (dy, dx), clamped reads."""
-        y, x = _clamp(y, h - 1), _clamp(x, w - 1)
-        c = _pack(img[y, x])
-        n = _pack(img[min(y + dy, h - 1), min(x + dx, w - 1)])
-        p = _pack(img[max(y - dy, 0), max(x - dx, 0)])
+        the next and previous pixel along (dy, dx), each read clamped
+        from its unclamped coordinates."""
+        yc, xc = _clamp(y, h - 1), _clamp(x, w - 1)
+        c = _pack(img[yc, xc])
+        n = _pack(img[_clamp(y + dy, h - 1), _clamp(x + dx, w - 1)])
+        p = _pack(img[_clamp(y - dy, h - 1), _clamp(x - dx, w - 1)])
         word = c
         if arms_fail(vabsdiff(c, n), tl) & CH:
             word |= EDGE_NEXT
@@ -348,10 +352,15 @@ def replay_cross_arms(img, ucd, lcd, usd, lsd):
                     if y >= h:
                         break
                     v, hh = (rv + ty) * ARMS_TW + tx, ty * hw + rh + tx
-                    arms[0, y, x] = walk(vs, v, -ARMS_TW, min(usd, y),
-                                         EDGE_NEXT)
-                    arms[1, y, x] = walk(vs, v, ARMS_TW,
-                                         min(usd, h - 1 - y), EDGE_PREV)
+                    g = y + row0
+                    kmax = max(min(usd, g), 0)
+                    arms[0, y, x] = max(walk(vs, v, -ARMS_TW, kmax,
+                                             EDGE_NEXT)
+                                        - max(1, g - gh + 1) + 1, 0)
+                    kmax = max(min(usd, gh - 1 - g), 0)
+                    arms[1, y, x] = max(walk(vs, v, ARMS_TW, kmax,
+                                             EDGE_PREV)
+                                        - max(1, -g) + 1, 0)
                     arms[2, y, x] = walk(hs, hh, -1, min(usd, x), EDGE_NEXT)
                     arms[3, y, x] = walk(hs, hh, 1, min(usd, w - 1 - x),
                                          EDGE_PREV)
@@ -377,3 +386,22 @@ def test_cross_arms_replay_matches_plain(h, w, ucd, lcd, usd, lsd):
                                    lsd).numpy()
     np.testing.assert_array_equal(replay_cross_arms(img, ucd, lcd, usd,
                                                     lsd), want)
+
+
+@pytest.mark.parametrize("h, gh, row0, usd, lsd", [
+    (40, 100, -21, 7, 3),      # the top shard: rows above the frame
+    (40, 100, 30, 7, 3),       # a middle shard
+    (40, 100, 81, 7, 3),       # the bottom shard: rows below the frame
+    (12, 100, 40, 34, 17),     # usd above the shard's height
+    (30, 20, -6, 34, 34),      # both frame borders inside the tensor
+])
+def test_cross_arms_replay_halo_shard(h, gh, row0, usd, lsd):
+    """B1's replay in its halo-shard mode (row0, global_h) equals
+    `cross_arms_plain(row_offset=row0, global_h=gh)` on every row: walks
+    bounded by the frame's rows, reads past the tensor's rows clamped,
+    and rows outside the frame, whose in-bounds steps start past 1."""
+    img, _ = _frame(h, 70, h * 70 + row0)
+    want = tcross.cross_arms_plain(torch.from_numpy(img), 6.0, 20.0, usd,
+                                   lsd, row0, gh).numpy()
+    np.testing.assert_array_equal(
+        replay_cross_arms(img, 6.0, 20.0, usd, lsd, row0, gh), want)
