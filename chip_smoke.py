@@ -72,7 +72,13 @@
    and B7's hits then B11's u8 entry on each eye, equal to the fused
    occlusion stage.
    The forward warp (`dibr_dfm`, plain torch) is timed at 1080p and held
-   card vs CPU.
+   card vs CPU.  B15 at its edges, along x and y: max_arm 0 and 64, lines
+   shorter than one window, D = 1, 30 and 130, every nsplit, inclusive
+   and half-open windows, integer volumes (its prefix blocks) up to and
+   one past their bound, and a volume of +-inf, NaN, -0.0 and cancelling
+   magnitudes (bit for bit, a zero's sign included); B18b at reach 0 and
+   64, on 37 rows, at D = 30 and on inputs whose rescaled pass-2 sums
+   pass the int16 ceiling.
 3. Drives the paths on SBS frames built from tests/data/bud_{2,3}.bmp:
    `process_frame` at HD1080_D128 (the main path), at
    HD1080_D128_HSLO_4K (scanline optimisation, median, 1080p views
@@ -145,8 +151,11 @@ broken copy of one fails, and to time two commits' kernels in turns.
 kernels: the occlusion stage (fused, and B7's hits and B11 unfused), the
 feather G1 and B12 (its view stack and its interlace mode) at their
 edges, and each preset path's interlaced frame against the
-plain chain.  `--runtime-checks` runs phase 5 alone, `--shard-checks`
-phase 6 alone.
+plain chain.  `--band-checks [--package-root DIR]` does the same for B15
+(its path shapes and edges, `dr_irv_band_lr` as a path) and the
+disparity-major core (B16, B18a-c at 1080p, a 680-row chunk, 200x1001
+and a 4K chunk, B18b's edges, `band_stereo_core_dm` as paths).
+`--runtime-checks` runs phase 5 alone, `--shard-checks` phase 6 alone.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
 a `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.
@@ -424,7 +433,7 @@ DM_KERNELS = {
         "cost_dm", _SRC + "cost_dm.cu", _TPU + "costkern.py:57", DM),
     "B18a pass1_dm": ("pass1_dm", _SRC + "band_dm.cu", _TPU + "band.py:832",
                       DM),
-    "B18b vv_dm (passes 2+3)": ("vv_dm", _SRC + "band_dm.cu",
+    "B18b vv_dm (passes 2+3)": ("vv_dm", _SRC + "vvdm.cu",
                                 _TPU + "band.py:853", DM),
     "B18c pass4_wta_dm": ("pass4_wta_dm", _SRC + "band_dm.cu",
                           _TPU + "band.py:909", DM),
@@ -442,6 +451,17 @@ for _suffix, _path in ((AT_CHUNK, DM_CHUNKED), (AT_ODD, DM), (AT_4K, DM_4K)):
         for name, (wrapper, source, replaces, path) in DM_KERNELS.items()
         if name in ("B16 cost_dm (stacked u8)", "B18a pass1_dm",
                     "B18b vv_dm (passes 2+3)", "B18c pass4_wta_dm")})
+# B18b where its streams, rings and batches meet their edges: reach 0
+# (rings of two slots) and 64, 37 rows (fewer than a ring holds), D = 30
+# (plane groups that do not fill a block), and inputs whose rescaled
+# pass-2 sums reach and pass the int16 ceiling (they wrap, as the plain
+# version's cast does); arms drawn past [0, reach] to test the clamp
+VDM_EDGES = (" (200x1001, reach 0)", " (200x1001, reach 64)", " (37x1001)",
+             " (200x1001, D=30)",
+             " (200x1001, pass-2 sums at the int16 ceiling)")
+for _suffix in VDM_EDGES:
+    KERNELS["B18b vv_dm (passes 2+3)" + _suffix] = KERNELS[
+        "B18b vv_dm (passes 2+3)"]
 # the entry points the JAX package's tests and scripts drive beside
 # process_frame: B15 under dr_irv_band_lr, B16's one-eye modes and B17
 # under ci_adcensus_kern(shift_extract=True), B19/B20 under the row-major
@@ -477,6 +497,35 @@ KERNELS.update(SHIFT_KERNELS)
 for _name in ("B15 band_span_sum_h (float, nsplit=3)",
               "B15 band_span_sum_v (float, nsplit=3)", *SHIFT_KERNELS):
     KERNELS[_name + AT_ODD] = KERNELS[_name]
+# B15 where its tiles, windows and lanes meet their edges, each along x and
+# y: max_arm 0 and 64, lines shorter than one window (on integers, the
+# prefix blocks, and on a float crop, the term-by-term walk), D = 1, 30
+# and 130
+# (no multiple of a block's 32 d), every nsplit, inclusive and half-open
+# windows, integer volumes (the blocks that take prefix differences) up to
+# and one past their bound, and a volume of +-inf, NaN, -0.0 and
+# cancelling magnitudes (1e8, 1, -1e8), where the order of the adds shows
+# (each held bit for bit, the sign of a zero included)
+SPAN_EDGES = {
+    " (200x1001, max_arm=0, inclusive, nsplit=3)": 3,
+    " (200x1001, max_arm=64, nsplit=2)": 2,
+    " (37x100, max_arm=64: lines shorter than a window, integers, "
+    "inclusive, nsplit=1)": 1,
+    " (37x100, max_arm=64: lines shorter than a window, float, "
+    "nsplit=2)": 2,
+    " (200x1001, D=1, inclusive, nsplit=1)": 1,
+    " (200x1001, D=30, nsplit=2)": 2,
+    " (200x1001, D=130, integers to 2^15 and some 32769, inclusive, "
+    "nsplit=3)": 3,
+    **{f" (200x1001, +-inf, NaN, -0.0, 1e8 / 1 / -1e8, nsplit={_n})": _n
+       for _n in (1, 2, 3)},
+}
+SPAN_BASE = {1: "stacked one-hot, nsplit=1, inclusive", 2: "float, nsplit=2",
+             3: "float, nsplit=3"}
+for _suffix, _n in SPAN_EDGES.items():
+    for _a in "hv":
+        KERNELS[f"B15 band_span_sum_{_a}" + _suffix] = KERNELS[
+            f"B15 band_span_sum_{_a} ({SPAN_BASE[_n]})"]
 KERNELS.update({
     "B19 dibr_warp_views_kern": ("dibr_warp_views_kern", _SRC + "warp.cu",
                                  _TPU + "warpkern.py:94", WARP_RM),
@@ -804,7 +853,11 @@ class KernelChecks:
         self.raw = None     # (disp_l, disp_r, labels) of check_disp_kernels
 
     def record(self, name, got, ref, kern, plain, nbytes, ops, library=None,
-               plain_once=False, ops_rate=PEAK_OPS_PER_S, graph=False):
+               plain_once=False, ops_rate=PEAK_OPS_PER_S, graph=False,
+               bits=False):
+        """With `bits`, float32 outputs must agree in every bit (the sign
+        of a zero too) but a NaN's payload: NaN where the plain version
+        has NaN."""
         import torch
         name += self.suffix
         torch.cuda.synchronize()
@@ -816,6 +869,18 @@ class KernelChecks:
                 raise SmokeFailure(f"{name}: kernel output {i} is "
                                    f"{tuple(g.shape)} {g.dtype}, plain "
                                    f"{tuple(r.shape)} {r.dtype}")
+            if bits:
+                nan = torch.isnan(r)
+                differ = ((g.view(torch.int32) != r.view(torch.int32))
+                          & ~(nan & torch.isnan(g)))
+                if bool(differ.any()):
+                    first = [int(j) for j in differ.nonzero()[0]]
+                    raise SmokeFailure(
+                        f"{name}: kernel output {i} != plain version in "
+                        f"{int(differ.sum())} elements' bits, first at "
+                        f"{first} ({float(g[tuple(first)])} against "
+                        f"{float(r[tuple(first)])})")
+                continue
             e = float((g.to(torch.float64) - r.to(torch.float64))
                       .abs().max())
             if e != 0.0:
@@ -2377,6 +2442,51 @@ def check_dm_kernels(chk, img_l, img_r, arms_l, arms_r, cfg, full=True):
           flush=True)
 
 
+def check_vdm_edges(chk, nd: int, dev):
+    """B18b's edge entries (`VDM_EDGES`) on (2D, H, W) int16 volumes and
+    arms drawn here: values in the range pass 1 gives them at the reach
+    (at the ceiling entry, 30000..32767 under arms of 34: rescaled pass-2
+    sums of ~33000), arms drawn from -2 to 5 past the reach."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band
+
+    gen = torch.Generator(device=dev).manual_seed(1818)
+
+    def entry(suffix, h, w, planes, reach, lo=0, hi=None, arm_lo=-2):
+        hi = 254 * 2 * max(reach, 1) if hi is None else hi
+        vol = torch.randint(lo, hi, (2 * planes, h, w), generator=gen,
+                            device=dev, dtype=torch.int16)
+        arms = [torch.randint(arm_lo, reach + 6, (4, h, w), generator=gen,
+                              device=dev, dtype=torch.int32)
+                for _ in range(2)]
+        _, s2, s3 = band.agg_rescale_shifts(reach, 2)
+        got = band.vv_dm(vol, *arms, s2, s3, reach)
+        hw, vol2 = h * w, vol.numel()
+        chk.suffix = suffix
+        chk.record("B18b vv_dm (passes 2+3)", got,
+                   band.vv_dm_plain(vol, *arms, s2, s3, reach),
+                   lambda: band.vv_dm(vol, *arms, s2, s3, reach),
+                   lambda: band.vv_dm_plain(vol, *arms, s2, s3, reach),
+                   nbytes=vol2 * 2 + 4 * hw * 4 + vol2 * 2, ops=2 * 4 * vol2)
+        chk.suffix = ""
+        return vol, arms, (s2, s3)
+
+    entry(" (200x1001, reach 0)", 200, 1001, nd, 0)
+    entry(" (200x1001, reach 64)", 200, 1001, nd, 64)
+    entry(" (37x1001)", 37, 1001, nd, 34)
+    entry(" (200x1001, D=30)", 200, 1001, 30, 34)
+    vol, arms, (s2, _) = entry(
+        " (200x1001, pass-2 sums at the int16 ceiling)", 200, 1001, nd, 34,
+        lo=30000, hi=32768, arm_lo=34)
+    p2 = band._span_dm(vol[:nd], arms[0][0], arms[0][1], 1, 34)
+    over = float((((p2 + (1 << (s2 - 1))) >> s2) > 32767).float().mean())
+    if over == 0.0:
+        raise SmokeFailure("B18b ceiling entry: no rescaled pass-2 sum "
+                           "passes 32767")
+    print(f"  B18b ceiling entry: {over:.4f} of the left eye's rescaled "
+          f"pass-2 sums pass 32767 and wrap", flush=True)
+
+
 def run_dm_core(name, img_l, img_r, arms_l, arms_r, cfg):
     """The disparity-major core as a path: launch counts zeroed just
     before one call of `band_stereo_core_dm` and read just after; the
@@ -2498,7 +2608,8 @@ def window_adds(arm_neg, arm_pos, axis: int, inclusive: bool, max_arm: int):
 
 def record_span(chk, name, vol, arm_neg, arm_pos, axis, inclusive, nsplit,
                 max_arm):
-    """One B15 entry: the kernel against its plain version on `vol`."""
+    """One B15 entry: the kernel against its plain version on `vol`, bit
+    for bit."""
     from stereo_to_multiview_tpu_torch.ops import band
     fn = band.band_span_sum_v if axis == 0 else band.band_span_sum_h
     args = (vol, arm_neg, arm_pos, inclusive, nsplit, max_arm)
@@ -2511,8 +2622,100 @@ def record_span(chk, name, vol, arm_neg, arm_pos, axis, inclusive, nsplit,
     chk.record(name, got, band.span_sum_float_plain(*plain),
                lambda: fn(*args), lambda: band.span_sum_float_plain(*plain),
                nbytes=2 * vol.numel() * 4 + 2 * arm_neg.numel() * 4,
-               ops=adds + (4 * nsplit - 2) * vol.numel())
+               ops=adds + (4 * nsplit - 2) * vol.numel(), bits=True)
     return got
+
+
+def check_span_edges(chk, vol, arms_l, usd: int):
+    """B15's edge entries (`SPAN_EDGES`), each along x and y: crops and
+    cuts of `vol` (one eye's float volume) and volumes made here, with
+    the frame's arms (`arms_l`, at usd) or arms drawn past [0, max_arm]
+    to test the clamp."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+
+    dev = vol.device
+    gen = torch.Generator(device=dev).manual_seed(1515)
+
+    def drawn(h, w, hi):
+        return [torch.randint(-3, hi, (h, w), generator=gen, device=dev,
+                              dtype=torch.int32) for _ in range(4)]
+
+    def frame(h, w):
+        return [arms_l[i, :h, :w].contiguous() for i in (UP, DOWN, LEFT,
+                                                          RIGHT)]
+
+    def both(suffix, v, arms, inclusive, nsplit, max_arm):
+        chk.suffix = suffix
+        record_span(chk, "B15 band_span_sum_h", v, arms[2], arms[3], 1,
+                    inclusive, nsplit, max_arm)
+        record_span(chk, "B15 band_span_sum_v", v, arms[0], arms[1], 0,
+                    inclusive, nsplit, max_arm)
+        chk.suffix = ""
+
+    crop = vol[:200, :1001].contiguous()
+    hw = crop.shape[:2]
+    both(" (200x1001, max_arm=0, inclusive, nsplit=3)", crop,
+         drawn(*hw, 40), True, 3, 0)
+    both(" (200x1001, max_arm=64, nsplit=2)", crop, drawn(*hw, 70), False,
+         2, 64)
+    short = torch.randint(0, 200, (*vol[:37, :100].shape,), generator=gen,
+                          device=dev).to(torch.float32)
+    both(" (37x100, max_arm=64: lines shorter than a window, integers, "
+         "inclusive, nsplit=1)", short, drawn(*short.shape[:2], 70), True, 1,
+         64)
+    short_f = vol[:37, :100].contiguous()
+    both(" (37x100, max_arm=64: lines shorter than a window, float, "
+         "nsplit=2)", short_f, drawn(*short_f.shape[:2], 70), False, 2, 64)
+    both(" (200x1001, D=1, inclusive, nsplit=1)",
+         crop[:, :, :1].contiguous(), frame(*hw), True, 1, usd)
+    both(" (200x1001, D=30, nsplit=2)", crop[:, :, :30].contiguous(),
+         frame(*hw), False, 2, usd)
+    del crop, short, short_f
+    # integers in [-2^15, 2^15] take prefix differences, but a block that
+    # stages one 32769 (a term past the bound) sums its windows term by
+    # term
+    v130 = torch.randint(-32768, 32769, (*hw, 130), generator=gen,
+                         device=dev).to(torch.float32)
+    v130.view(-1)[::500009] = 32769.0
+    both(" (200x1001, D=130, integers to 2^15 and some 32769, inclusive, "
+         "nsplit=3)", v130, frame(*hw), True, 3, usd)
+    del v130
+
+    # mixed signs; one element in 5000 each +inf, -inf, NaN; runs of 1e8,
+    # 1, -1e8 along x (rows y % 7 == 0) and along y (columns x % 11 == 5),
+    # whose sum depends on the order; a 40x40 block of -0.0 whose windows
+    # (arms 0..3 there) hold nothing else: +0.0 + -0.0 = +0.0
+    h, w, nd = 200, 1001, 32
+    v = torch.rand((h, w, nd), generator=gen, device=dev) * 2 - 1
+    pick = torch.rand((h, w, nd), generator=gen, device=dev)
+    v[pick < 2e-4] = float("inf")
+    v[(pick >= 2e-4) & (pick < 4e-4)] = -float("inf")
+    v[(pick >= 4e-4) & (pick < 6e-4)] = float("nan")
+    for k, val in enumerate((1e8, 1.0, -1e8)):
+        v[0::7, k:w - 2 + k:11] = val
+        v[k:h - 2 + k:13, 5::11] = val
+    v[100:140, 500:540] = -0.0
+    arms = drawn(h, w, usd + 6)
+    for a in arms:
+        a[100:140, 500:540] = torch.randint(
+            0, 4, (40, 40), generator=gen, device=dev, dtype=torch.int32)
+    for nsplit in (1, 2, 3):
+        both(f" (200x1001, +-inf, NaN, -0.0, 1e8 / 1 / -1e8, "
+             f"nsplit={nsplit})", v, arms, nsplit == 2, nsplit, usd)
+    # the entries test nothing unless each kind of output occurs
+    out = band.band_span_sum_h(v, arms[2], arms[3], False, 1, usd)
+    block = out[104:136, 504:536]
+    counts = (int(torch.isnan(out).sum()), int(torch.isinf(out).sum()),
+              int(((block == 0) & ~torch.signbit(block)).sum()))
+    if min(counts) == 0:
+        raise SmokeFailure(f"B15 non-finite edge volume: NaN, inf and +0.0 "
+                           f"outputs expected, counted {counts}")
+    print(f"  B15 non-finite volume: {counts[0]} NaN, {counts[1]} +-inf, "
+          f"{counts[2]} +0.0 outputs of windows of -0.0 (along x, nsplit=1)",
+          flush=True)
+    del v, pick, out
 
 
 def check_irv_band(chk, dl, dr, labels, arms_l, arms_r, cfg):
@@ -2573,7 +2776,9 @@ def check_irv_band(chk, dl, dr, labels, arms_l, arms_r, cfg):
     record_span(chk, "B15 band_span_sum_v (float, nsplit=3)", odd, *crop[2:],
                 0, False, 3, usd)
     chk.suffix = ""
-    del vol, odd
+    del odd
+    check_span_edges(chk, vol, arms_l, usd)
+    del vol
     torch.cuda.empty_cache()
 
     rounds = cfg.irv_iterations
@@ -3887,6 +4092,97 @@ def synth_checks(root: str) -> int:
     return 0
 
 
+def band_checks(root: str) -> int:
+    """`--band-checks [--package-root DIR]`: only B15 and B18b (and what
+    feeds them), on the package under DIR: B15 on the 1080p frame's
+    stacked one-hot and float volumes and at its edges, `dr_irv_band_lr`
+    as a path; B16 and B18a-c on the 1080p frame, a 680-row chunk, a
+    200x1001 crop and a 680x3840 chunk of the 4K frame, B18b at its
+    edges, `band_stereo_core_dm` whole-frame, in 540-row chunks and at
+    4K as paths.  The way to time two commits' kernels in turns.  Exit 1
+    if one fails."""
+    import torch
+    sys.path.insert(0, root)
+    from stereo_to_multiview_tpu_torch import config, kernels
+    from stereo_to_multiview_tpu_torch.models import pipeline
+    from stereo_to_multiview_tpu_torch.ops import band, cross, dcc
+
+    card = gpu_line()
+    print(f"gpu: {card}", flush=True)
+    print_ptxas(kernels.build_kernels())
+    cfg = config.HD1080_D128
+    usd = cfg.usd
+    arm_args = (cfg.ucd, cfg.lcd, usd, cfg.lsd)
+    dev = torch.device("cuda")
+    sbs = torch.from_numpy(stereo_sbs(cfg.num_rows, cfg.num_cols))
+    img_l, img_r = (t.contiguous() for t in pipeline.demux_sbs(sbs.to(dev)))
+    chk = KernelChecks(reps=10)
+    try:
+        arms_l, arms_r = (cross.cross_arms(t, *arm_args)
+                          for t in (img_l, img_r))
+        dl, dr = band.band_stereo_core_chunked(img_l, img_r, arms_l, arms_r,
+                                               cfg)
+        labels = dcc.dr_dcc(dl, dr, cfg.dcc_thresh)
+        paths = check_irv_band(chk, dl, dr, labels, arms_l, arms_r, cfg)
+        del dl, dr, labels
+        torch.cuda.empty_cache()
+
+        check_dm_kernels(chk, img_l, img_r, arms_l, arms_r, cfg, full=False)
+        chk.suffix = AT_CHUNK
+        ext = band.chunk_bounds(cfg.num_rows, 540, 2 * usd)[0]
+        check_dm_kernels(chk, img_l[:ext], img_r[:ext], arms_l[:, :ext],
+                         arms_r[:, :ext], cfg, full=False)
+        chk.suffix = AT_ODD
+        odd_l, odd_r = (t[:200, :1001].contiguous() for t in (img_l, img_r))
+        check_dm_kernels(chk, odd_l, odd_r, cross.cross_arms(odd_l, *arm_args),
+                         cross.cross_arms(odd_r, *arm_args), cfg, full=False)
+        chk.suffix = ""
+        del odd_l, odd_r
+        check_vdm_edges(chk, cfg.num_disp, dev)
+        torch.cuda.empty_cache()
+        cfg2 = cfg.replace(band_digits=2)
+        paths[DM] = run_dm_core(DM, img_l, img_r, arms_l, arms_r, cfg2)
+        paths[DM_CHUNKED] = run_dm_core(DM_CHUNKED, img_l, img_r, arms_l,
+                                        arms_r,
+                                        cfg2.replace(band_row_chunk=540))
+        del img_l, img_r, arms_l, arms_r
+        torch.cuda.empty_cache()
+
+        cfg4k = config.UHD4K_16V
+        sbs4k = torch.from_numpy(stereo_sbs(cfg4k.num_rows, cfg4k.num_cols))
+        img_l, img_r = (t.contiguous()
+                        for t in pipeline.demux_sbs(sbs4k.to(dev)))
+        del sbs4k
+        arm_args = (cfg4k.ucd, cfg4k.lcd, cfg4k.usd, cfg4k.lsd)
+        arms_l, arms_r = (cross.cross_arms(t, *arm_args)
+                          for t in (img_l, img_r))
+        core_rows = band.chunk_bounds(cfg4k.num_rows, cfg4k.band_row_chunk,
+                                      2 * cfg4k.usd)[0]
+        chk.suffix = AT_4K
+        check_dm_kernels(chk, img_l[:core_rows], img_r[:core_rows],
+                         arms_l[:, :core_rows].contiguous(),
+                         arms_r[:, :core_rows].contiguous(), cfg4k,
+                         full=False)
+        chk.suffix = ""
+        torch.cuda.empty_cache()
+        paths[DM_4K] = run_dm_core(DM_4K, img_l, img_r, arms_l, arms_r,
+                                   cfg4k.replace(band_digits=2))
+    except (SmokeFailure, RuntimeError, ValueError) as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    for name, p in paths.items():
+        if "band_ms" in p:
+            print(f"IRV: {p['band_ms']:.3f} ms dr_irv_band_lr at {name}, "
+                  f"package under {root}, on {card}", flush=True)
+        elif "dm_ms" in p:
+            print(f"stereo core: {p['dm_ms']:.3f} ms disparity-major at "
+                  f"{name}, package under {root}, on {card}", flush=True)
+        elif "span_ms" in p:
+            print(f"span sums: {p['span_ms']:.3f} ms band_span_sum_h + _v "
+                  f"at {name}, package under {root}, on {card}", flush=True)
+    return 0
+
+
 def only_runtime_checks() -> int:
     """`--runtime-checks`: phase 5 alone (the kernels built first)."""
     sys.path.insert(0, HERE)
@@ -3932,6 +4228,11 @@ def main() -> int:
                          "B11, the fused occlusion stage, G1, B12) and "
                          "the presets' interlaced frames against their "
                          "plain versions and print no result line")
+    ap.add_argument("--band-checks", action="store_true",
+                    help="only hold B15 and B18b (and the disparity-major "
+                         "core's other kernels) against their plain "
+                         "versions, drive dr_irv_band_lr and "
+                         "band_stereo_core_dm, and print no result line")
     ap.add_argument("--runtime-checks", action="store_true",
                     help="only run the stream driver, the XLA engine and "
                          "the apps (phase 5) and print no result line")
@@ -3940,9 +4241,9 @@ def main() -> int:
                          "sharded paths in ranks on the card) and print "
                          "no result line")
     ap.add_argument("--package-root", default=HERE,
-                    help="with --frames, --stream-checks or "
-                         "--synth-checks: the checkout whose package runs "
-                         "(default: this one)")
+                    help="with --frames, --stream-checks, "
+                         "--synth-checks or --band-checks: the checkout "
+                         "whose package runs (default: this one)")
     args = ap.parse_args()
     try:
         import torch
@@ -3958,6 +4259,8 @@ def main() -> int:
         return stream_checks(os.path.abspath(args.package_root))
     if args.synth_checks:
         return synth_checks(os.path.abspath(args.package_root))
+    if args.band_checks:
+        return band_checks(os.path.abspath(args.package_root))
     if args.runtime_checks:
         return only_runtime_checks()
     if args.shard_checks:
@@ -4057,6 +4360,7 @@ def main() -> int:
         check_shift_extract(chk, odd_l, odd_r, cfg)
         chk.suffix = ""
         del odd_l, odd_r
+        check_vdm_edges(chk, cfg.num_disp, dev)
         torch.cuda.empty_cache()
         cfg2 = cfg.replace(band_digits=2)
         paths[DM] = run_dm_core(DM, img_l, img_r, arms_l, arms_r, cfg2)

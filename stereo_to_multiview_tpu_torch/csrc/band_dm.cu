@@ -1,10 +1,11 @@
-// B18a/b/c: the cross aggregation in the disparity-major (2D, H, W)
-// layout, both eyes in one volume (left eye on planes [0, D), right eye on
-// [D, 2D)), int16 between the passes.
+// B18a/c: the horizontal passes of the cross aggregation in the
+// disparity-major (2D, H, W) layout, both eyes in one volume (left eye on
+// planes [0, D), right eye on [D, 2D)), int16 between the passes; the
+// vertical passes between them (B18b) are in vvdm.cu.
 //
 // Replace the TPU kernels stereo_to_multiview_tpu/ops/band.py
-// `_pass1_dm_kernel` (B18a), `_vv_dm_kernel` (B18b) and `_pass4_dm_kernel`
-// (B18c), reached via `band_aggregate_q_dm`:
+// `_pass1_dm_kernel` (B18a) and `_pass4_dm_kernel` (B18c), reached via
+// `band_aggregate_q_dm`:
 //   pass 1:    y = sum over [x - LEFT, x + RIGHT) of the u8 cost, int16;
 //   passes 2+3: two sums over [y - UP, y + DOWN), each rescaled by
 //              floor(v * 2^-s + 0.5) = (v + 2^(s-1)) >> s, int16;
@@ -34,16 +35,6 @@
 // registers while d walks upward with a strict `<`: the first minimum
 // needs no reduction across threads, and the aggregate never reaches
 // device memory.
-//
-// Vertical passes (B18b), one launch: a thread owns one column of one
-// plane and streams down it; consecutive threads own consecutive x, so a
-// warp reads and writes 64 contiguous bytes per row and no transposed copy
-// exists.  The running prefix of the input goes into a ring of 2*reach + 2
-// slots in shared memory (a thread's own column of it: no barrier); pass 2
-// of row i - reach is a difference of two ring slots, is rescaled and feeds
-// a second running prefix and ring, from which pass 3 of row i - 2*reach is
-// taken and stored.  Every input element is read once and every output
-// written once; the arms are read twice per plane, from cache.
 
 #include "stm_common.cuh"
 
@@ -231,109 +222,4 @@ STM_API int stm_pass4_wta_dm(const void* in, const void* left_l,
   return launch_hdm<int16_t, true>(in, left_l, right_l, left_r, right_r,
                                    nullptr, disp_l, disp_r, H, W, D, reach,
                                    zd, stream);
-}
-
-// ---- B18b: passes 2 + 3 ------------------------------------------------
-
-#define VDM_PLANES 4     // warps of a block: planes of one 32-column strip
-#define VDM_STEP 4       // rows whose loads are started together
-
-// Slot of prefix J - back, when prefix J sits in slot w of an N-slot ring
-// (0 <= back < N).
-__device__ __forceinline__ int vdm_slot(int w, int back, int N) {
-  const int s = w - back;
-  return s < 0 ? s + N : s;
-}
-
-// in, out: (2D, H, W) i16; up/down arms of each eye (H, W) i32; N = 2 *
-// reach + 2 ring slots; shared memory VDM_PLANES * 2 * N * 32 ints.
-__global__ void __launch_bounds__(32 * VDM_PLANES)
-vvdm_kernel(const int16_t* __restrict__ in, const int* __restrict__ up_l,
-            const int* __restrict__ down_l, const int* __restrict__ up_r,
-            const int* __restrict__ down_r, int16_t* __restrict__ out, int H,
-            int W, int D, int reach, int N, int s2, int s3) {
-  extern __shared__ int rings[];
-  const int x = blockIdx.x * 32 + threadIdx.x;
-  const int p = blockIdx.y * VDM_PLANES + threadIdx.y;
-  if (x >= W || p >= 2 * D) return;             // no barrier below
-  const int* up = (p >= D ? up_r : up_l) + x;
-  const int* down = (p >= D ? down_r : down_l) + x;
-  const int16_t* src = in + (size_t)p * H * W + x;
-  int16_t* dst = out + (size_t)p * H * W + x;
-  // ring slot s of this thread: ring[s * 32]
-  int* ring1 = rings + (size_t)(threadIdx.y * 2) * N * 32 + threadIdx.x;
-  int* ring2 = ring1 + (size_t)N * 32;
-  const int half2 = s2 > 0 ? 1 << (s2 - 1) : 0;
-  const int half3 = s3 > 0 ? 1 << (s3 - 1) : 0;
-
-  // P1[j] = sum of the input rows before j, P2[j] likewise of pass 2's
-  // rows; P[0] = 0 sits in slot 0, and w1/w2 are the slots of the newest.
-  ring1[0] = 0;
-  ring2[0] = 0;
-  int p1 = 0, p2 = 0, w1 = 0, w2 = 0;
-  const int steps = H + 2 * reach;
-  for (int i0 = 0; i0 < steps; i0 += VDM_STEP) {
-    int vin[VDM_STEP], a2[VDM_STEP], b2[VDM_STEP], a3[VDM_STEP],
-        b3[VDM_STEP];
-#pragma unroll
-    for (int k = 0; k < VDM_STEP; ++k) {
-      const int i = i0 + k, y2 = i - reach, y3 = i - 2 * reach;
-      vin[k] = i < H ? (int)src[(size_t)i * W] : 0;
-      const bool in2 = y2 >= 0 && y2 < H, in3 = y3 >= 0 && y3 < H;
-      a2[k] = in2 ? up[(size_t)y2 * W] : 0;
-      b2[k] = in2 ? down[(size_t)y2 * W] : 0;
-      a3[k] = in3 ? up[(size_t)y3 * W] : 0;
-      b3[k] = in3 ? down[(size_t)y3 * W] : 0;
-    }
-#pragma unroll
-    for (int k = 0; k < VDM_STEP; ++k) {
-      const int i = i0 + k, y2 = i - reach, y3 = i - 2 * reach;
-      if (i < H) {                              // P1[i + 1]
-        p1 += vin[k];
-        w1 = w1 + 1 == N ? 0 : w1 + 1;
-        ring1[w1 * 32] = p1;
-      }
-      if (y2 >= 0 && y2 < H) {                  // pass 2 of row y2
-        const int j1 = min(i + 1, H);           // newest P1
-        const int a = min(max(a2[k], 0), reach);
-        const int b = min(max(b2[k], 0), reach);
-        const int hi = min(y2 + b, H), lo = max(y2 - a, 0);
-        const int v = ring1[vdm_slot(w1, j1 - hi, N) * 32] -
-                      ring1[vdm_slot(w1, j1 - lo, N) * 32];
-        p2 += (int)(int16_t)((v + half2) >> s2);
-        w2 = w2 + 1 == N ? 0 : w2 + 1;
-        ring2[w2 * 32] = p2;                    // P2[y2 + 1]
-      }
-      if (y3 >= 0 && y3 < H) {                  // pass 3 of row y3
-        const int j2 = min(y2 + 1, H);          // newest P2
-        const int a = min(max(a3[k], 0), reach);
-        const int b = min(max(b3[k], 0), reach);
-        const int hi = min(y3 + b, H), lo = max(y3 - a, 0);
-        const int v = ring2[vdm_slot(w2, j2 - hi, N) * 32] -
-                      ring2[vdm_slot(w2, j2 - lo, N) * 32];
-        dst[(size_t)y3 * W] = (int16_t)((v + half3) >> s3);
-      }
-    }
-  }
-}
-
-// Passes 2 + 3 (B18b): in, out (2D, H, W) i16 (values >= 0); up/down arms
-// of each eye (H, W) i32.
-STM_API int stm_vv_dm(const void* in, const void* up_l, const void* down_l,
-                      const void* up_r, const void* down_r, void* out, int H,
-                      int W, int D, int reach, int s2, int s3, void* stream) {
-  if (H <= 0 || W <= 0 || D <= 0 || reach < 0 || reach > 64 || s2 < 0 ||
-      s2 > 30 || s3 < 0 || s3 > 30)
-    return (int)cudaErrorInvalidValue;
-  const int N = 2 * reach + 2;
-  const size_t smem = (size_t)VDM_PLANES * 2 * N * 32 * sizeof(int);
-  cudaError_t err = stm_smem_cap(vvdm_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + 31) / 32, (2 * D + VDM_PLANES - 1) / VDM_PLANES);
-  dim3 block(32, VDM_PLANES);
-  vvdm_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const int16_t*)in, (const int*)up_l, (const int*)down_l,
-      (const int*)up_r, (const int*)down_r, (int16_t*)out, H, W, D, reach, N,
-      s2, s3);
-  return (int)cudaGetLastError();
 }

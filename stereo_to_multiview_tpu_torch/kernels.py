@@ -29,8 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = ("arms", "cost", "shear", "hpass", "vpass", "hslo", "occl", "irv",
-           "bilateral", "warp", "cost_dm", "band_dm", "span", "shear_dm",
-           "feather")
+           "bilateral", "warp", "cost_dm", "band_dm", "vvdm", "span",
+           "shear_dm", "feather")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -447,15 +447,15 @@ def vv_dm(vol: torch.Tensor, arms_l: torch.Tensor, arms_r: torch.Tensor,
           s2: int, s3: int, max_arm: int) -> torch.Tensor:
     """Passes 2 and 3 of both eyes: two sums of a (2D, H, W) int16 volume
     over [y - UP, y + DOWN), rescaled by s2 then s3, as int16.  Kernel
-    B18b (csrc/band_dm.cu), one launch."""
+    B18b (csrc/vvdm.cu), one launch."""
     if kernels.on_cpu(vol):
         return vv_dm_plain(vol, arms_l, arms_r, s2, s3, max_arm)
     nd, h, w = _check_dm("vv_dm", vol, torch.int16, arms_l, arms_r, max_arm)
     planes = _arm_planes(arms_l, arms_r, UP, DOWN)
     out = torch.empty_like(vol)
-    rc = kernels.lib("band_dm").stm_vv_dm(
-        vol.data_ptr(), *(a.data_ptr() for a in planes), out.data_ptr(), h, w, nd, max_arm, s2, s3,
-        kernels.stream_of(out))
+    rc = kernels.lib("vvdm").stm_vv_dm(
+        vol.data_ptr(), *(a.data_ptr() for a in planes), out.data_ptr(), h,
+        w, nd, max_arm, s2, s3, kernels.stream_of(out))
     kernels.check_launch(rc, "vv_dm")
     vv_dm.launches += 1
     return out

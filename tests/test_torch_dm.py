@@ -211,6 +211,36 @@ def test_dm_passes_match_the_lane_major_passes(h, w, usd, border_limited):
             disp[e], tband.h_pass_wta(a2, arms[LEFT], arms[RIGHT], 3, usd))
 
 
+@pytest.mark.parametrize("usd", [0, 34, 64])
+def test_vv_dm_at_its_edges_matches_jax_and_vv_pass(usd):
+    """Kernel B18b's edges on the CPU: 37 rows (fewer than its rings hold
+    at usd 34), W = 1001 (odd: the kernel loads element by element, not
+    by cp.async), reach 0 (rings of S + 1 slots) and 64.  The aggregation
+    through `vv_dm` bit-equal to the JAX
+    package's `band_aggregate_q_dm`, and `vv_dm` itself to the lane-major
+    `vv_pass` of each eye."""
+    h, w = 37, 1001
+    cost2, arms_l, arms_r, nd = _dm_case(h, w, usd, 1000 + usd)
+    zd = 3
+    ref = jband.band_aggregate_q_dm(
+        jnp.asarray(cost2), jnp.asarray(arms_l), jnp.asarray(arms_r),
+        num_disp=nd, zero_disp=zd, max_arm=usd, interpret=True)
+    got = tband.band_aggregate_q_dm(_t(cost2), _t(arms_l), _t(arms_r),
+                                    num_disp=nd, zero_disp=zd, max_arm=usd)
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(_np(a), _np(b))
+    _, s2, s3 = tband.agg_rescale_shifts(usd, 2)
+    p1 = tband.pass1_dm(_t(cost2), _t(arms_l), _t(arms_r), usd)
+    vv = tband.vv_dm(p1, _t(arms_l), _t(arms_r), s2, s3, usd)
+    for e, arms in enumerate((_t(arms_l), _t(arms_r))):
+        sl = slice(e * nd, (e + 1) * nd)
+        lane = p1[sl].permute(1, 2, 0).to(torch.int32).contiguous()
+        a2 = tband.vv_pass(lane, arms[UP], arms[DOWN], s2, s3, usd)
+        assert torch.equal(vv[sl].permute(1, 2, 0).to(torch.int32), a2)
+    if usd:
+        assert int(vv.max()) > 0
+
+
 def test_pass4_wta_dm_takes_the_first_minimum():
     """A flat volume: every d ties at every pixel, so the argmin is 0."""
     nd, h, w, usd = 6, 9, 21, 5

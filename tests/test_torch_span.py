@@ -133,6 +133,110 @@ def test_span_sum_plain_is_the_ascending_window_sum():
                 np.testing.assert_array_equal(got, want)
 
 
+def _edge_arms(rng, h, w, max_arm):
+    """Arms in [0, max_arm] that stop at the border, as the JAX kernel
+    needs (RIGHT and DOWN may reach it)."""
+    x = np.arange(w)[None, :].repeat(h, 0)
+    y = np.arange(h)[:, None].repeat(w, 1)
+    return np.stack([
+        np.minimum(rng.integers(0, max_arm + 1, (h, w)), y),
+        np.minimum(rng.integers(0, max_arm + 1, (h, w)), h - 1 - y),
+        np.minimum(rng.integers(0, max_arm + 1, (h, w)), x),
+        np.minimum(rng.integers(0, max_arm + 1, (h, w)), w - x),
+    ]).astype(np.int32)
+
+
+# (h, w, d, max_arm): the shapes where kernel B15's tiles, windows and
+# lanes meet their edges (chip_smoke.py's SPAN_EDGES): max_arm 0 and 64,
+# lines shorter than one window (W, H < 2 * max_arm), and D = 1, 30 and
+# 130, no multiple of a block's 32 d
+SPAN_EDGE_SHAPES = [(14, 50, 3, 0), (20, 90, 2, 64), (12, 40, 3, 64),
+                    (18, 70, 1, 9), (16, 60, 30, 9), (10, 36, 130, 5)]
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("h,w,d,max_arm", SPAN_EDGE_SHAPES)
+def test_span_sum_exact_at_the_kernel_edges(h, w, d, max_arm, axis):
+    """nsplit=1 on small integers, where the JAX kernel is exact: bit-equal
+    to it at the edge shapes, inclusive and half-open."""
+    rng = np.random.default_rng(47 + h + d + max_arm)
+    v = rng.integers(0, 200, (h, w, d)).astype(np.float32)
+    arms = _edge_arms(rng, h, w, max_arm)
+    for inclusive in (False, True):
+        ref, got = _both(v, arms, axis, inclusive, 1, max_arm)
+        np.testing.assert_array_equal(ref, got)
+
+
+def _nonfinite_volume(rng, h, w, d):
+    """Mixed signs with +-inf, NaN, a block of -0.0 and runs of 1e8, 1,
+    -1e8 along both axes, whose float32 sum depends on the order."""
+    v = rng.standard_normal((h, w, d)).astype(np.float32)
+    pick = rng.random((h, w, d))
+    v[pick < 0.01] = np.inf
+    v[(pick >= 0.01) & (pick < 0.02)] = -np.inf
+    v[(pick >= 0.02) & (pick < 0.03)] = np.nan
+    for k, val in enumerate((1e8, 1.0, -1e8)):
+        v[0::5, k:w - 2 + k:7] = val
+        v[k:h - 2 + k:6, 3::7] = val
+    v[4:10, 8:16] = -0.0
+    return v
+
+
+def test_span_sum_is_the_ascending_sum_on_non_finite_volumes():
+    """The contract kernel B15 holds on the card, against a NumPy sum from
+    +0.0 in ascending position order of the JAX package's own bf16 terms:
+    bit for bit (NaN where it has NaN, the sign of a zero included), on
+    infinities, NaN, -0.0 (+0.0 + -0.0 = +0.0) and cancelling magnitudes
+    (1e8 + 1 - 1e8 = 0 in float32, not 1), every nsplit, both axes."""
+    rng = np.random.default_rng(48)
+    h, w, d, max_arm = 14, 30, 4, 6
+    vol = _nonfinite_volume(rng, h, w, d)
+    neg = rng.integers(-2, max_arm + 3, (h, w)).astype(np.int32)
+    pos = rng.integers(-2, max_arm + 3, (h, w)).astype(np.int32)
+    neg[4:10, 8:16] = rng.integers(0, 3, (6, 8))
+    pos[4:10, 8:16] = rng.integers(0, 3, (6, 8))
+    with np.errstate(invalid="ignore", over="ignore"):
+        parts = [np.asarray(p).astype(np.float32)
+                 for p, _ in jband._terms(jnp.asarray(vol), "float", 3)]
+    seen = set()
+    for nsplit in (1, 2, 3):
+        t = parts[0]
+        with np.errstate(invalid="ignore"):
+            for p in parts[1:nsplit]:
+                t = t + p
+        for axis in (0, 1):
+            for inclusive in (False, True):
+                want = np.zeros_like(vol)
+                n = vol.shape[axis]
+                with np.errstate(invalid="ignore"):
+                    for y in range(h):
+                        for x in range(w):
+                            p = (y, x)[axis]
+                            an = min(max(neg[y, x], 0), max_arm)
+                            ap = min(max(pos[y, x], 0), max_arm)
+                            acc = np.zeros(d, np.float32)
+                            for j in range(max(p - an, 0),
+                                           min(p + ap + inclusive, n)):
+                                acc = acc + (t[j, x] if axis == 0
+                                             else t[y, j])
+                            want[y, x] = acc
+                fn = (tband.band_span_sum_v if axis == 0
+                      else tband.band_span_sum_h)
+                got = fn(_t(vol), _t(neg), _t(pos), inclusive, nsplit,
+                         max_arm).numpy()
+                nan = np.isnan(want)
+                np.testing.assert_array_equal(np.isnan(got), nan)
+                np.testing.assert_array_equal(got.view(np.int32)[~nan],
+                                              want.view(np.int32)[~nan])
+                block = want[5:9, 10:14]
+                seen |= {k for k, hit in (
+                    ("nan", nan.any()), ("inf", np.isinf(want).any()),
+                    ("+0.0", ((block == 0) & ~np.signbit(block)).any()))
+                    if hit}
+    # the volume holds what the test is about
+    assert seen == {"nan", "inf", "+0.0"}
+
+
 def test_split_bf16_terms_matches_jax_terms():
     """hi, mid, lo: successive bf16 remainders, the JAX package's `_terms`
     in mode float, recombined (hi + mid) + lo."""
