@@ -78,7 +78,10 @@
    one past their bound, and a volume of +-inf, NaN, -0.0 and cancelling
    magnitudes (bit for bit, a zero's sign included); B18b at reach 0 and
    64, on 37 rows, at D = 30 and on inputs whose rescaled pass-2 sums
-   pass the int16 ceiling.
+   pass the int16 ceiling; B18a and B18c at reach 0 and 64, on 37 rows,
+   at W = 1, 15, 17 and 1001, at D = 30 on unaligned and aligned rows and
+   at D = 261, on a volume whose base is one element off 16 bytes, and
+   B18c on window sums past 2^21 and on tied planes.
 3. Drives the paths on SBS frames built from tests/data/bud_{2,3}.bmp:
    `process_frame` at HD1080_D128 (the main path), at
    HD1080_D128_HSLO_4K (scanline optimisation, median, 1080p views
@@ -154,7 +157,7 @@ edges, and each preset path's interlaced frame against the
 plain chain.  `--band-checks [--package-root DIR]` does the same for B15
 (its path shapes and edges, `dr_irv_band_lr` as a path) and the
 disparity-major core (B16, B18a-c at 1080p, a 680-row chunk, 200x1001
-and a 4K chunk, B18b's edges, `band_stereo_core_dm` as paths).
+and a 4K chunk, B18a-c's edges, `band_stereo_core_dm` as paths).
 `--runtime-checks` runs phase 5 alone, `--shard-checks` phase 6 alone.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
@@ -462,6 +465,25 @@ VDM_EDGES = (" (200x1001, reach 0)", " (200x1001, reach 64)", " (37x1001)",
 for _suffix in VDM_EDGES:
     KERNELS["B18b vv_dm (passes 2+3)" + _suffix] = KERNELS[
         "B18b vv_dm (passes 2+3)"]
+# B18a and B18c where their segments, lanes and loads meet their edges:
+# reach 0 and 64 (a left halo of 0 and 64 columns), 37 rows, W = 1, 15 and
+# 17 (fewer columns than a segment) and 1001 (rows not aligned for 16-byte
+# loads), D = 30 (plane groups that do not fill a block) on unaligned and
+# on aligned rows, D = 261 (B18a: a last step of one plane; B18c: 64-bit
+# keys), a volume whose base is one element off 16 bytes, arms drawn from
+# -2 to 5 past the reach to test the clamp; for B18c also inputs of
+# 30000..32767 under arms of 64 (window sums past 2^21) and tied planes
+HDM_EDGES = (" (200x1001, reach 0)", " (200x1001, reach 64)", " (37x1001)",
+             " (37x1, W=1)", " (37x15, W=15)", " (37x17, W=17)",
+             " (200x1001, D=30)", " (200x1920, D=30)", " (37x1001, D=261)",
+             " (200x1920, base one element off)")
+HDM_C_EDGES = (" (200x1001, sums past 2^21)", " (200x1920, sums past 2^21)",
+               " (200x1001, tied planes)")
+for _suffix in HDM_EDGES:
+    for _name in ("B18a pass1_dm", "B18c pass4_wta_dm"):
+        KERNELS[_name + _suffix] = KERNELS[_name]
+for _suffix in HDM_C_EDGES:
+    KERNELS["B18c pass4_wta_dm" + _suffix] = KERNELS["B18c pass4_wta_dm"]
 # the entry points the JAX package's tests and scripts drive beside
 # process_frame: B15 under dr_irv_band_lr, B16's one-eye modes and B17
 # under ci_adcensus_kern(shift_extract=True), B19/B20 under the row-major
@@ -2487,6 +2509,88 @@ def check_vdm_edges(chk, nd: int, dev):
           f"pass-2 sums pass 32767 and wrap", flush=True)
 
 
+def check_hdm_edges(chk, nd: int, dev):
+    """B18a's and B18c's edge entries (`HDM_EDGES`, `HDM_C_EDGES`) on
+    (2D, H, W) volumes and arms drawn here: u8 costs for B18a; for B18c,
+    values in the range passes 2+3 give them (at the sums entries
+    30000..32767 under arms of 64), arms drawn from -2 to 5 past the
+    reach."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band
+
+    gen = torch.Generator(device=dev).manual_seed(1816)
+
+    def draw(h, w, planes, reach, lo, hi, dtype, offset, arm_lo):
+        n = 2 * planes * h * w
+        flat = torch.randint(lo, hi, (n + offset,), generator=gen,
+                             device=dev, dtype=dtype)
+        vol = flat[offset:].view(2 * planes, h, w)
+        arms = [torch.randint(arm_lo, reach + 6, (4, h, w), generator=gen,
+                              device=dev, dtype=torch.int32)
+                for _ in range(2)]
+        return vol, arms
+
+    def entry(suffix, h, w, planes, reach, offset=0):
+        hw, vol2 = h * w, 2 * planes * h * w
+        chk.suffix = suffix
+        vol, arms = draw(h, w, planes, reach, 0, 256, torch.uint8, offset,
+                         -2)
+        chk.record("B18a pass1_dm", band.pass1_dm(vol, *arms, reach),
+                   band.pass1_dm_plain(vol, *arms, reach),
+                   lambda: band.pass1_dm(vol, *arms, reach),
+                   lambda: band.pass1_dm_plain(vol, *arms, reach),
+                   nbytes=vol2 + 4 * hw * 4 + vol2 * 2, ops=3 * vol2)
+        vol, arms = draw(h, w, planes, reach, 0, 17_300, torch.int16, offset,
+                         -2)
+        wta(vol, arms, reach)
+        chk.suffix = ""
+
+    def wta(vol, arms, reach, zd=3):
+        h, w = vol.shape[1:]
+        hw, vol2 = h * w, vol.numel()
+        chk.record("B18c pass4_wta_dm", band.pass4_wta_dm(vol, *arms, zd,
+                                                          reach),
+                   band.pass4_wta_dm_plain(vol, *arms, zd, reach),
+                   lambda: band.pass4_wta_dm(vol, *arms, zd, reach),
+                   lambda: band.pass4_wta_dm_plain(vol, *arms, zd, reach),
+                   nbytes=vol2 * 2 + 4 * hw * 4 + 2 * hw * 4, ops=3 * vol2)
+
+    entry(" (200x1001, reach 0)", 200, 1001, nd, 0)
+    entry(" (200x1001, reach 64)", 200, 1001, nd, 64)
+    entry(" (37x1001)", 37, 1001, nd, 34)
+    entry(" (37x1, W=1)", 37, 1, nd, 34)
+    entry(" (37x15, W=15)", 37, 15, nd, 34)
+    entry(" (37x17, W=17)", 37, 17, nd, 34)
+    entry(" (200x1001, D=30)", 200, 1001, 30, 34)
+    entry(" (200x1920, D=30)", 200, 1920, 30, 34)
+    entry(" (37x1001, D=261)", 37, 1001, 261, 34)
+    entry(" (200x1920, base one element off)", 200, 1920, nd, 34, offset=1)
+    for suffix, w in ((" (200x1001, sums past 2^21)", 1001),
+                      (" (200x1920, sums past 2^21)", 1920)):
+        vol, arms = draw(200, w, nd, 64, 30000, 32768, torch.int16, 0, 64)
+        chk.suffix = suffix
+        wta(vol, arms, 64)
+        chk.suffix = ""
+        top = int(band._span_dm(vol[:nd], arms[0][2], arms[0][3], 2,
+                                64).max())
+        if top < 1 << 21:
+            raise SmokeFailure(f"B18c{suffix}: the largest window sum "
+                               f"{top} does not pass 2^21")
+        print(f"  B18c{suffix}: window sums up to {top}", flush=True)
+    # ties: few levels, and a block where every plane is equal (the first
+    # minimum there is d=0)
+    vol, arms = draw(200, 1001, nd, 34, 0, 4, torch.int16, 0, -2)
+    vol[:, 50:150, 200:800] = 2
+    chk.suffix = " (200x1001, tied planes)"
+    wta(vol, arms, 34)
+    chk.suffix = ""
+    got = band.pass4_wta_dm(vol, *arms, 3, 34)[0][50 + 34:150 - 34,
+                                                  200 + 34:800 - 34]
+    if not bool((got == -3).all()):
+        raise SmokeFailure("B18c tied planes (200x1001): a block of equal "
+                           "planes must give the first disparity")
+
+
 def run_dm_core(name, img_l, img_r, arms_l, arms_r, cfg):
     """The disparity-major core as a path: launch counts zeroed just
     before one call of `band_stereo_core_dm` and read just after; the
@@ -4093,11 +4197,11 @@ def synth_checks(root: str) -> int:
 
 
 def band_checks(root: str) -> int:
-    """`--band-checks [--package-root DIR]`: only B15 and B18b (and what
-    feeds them), on the package under DIR: B15 on the 1080p frame's
+    """`--band-checks [--package-root DIR]`: only B15 and B18a-c (and
+    what feeds them), on the package under DIR: B15 on the 1080p frame's
     stacked one-hot and float volumes and at its edges, `dr_irv_band_lr`
     as a path; B16 and B18a-c on the 1080p frame, a 680-row chunk, a
-    200x1001 crop and a 680x3840 chunk of the 4K frame, B18b at its
+    200x1001 crop and a 680x3840 chunk of the 4K frame, B18a-c at their
     edges, `band_stereo_core_dm` whole-frame, in 540-row chunks and at
     4K as paths.  The way to time two commits' kernels in turns.  Exit 1
     if one fails."""
@@ -4139,6 +4243,7 @@ def band_checks(root: str) -> int:
         chk.suffix = ""
         del odd_l, odd_r
         check_vdm_edges(chk, cfg.num_disp, dev)
+        check_hdm_edges(chk, cfg.num_disp, dev)
         torch.cuda.empty_cache()
         cfg2 = cfg.replace(band_digits=2)
         paths[DM] = run_dm_core(DM, img_l, img_r, arms_l, arms_r, cfg2)
@@ -4229,10 +4334,11 @@ def main() -> int:
                          "the presets' interlaced frames against their "
                          "plain versions and print no result line")
     ap.add_argument("--band-checks", action="store_true",
-                    help="only hold B15 and B18b (and the disparity-major "
-                         "core's other kernels) against their plain "
-                         "versions, drive dr_irv_band_lr and "
-                         "band_stereo_core_dm, and print no result line")
+                    help="only hold B15 and B18a-c (the disparity-major "
+                         "core's kernels, B18a-c at their edges too) "
+                         "against their plain versions, drive "
+                         "dr_irv_band_lr and band_stereo_core_dm, and "
+                         "print no result line")
     ap.add_argument("--runtime-checks", action="store_true",
                     help="only run the stream driver, the XLA engine and "
                          "the apps (phase 5) and print no result line")
@@ -4361,6 +4467,7 @@ def main() -> int:
         chk.suffix = ""
         del odd_l, odd_r
         check_vdm_edges(chk, cfg.num_disp, dev)
+        check_hdm_edges(chk, cfg.num_disp, dev)
         torch.cuda.empty_cache()
         cfg2 = cfg.replace(band_digits=2)
         paths[DM] = run_dm_core(DM, img_l, img_r, arms_l, arms_r, cfg2)

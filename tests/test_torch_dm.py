@@ -241,6 +241,41 @@ def test_vv_dm_at_its_edges_matches_jax_and_vv_pass(usd):
         assert int(vv.max()) > 0
 
 
+@pytest.mark.parametrize("usd", [0, 64])
+def test_h_dm_at_its_edges_matches_jax_and_h_pass(usd):
+    """Kernels B18a and B18c's edges on the CPU: W = 1001 (two segments,
+    rows not aligned for 16-byte loads), reach 0 (no halo) and 64 (a left
+    halo of 64 columns), arms drawn past [0, reach].  The aggregation
+    through `pass1_dm` and `pass4_wta_dm` bit-equal to the JAX package's
+    `band_aggregate_q_dm`, and each pass to the lane-major `h_pass_sum`
+    and `h_pass_wta` of each eye."""
+    h, w = 13, 1001
+    cost2, arms_l, arms_r, nd = _dm_case(h, w, usd, 2000 + usd)
+    zd = 3
+    ref = jband.band_aggregate_q_dm(
+        jnp.asarray(cost2), jnp.asarray(arms_l), jnp.asarray(arms_r),
+        num_disp=nd, zero_disp=zd, max_arm=usd, interpret=True)
+    got = tband.band_aggregate_q_dm(_t(cost2), _t(arms_l), _t(arms_r),
+                                    num_disp=nd, zero_disp=zd, max_arm=usd)
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(_np(a), _np(b))
+    _, s2, s3 = tband.agg_rescale_shifts(usd, 2)
+    p1 = tband.pass1_dm(_t(cost2), _t(arms_l), _t(arms_r), usd)
+    vv = tband.vv_dm(p1, _t(arms_l), _t(arms_r), s2, s3, usd)
+    disp = tband.pass4_wta_dm(vv, _t(arms_l), _t(arms_r), zd, usd)
+    for e, (cost, arms) in enumerate(zip(_lane_major(cost2, nd),
+                                         (_t(arms_l), _t(arms_r)))):
+        sl = slice(e * nd, (e + 1) * nd)
+        a1 = tband.h_pass_sum(cost, arms[LEFT], arms[RIGHT], 0, usd)
+        assert torch.equal(p1[sl].permute(1, 2, 0).to(torch.int32), a1)
+        lane = vv[sl].permute(1, 2, 0).to(torch.int32).contiguous()
+        assert torch.equal(
+            disp[e], tband.h_pass_wta(lane, arms[LEFT], arms[RIGHT], zd,
+                                      usd))
+    if usd:
+        assert int(p1.max()) > 0 and float(disp[0].std()) > 0
+
+
 def test_pass4_wta_dm_takes_the_first_minimum():
     """A flat volume: every d ties at every pixel, so the argmin is 0."""
     nd, h, w, usd = 6, 9, 21, 5
