@@ -64,7 +64,8 @@
    `dr_irv` (B8/B9); `dibr_warp_views_kern` (B19) equal to
    `dibr_warp_pair_kern` (B20) view by view and to B14; and
    `ci_adcensus_kern(shift_extract=True)` (B16's one-eye modes, B17)
-   equal to shift_extract=False, u8 and float32; and
+   equal to shift_extract=False, u8 and float32 (B16 twice: the left eye,
+   then both border strips in one launch); and
    `ci_adcensus_kern_xm` (B2's pair and B3, or B2 once an eye) with the
    shear equal to without, u8, int16 and float32; `synthesize_views`
    (B12's view stack), whose stack interlaced by the torch
@@ -81,7 +82,16 @@
    pass the int16 ceiling; B18a and B18c at reach 0 and 64, on 37 rows,
    at W = 1, 15, 17 and 1001, at D = 30 on unaligned and aligned rows and
    at D = 261, on a volume whose base is one element off 16 bytes, and
-   B18c on window sums past 2^21 and on tied planes.
+   B18c on window sums past 2^21 and on tied planes.  B16, which computes
+   the census of its row range itself, on the first and last 540-row
+   chunks of the 1080p frame and the 4K frame's third chunk, at W = 1,
+   15, 17 and 1001, D = 30, D = 256 at zd = 128 and zd = 0, in float32 on
+   a chunk, and its two right-eye strips in one launch at M = 1 and 64.
+   B12's view stack (every view in one launch) with 3, 16 and 38 views,
+   at 4K with 14, on 37x1001, 37x1 and 37x17 crops, on masks and a
+   feather outside [0, 1], and into a view stack whose middle views are
+   not 16-byte aligned; `synthesize_views` with 40 views (B12 once) and
+   with 2 (no B12).
 3. Drives the paths on SBS frames built from tests/data/bud_{2,3}.bmp:
    `process_frame` at HD1080_D128 (the main path), at
    HD1080_D128_HSLO_4K (scanline optimisation, median, 1080p views
@@ -157,7 +167,12 @@ edges, and each preset path's interlaced frame against the
 plain chain.  `--band-checks [--package-root DIR]` does the same for B15
 (its path shapes and edges, `dr_irv_band_lr` as a path) and the
 disparity-major core (B16, B18a-c at 1080p, a 680-row chunk, 200x1001
-and a 4K chunk, B18a-c's edges, `band_stereo_core_dm` as paths).
+and a 4K chunk, B16's one-eye modes and edges, B18a-c's edges,
+`band_stereo_core_dm` as paths), then prints `ci_adcensus_kern` (u8,
+float32) and `band_stereo_core_dm` (1080p whole and in 540-row chunks,
+4K) split by CUDA events into the torch census (a package whose B16
+takes census codes), B16, B18a-c, the chunks' glue and the relayout
+copies.
 `--runtime-checks` runs phase 5 alone, `--shard-checks` phase 6 alone.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
@@ -166,6 +181,7 @@ Exits non-zero, printing no result, without a CUDA device or when any
 phase fails.  Detailed results also go to out/chip_smoke.json.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -322,11 +338,29 @@ G1_EDGES = {" (r=0)": 0, " (r=1)": 1, " (37x15 crop, r=10)": 10,
             " (200x1001, r=70: two launches)": 70}
 for _suffix in G1_EDGES:
     KERNELS["G1 dibr_feather" + _suffix] = KERNELS["G1 dibr_feather"]
+# B12's view stack (one launch for every view, rows staged, 16-byte
+# stores) where its segments, view loop and stores meet their edges: one
+# and 14 intermediate views on the 1080p frame, a 37x1001 crop (rows of
+# 3003 bytes: no multiple of 16), W = 1 and 17, masks and a feather
+# outside [0, 1] (the exact merge), the crop's views written in place
+# into a view stack, whose middle views start 7 bytes past a 16-byte
+# boundary, and rows of 40320 pixels (two rows of 121 KB: the gathers read
+# device memory)
+B12V = "B12 warp_merge_views"
+B12V_EDGES = (" (num_views 3: one view)", " (num_views 16: 14 views)",
+              " (37x1001 crop, 6 views)", " (37x1, W=1)", " (37x17, W=17)",
+              " (37x1001, masks and feather outside [0, 1]: the exact path)",
+              " (37x1001, into a view stack: base not 16-byte aligned)",
+              " (2x40320: rows wider than shared memory stages)")
+for _suffix in B12V_EDGES:
+    KERNELS[B12V + _suffix] = KERNELS[B12V]
 # the JAX-named entries that no process_frame path calls since the
 # synthesis became one kernel, each run as a path of its own on the
 # 1080p frame's stages: `synthesize_views` (B12's view stack) and
 # `warp_views` (B14)
 SYNTH_VIEWS = "synthesize_views HD1080_D128"
+SYNTH_VIEWS_40 = "synthesize_views HD1080_D128 num_views=40"
+SYNTH_VIEWS_2 = "synthesize_views HD1080_D128 num_views=2"
 WARP_VIEWS = "warp_views HD1080_D128"
 for _name in [n for n in KERNELS if n.startswith("B12 warp_merge_views")]:
     KERNELS[_name] = (*KERNELS[_name][:3], SYNTH_VIEWS)
@@ -454,6 +488,24 @@ for _suffix, _path in ((AT_CHUNK, DM_CHUNKED), (AT_ODD, DM), (AT_4K, DM_4K)):
         for name, (wrapper, source, replaces, path) in DM_KERNELS.items()
         if name in ("B16 cost_dm (stacked u8)", "B18a pass1_dm",
                     "B18b vv_dm (passes 2+3)", "B18c pass4_wta_dm")})
+# B16, which computes the census of its row range itself, where its
+# staged rows, lanes, rings and stores meet their edges: the last 540-row
+# chunk of the 1080p frame and the 4K frame's third chunk (census rows
+# outside the range, clamped at the frame's edges only), 37 rows at W =
+# 1, 15 and 17 (one partial group of 16 columns), D = 30 (one partial
+# group of 32 planes), D = 256 at zd = 128 (the widest reach both ways),
+# zd = 0 (a reach to one side), float32 on a chunk, and the right-eye
+# strips at M = 1 (one column a side: scalar stores)
+B16 = "B16 cost_dm (stacked u8)"
+B16_EDGES = (" (1080p frame rows 400-1079: the last 540-row chunk)",
+             " (37x1, W=1)", " (37x15, W=15)", " (37x17, W=17)",
+             " (200x1001, D=30)", " (200x1001, D=256, zd=128)",
+             " (200x1001, zd=0)", " (float32, 680-row chunk)")
+for _suffix in B16_EDGES:
+    KERNELS[B16 + _suffix] = KERNELS[B16]
+KERNELS[B16 + B2_CHUNK4K] = (*KERNELS[B16][:3], DM_4K)
+B16_STRIPS = "B16 cost_dm (right-eye strips u8, one launch)"
+B16_M1 = " (1080p, M=1: one column a side)"
 # B18b where its streams, rings and batches meet their edges: reach 0
 # (rings of two slots) and 64, 37 rows (fewer than a ring holds), D = 30
 # (plane groups that do not fill a block), and inputs whose rescaled
@@ -514,8 +566,11 @@ SHIFT_KERNELS = {
     "B17 shear_right_dm (float32)": ("shear_right_dm", _SRC + "shear_dm.cu",
                                      _TPU + "costkern.py:147", SHIFT_X_F32),
 }
+SHIFT_KERNELS[B16_STRIPS] = (
+    "cost_dm", _SRC + "cost_dm.cu", _TPU + "costkern.py:57", SHIFT_X)
 KERNELS.update(SPAN_KERNELS)
 KERNELS.update(SHIFT_KERNELS)
+KERNELS[B16_STRIPS + B16_M1] = KERNELS[B16_STRIPS]
 for _name in ("B15 band_span_sum_h (float, nsplit=3)",
               "B15 band_span_sum_v (float, nsplit=3)", *SHIFT_KERNELS):
     KERNELS[_name + AT_ODD] = KERNELS[_name]
@@ -2089,6 +2144,61 @@ def check_synth_kernels(chk, img_l, img_r, bl, br, cfg, b14=True):
     return mask_l, mask_r, feathered
 
 
+def check_view_stack_edges(chk, img_l, img_r, bl, br, masks, cfg):
+    """B12's view stack at its edges (`B12V_EDGES`) on the 1080p frame's
+    stages (`masks` from `check_synth_kernels`): 3 and 16 views, crops of
+    37x1001, 37x1 and 37x17, masks and a feather outside [0, 1], the
+    crop's views written into a view stack's middle views in place (a
+    package without `out=` copies its result there), and two rows tiled
+    21 times across (40320 columns)."""
+    import inspect
+    import torch
+    from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
+    from stereo_to_multiview_tpu_torch.ops import dibr
+
+    margs = (img_l, img_r, bl, br, *masks)
+    y0 = img_l.shape[0] // 2
+
+    def crop(rows, cols):
+        return tuple(t[y0:y0 + rows, :cols].contiguous() for t in margs)
+
+    def rec(suffix, args, nviews, kern=None):
+        wargs = (*args, _synth_shifts(nviews))
+        hw = args[0].shape[0] * args[0].shape[1]
+        kern = kern or (lambda: dibr.warp_merge_views(*wargs))
+        ref = dibr.warp_merge_views_plain(*wargs)
+        chk.record(B12V + suffix, kern(), ref, kern,
+                   lambda: dibr.warp_merge_views_plain(*wargs),
+                   nbytes=2 * hw * 3 + 5 * hw * 4 + ref.numel(),
+                   ops=ref.numel() * 20)
+
+    v = cfg.num_views
+    rec(B12V_EDGES[0], margs, 3)
+    rec(B12V_EDGES[1], margs, 16)
+    c37 = crop(37, 1001)
+    rec(B12V_EDGES[2], c37, v)
+    rec(B12V_EDGES[3], crop(37, 1), v)
+    rec(B12V_EDGES[4], crop(37, 17), v)
+    # masks of 0 and 1.5, a feather in [-0.25, 1.25]
+    rec(B12V_EDGES[5], (*c37[:4], c37[4] * 1.5, c37[5], c37[6] * 1.5 - 0.25),
+        v)
+    stack = torch.empty((v, *c37[0].shape), dtype=torch.uint8,
+                        device=img_l.device)
+    mids = stack[1:-1]
+    if c37[0].shape[:2] == (37, 1001) and mids.data_ptr() % 16 == 0:
+        raise SmokeFailure("B12: the 37x1001 stack's middle views are "
+                           "16-byte aligned")
+    wargs = (*c37, _synth_shifts(v))
+    if "out" in inspect.signature(dibr.warp_merge_views).parameters:
+        kern = lambda: dibr.warp_merge_views(*wargs, out=mids)
+    else:
+        kern = lambda: mids.copy_(dibr.warp_merge_views(*wargs))
+    rec(B12V_EDGES[6], c37, v, kern)
+    wide = tuple(t[y0:y0 + 2].repeat(1, 21, *[1] * (t.dim() - 2))
+                 .contiguous() for t in margs)
+    rec(B12V_EDGES[7], wide, v)
+
+
 def check_synth_edges(chk, img_l, img_r, bl, br, masks, cfg):
     """B12's interlace mode and G1 beyond the 1080p main path's own
     shapes, on its frame's stages (`masks` from `check_synth_kernels`):
@@ -2375,35 +2485,86 @@ def run_xm_entry(img_l, img_r, cfg):
     return res
 
 
-def check_dm_kernels(chk, img_l, img_r, arms_l, arms_r, cfg, full=True):
-    """B16 and B18a-c on both eyes of a frame (or of a row chunk's
-    extent): the stacked u8 cost and the three passes; with `full`, also
-    the row-major pairs (u8 and float32) and pass 4 once more on a volume
-    of tied planes."""
-    import torch
-    from stereo_to_multiview_tpu_torch.ops import band, costkern
+def dm_cost_fns(costkern, img_l, img_r):
+    """(kern, plain): B16 and its plain version on the two images of a
+    whole frame, called as (ad_coeff, census_coeff, D, zd, quant=True,
+    eyes="lr", rows=None, cols=None, out=None), the interface of
+    `cost_dm` since its census moved into the kernel (the right eye's one
+    or two column ranges written into `out`).  For an older package whose
+    `cost_dm` takes census codes, the frame's census is computed here
+    once, beforehand (untimed), and handed over sliced to the rows, and
+    each column range is one launch copied into place: the way
+    `--band-checks --package-root` times the parent's kernels."""
+    import inspect
+    if "cen_l" not in inspect.signature(costkern.cost_dm).parameters:
+        return (functools.partial(costkern.cost_dm, img_l, img_r),
+                functools.partial(costkern.cost_dm_plain, img_l, img_r))
     from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
     from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+    cens = [census_transform_9x7(mux_average(t)) for t in (img_l, img_r)]
 
-    h, w = img_l.shape[:2]
+    def adapt(fn):
+        def call(ad, cen, nd, zd, quant=True, eyes="lr", rows=None,
+                 cols=None, out=None):
+            start, count = rows or (0, img_l.shape[0])
+            sl = slice(start, start + count)
+            args = (img_l[sl], img_r[sl], cens[0][sl], cens[1][sl], ad,
+                    cen, nd, zd, quant)
+            if eyes != "r":
+                return fn(*args, eyes=eyes)
+            for x0, x1 in cols:
+                out[:, :, x0:x1] = fn(*args, eyes="r", cols=(x0, x1))
+            return out
+        return call
+    return adapt(costkern.cost_dm), adapt(costkern.ci_adcensus_stacked_plain)
+
+
+def census_rows_read(h: int, rows) -> int:
+    """The frame rows a row range's census reads: 3 either side, clamped
+    to the frame."""
+    start, count = rows or (0, h)
+    return min(h, start + count + 3) - max(0, start - 3)
+
+
+def record_dm_cost(chk, name, kern, plain, args, h, w, nd, quant=True,
+                   rows=None):
+    """One B16 entry of the stacked mode over a row range: bytes the
+    images' rows the census reads (once) and the volume written."""
+    count = rows[1] if rows else h
+    kw = dict(quant=quant, rows=rows)
+    vol2 = 2 * count * w * nd
+    got = kern(*args, **kw)
+    # per element: 3 abs-diffs, 2 xor + popcount, index, lookup
+    chk.record(name, got, plain(*args, **kw), lambda: kern(*args, **kw),
+               lambda: plain(*args, **kw),
+               nbytes=2 * census_rows_read(h, rows) * w * 3
+               + (766 * 49 if quant else 815 * 4) + vol2 * (1 if quant
+                                                            else 4),
+               ops=10 * vol2)
+    return got
+
+
+def check_dm_kernels(chk, img_l, img_r, arms_l, arms_r, cfg, full=True,
+                     rows=None):
+    """B16 and B18a-c on both eyes of a frame (or of a row chunk's
+    extent, rows=(start, count) of the frame, `arms_*` those rows'): the
+    stacked u8 cost and the three passes; with `full`, also the row-major
+    pairs (u8 and float32) and pass 4 once more on a volume of tied
+    planes."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band, costkern
+
+    h, w = rows[1] if rows else img_l.shape[0], img_l.shape[1]
     nd, zd, usd = cfg.num_disp, cfg.zero_disp, cfg.usd
     hw, vol2 = h * w, 2 * h * w * nd          # elements of the (2D, H, W)
     coeffs = (cfg.ad_coeff, cfg.census_coeff, nd, zd)
-    cen_l = census_transform_9x7(mux_average(img_l))
-    cen_r = census_transform_9x7(mux_average(img_r))
-    in_bytes = 2 * hw * 3 + 2 * hw * 8
-    cargs = (img_l, img_r, cen_l, cen_r, *coeffs)
-    cost2 = costkern.cost_dm(*cargs)
-    # per element: 3 abs-diffs, 2 xor + popcount, index, lookup
-    chk.record("B16 cost_dm (stacked u8)", cost2,
-               costkern.ci_adcensus_stacked_plain(*cargs),
-               lambda: costkern.cost_dm(*cargs),
-               lambda: costkern.ci_adcensus_stacked_plain(*cargs),
-               nbytes=in_bytes + 766 * 49 + vol2, ops=10 * vol2)
+    kern, plain = dm_cost_fns(costkern, img_l, img_r)
+    cost2 = record_dm_cost(chk, "B16 cost_dm (stacked u8)", kern, plain,
+                           coeffs, img_l.shape[0], w, nd, rows=rows)
     if full:
 
         def pair_plain(quant):
-            v = costkern.ci_adcensus_stacked_plain(*cargs, quant)
+            v = plain(*coeffs, quant)
             return (v[:nd].permute(1, 2, 0).contiguous(),
                     v[nd:].permute(1, 2, 0).contiguous())
 
@@ -2931,49 +3092,36 @@ def check_irv_band(chk, dl, dr, labels, arms_l, arms_r, cfg):
 
 
 def check_shift_extract(chk, img_l, img_r, cfg):
-    """B16's left-eye and right-strip modes and B17 (u8 and float32) on a
-    frame's pair."""
+    """B16's left-eye and right-eye modes (one strip; both strips in one
+    launch, written into the sheared volume in place) and B17 (u8 and
+    float32) on a frame's pair."""
     import torch
     import torch.nn.functional as F
     from stereo_to_multiview_tpu_torch.ops import costkern
-    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
-    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
 
     h, w = img_l.shape[:2]
     nd, zd = cfg.num_disp, cfg.zero_disp
     hw, vol = h * w, h * w * nd
     m = costkern.pair_margin(nd, zd)
-    cargs = (img_l, img_r, census_transform_9x7(mux_average(img_l)),
-             census_transform_9x7(mux_average(img_r)), cfg.ad_coeff,
-             cfg.census_coeff, nd, zd)
-    in_bytes = 2 * hw * 3 + 2 * hw * 8
+    kern, plain = dm_cost_fns(costkern, img_l, img_r)
+    coeffs = (cfg.ad_coeff, cfg.census_coeff, nd, zd)
     x = torch.arange(w, device=img_l.device)[None, None, :]
     d = torch.arange(nd, device=img_l.device)[:, None, None]
     idx = (x + m - (d - zd)).expand(nd, h, w)
     for quant, label, size in ((True, "u8", 1), (False, "float32", 4)):
         kw = dict(quant=quant, eyes="l")
-        left = costkern.cost_dm(*cargs, **kw)
+        left = kern(*coeffs, **kw)
         chk.record(f"B16 cost_dm (left eye {label})", left,
-                   costkern.ci_adcensus_stacked_plain(*cargs, **kw),
-                   lambda: costkern.cost_dm(*cargs, **kw),
-                   lambda: costkern.ci_adcensus_stacked_plain(*cargs, **kw),
-                   nbytes=in_bytes + vol * size, ops=5 * vol)
-        if quant:
-            x0, x1 = w - m, w
-            kw = dict(quant=True, eyes="r", cols=(x0, x1))
-            strip = costkern.cost_dm(*cargs, **kw)
-            # the strip reads R's pixels and census over its own columns
-            # and L's over the columns x - (d - zd) reaches, d in [0, D)
-            l_cols = min(w, x1 + zd) - max(0, x0 - (nd - 1 - zd))
-            chk.record("B16 cost_dm (right-eye strip u8)", strip,
-                       costkern.ci_adcensus_stacked_plain(*cargs, **kw),
-                       lambda: costkern.cost_dm(*cargs, **kw),
-                       lambda: costkern.ci_adcensus_stacked_plain(*cargs,
-                                                                  **kw),
-                       nbytes=h * (x1 - x0 + l_cols) * (3 + 8)
-                       + strip.numel(), ops=5 * strip.numel())
-            del strip
+                   plain(*coeffs, **kw), lambda: kern(*coeffs, **kw),
+                   lambda: plain(*coeffs, **kw),
+                   nbytes=2 * hw * 3 + vol * size, ops=5 * vol)
         sheared = costkern.shear_right_dm(left, zd)
+        if quant:
+            for name, cols in (
+                    ("B16 cost_dm (right-eye strip u8)", ((w - m, w),)),
+                    (B16_STRIPS, ((0, m), (w - m, w)))):
+                record_strips(chk, name, kern, plain, coeffs, sheared, cols,
+                              nd, zd)
         # the library call: one gather from a zero-padded copy (made
         # beforehand) computes the same function
         padded = F.pad(left, (m, m))
@@ -2989,10 +3137,254 @@ def check_shift_extract(chk, img_l, img_r, cfg):
         torch.cuda.empty_cache()
 
 
+def record_strips(chk, name, kern, plain, coeffs, vol, cols, nd, zd):
+    """One B16 entry of the right-eye mode: `cols` of the (D, H, W) u8
+    volume `vol` written in place (on copies of it, every other column
+    kept), against the plain version, timed from a CUDA graph (device
+    time: the launch is shorter than its wrapper's host time); bytes: the
+    right eye's pixels over the strips and the left eye's over the
+    columns they reach (the census rows included: every row), and the
+    strips written."""
+    h, w = vol.shape[1:]
+    got, ref = vol.clone(), vol.clone()
+    kw = dict(quant=True, eyes="r", cols=cols)
+    kern(*coeffs, **kw, out=got)
+    plain(*coeffs, **kw, out=ref)
+    width = sum(x1 - x0 for x0, x1 in cols)
+    reach = sum(min(w, x1 + zd) - max(0, x0 - (nd - 1 - zd))
+                for x0, x1 in cols)
+    chk.record(name, got, ref, lambda: kern(*coeffs, **kw, out=got),
+               lambda: plain(*coeffs, **kw, out=ref),
+               nbytes=h * (width + reach) * 3 + h * width * nd,
+               ops=5 * h * width * nd, graph=True)
+
+
+def check_dm_edges(chk, img_l, img_r, cfg):
+    """B16 at its edges (`B16_EDGES` but the 4K chunk, and the strips at
+    M = 1) on the 1080p frame's pair and crops of it."""
+    import inspect
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band, costkern
+
+    h, w = img_l.shape[:2]
+    nd, zd = cfg.num_disp, cfg.zero_disp
+    ext, bounds = band.chunk_bounds(h, 540, 2 * cfg.usd)
+    last = (bounds[-1][0], ext)
+    if h == 1080 and last != (400, 680):
+        raise SmokeFailure(f"the 1080p frame's last 540-row chunk is rows "
+                           f"[{last[0]}, {last[0] + ext}), not [400, 1080)")
+    kern, plain = dm_cost_fns(costkern, img_l, img_r)
+    coeffs = (cfg.ad_coeff, cfg.census_coeff, nd, zd)
+    record_dm_cost(chk, B16 + B16_EDGES[0], kern, plain, coeffs, h, w, nd,
+                   rows=last)
+    record_dm_cost(chk, B16 + B16_EDGES[7], kern, plain, coeffs, h, w, nd,
+                   quant=False, rows=(0, ext))
+    torch.cuda.empty_cache()
+    y0 = h // 2
+    # an older package's B16 wrapper refuses D > 128 (its JAX entry's
+    # limit, not the kernel's)
+    old = "cen_l" in inspect.signature(costkern.cost_dm).parameters
+    for suffix, (rows, cols, dd, zz) in zip(B16_EDGES[1:7], (
+            (37, 1, nd, zd), (37, 15, nd, zd), (37, 17, nd, zd),
+            (200, 1001, 30, 15), (200, 1001, 256, 128),
+            (200, 1001, nd, 0))):
+        if old and dd > 128:
+            print(f"B16{suffix}: not taken by the package's wrapper",
+                  flush=True)
+            continue
+        crop = [t[y0:y0 + rows, :cols].contiguous() for t in (img_l, img_r)]
+        ck, cp = dm_cost_fns(costkern, *crop)
+        record_dm_cost(chk, B16 + suffix, ck, cp,
+                       (cfg.ad_coeff, cfg.census_coeff, dd, zz),
+                       *crop[0].shape[:2], dd)
+    vol = torch.zeros((nd, h, w), dtype=torch.uint8, device=img_l.device)
+    record_strips(chk, B16_STRIPS + B16_M1, kern, plain, coeffs, vol,
+                  ((0, 1), (w - 1, w)), nd, zd)
+    del vol
+    torch.cuda.empty_cache()
+
+
+def check_dm_chunk4k(chk, img_l, img_r, cfg):
+    """B16 on the 4K preset's third row chunk of the whole frame (rows
+    1012-1691), whose census reads rows outside the chunk."""
+    from stereo_to_multiview_tpu_torch.ops import band, costkern
+    ext, bounds = band.chunk_bounds(cfg.num_rows, cfg.band_row_chunk,
+                                    2 * cfg.usd)
+    rows = (bounds[2][0], ext)
+    if cfg.num_rows == 2160 and rows != (1012, 680):
+        raise SmokeFailure(f"the 4K preset's third chunk is rows "
+                           f"[{rows[0]}, {rows[0] + ext}), not [1012, 1692)")
+    kern, plain = dm_cost_fns(costkern, img_l, img_r)
+    record_dm_cost(chk, B16 + B2_CHUNK4K, kern, plain,
+                   (cfg.ad_coeff, cfg.census_coeff, cfg.num_disp,
+                    cfg.zero_disp), *img_l.shape[:2], cfg.num_disp,
+                   rows=rows)
+
+
+def events_split(steps, reps: int = 3):
+    """CUDA-event ms of each labelled part of a run: `steps()` returns
+    [(label, fn), ...] to run in order; events recorded around each part
+    on the current stream, summed by label, mean of `reps` runs after one
+    warm-up; 'total' from the first event to the last."""
+    import torch
+    sums = {}
+    for rep in range(reps + 1):
+        marks = [torch.cuda.Event(enable_timing=True)]
+        marks[0].record()
+        labels = []
+        for label, fn in steps():
+            fn()
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            labels.append(label)
+        torch.cuda.synchronize()
+        if rep == 0:
+            continue
+        for i, label in enumerate(labels):
+            sums[label] = sums.get(label, 0.0) + marks[i].elapsed_time(
+                marks[i + 1])
+        sums["total"] = sums.get("total", 0.0) + marks[0].elapsed_time(
+            marks[-1])
+    return {k: v / reps for k, v in sums.items()}
+
+
+def split_cost_entry(img_l, img_r, cfg, quant: bool):
+    """`ci_adcensus_kern` (direct path) split by CUDA events: the torch
+    census (an older package's; none since B16 computes it), B16, and the
+    two (D, H, W) -> (H, W, D) relayout copies; the parts' result held
+    equal to the entry's."""
+    import inspect
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import costkern
+    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
+    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+
+    nd = cfg.num_disp
+    coeffs = (cfg.ad_coeff, cfg.census_coeff, nd, cfg.zero_disp, quant)
+    old = "cen_l" in inspect.signature(costkern.cost_dm).parameters
+    st = {}
+
+    def census():
+        st.clear()          # the last run's outputs freed first
+        st["cen"] = ([census_transform_9x7(mux_average(t))
+                      for t in (img_l, img_r)] if old else [])
+
+    def b16():
+        st["vol"] = costkern.cost_dm(img_l, img_r, *st["cen"], *coeffs)
+
+    def relayout():
+        v = st.pop("vol")
+        st["out"] = (v[:nd].permute(1, 2, 0).contiguous(),
+                     v[nd:].permute(1, 2, 0).contiguous())
+
+    res = events_split(lambda: [("census", census), ("B16", b16),
+                                ("relayout", relayout)])
+    ref = costkern.ci_adcensus_kern(img_l, img_r, *coeffs)
+    if not all(torch.equal(a, b) for a, b in zip(st["out"], ref)):
+        raise SmokeFailure("ci_adcensus_kern split: the parts differ from "
+                           "the entry")
+    res["entry"] = time_ms(lambda: costkern.ci_adcensus_kern(
+        img_l, img_r, *coeffs), 3)
+    return res
+
+
+def split_dm_core(img_l, img_r, arms_l, arms_r, cfg):
+    """`band_stereo_core_dm` split by CUDA events, step for step as it
+    runs: the torch census of the frame (an older package's), and per
+    chunk B16, B18a, B18b, B18c and the glue (the chunk's outputs cut
+    out, and the parts' concatenation at the end); the result held equal
+    to the entry's."""
+    import inspect
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band, costkern
+    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
+    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
+
+    h = img_l.shape[0]
+    usd, nd, zd = cfg.usd, cfg.num_disp, cfg.zero_disp
+    chunk = cfg.band_row_chunk or h
+    ext, bounds = band.chunk_bounds(h, chunk, 2 * usd)
+    _, s2, s3 = band.agg_rescale_shifts(usd, 2)
+    old = "cen_l" in inspect.signature(costkern.cost_dm).parameters
+    coeffs = (cfg.ad_coeff, cfg.census_coeff, nd, zd)
+    st = {}
+
+    def steps():
+        st.clear()          # the last run's outputs freed first
+        out = [("census", lambda: st.update(cen=[
+            census_transform_9x7(mux_average(t)) for t in (img_l, img_r)]
+            if old else []))]
+        st["parts"] = ([], [])
+        for start, lo in bounds:
+            sl = slice(start, start + ext)
+            arms = (arms_l[:, sl], arms_r[:, sl])
+
+            def b16(sl=sl, start=start):
+                if old:
+                    st["v"] = costkern.cost_dm(
+                        img_l[sl], img_r[sl], st["cen"][0][sl],
+                        st["cen"][1][sl], *coeffs)
+                else:
+                    st["v"] = costkern.cost_dm(img_l, img_r, *coeffs,
+                                               rows=(start, ext))
+
+            def glue(start=start, lo=lo):
+                n = min(chunk, h - (start + lo))
+                st["parts"][0].append(st["d"][0][lo:lo + n])
+                st["parts"][1].append(st["d"][1][lo:lo + n])
+
+            out += [("B16", b16),
+                    ("B18a", lambda arms=arms: st.update(
+                        v=band.pass1_dm(st["v"], *arms, usd))),
+                    ("B18b", lambda arms=arms: st.update(
+                        v=band.vv_dm(st["v"], *arms, s2, s3, usd))),
+                    ("B18c", lambda arms=arms: st.update(
+                        d=band.pass4_wta_dm(st.pop("v"), *arms, zd, usd))),
+                    ("glue", glue)]
+        out.append(("glue", lambda: st.update(out=[
+            p[0] if len(p) == 1 else torch.cat(p, dim=0)
+            for p in st["parts"]])))
+        return out
+
+    res = events_split(steps)
+    ref = band.band_stereo_core_dm(img_l, img_r, arms_l, arms_r, cfg)
+    if not all(torch.equal(a, b) for a, b in zip(st["out"], ref)):
+        raise SmokeFailure("band_stereo_core_dm split: the parts differ "
+                           "from the entry")
+    return res
+
+
+def run_cost_splits(img_l, img_r, arms_l, arms_r, cfg, cfg4k=None,
+                    img4k=None):
+    """The splits of `ci_adcensus_kern` (u8, float32) and
+    `band_stereo_core_dm` (whole frame, 540-row chunks; at 4K with
+    `img4k` = (img_l, img_r, arms_l, arms_r)), printed and returned."""
+    import torch
+    res = {}
+    for quant, label in ((True, "u8"), (False, "float32")):
+        res[f"ci_adcensus_kern {label}"] = split_cost_entry(img_l, img_r,
+                                                            cfg, quant)
+        torch.cuda.empty_cache()
+    cfg2 = cfg.replace(band_digits=2)
+    res["band_stereo_core_dm 1080p"] = split_dm_core(img_l, img_r, arms_l,
+                                                     arms_r, cfg2)
+    res["band_stereo_core_dm 1080p band_row_chunk=540"] = split_dm_core(
+        img_l, img_r, arms_l, arms_r, cfg2.replace(band_row_chunk=540))
+    if img4k is not None:
+        torch.cuda.empty_cache()
+        res["band_stereo_core_dm UHD4K_16V"] = split_dm_core(
+            *img4k, cfg4k.replace(band_digits=2))
+    for name, parts in res.items():
+        print(f"split {name}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in parts.items()), flush=True)
+    return res
+
+
 def run_shift_extract(img_l, img_r, cfg):
     """`ci_adcensus_kern(shift_extract=True)` as a path, u8 and float32:
-    B16 three times (the left eye, two border strips) and B17 once, equal
-    to shift_extract=False in every element of both eyes; both timed."""
+    B16 twice (the left eye; both border strips in one launch) and B17
+    once, equal to shift_extract=False in every element of both eyes;
+    both timed."""
     import torch
     from stereo_to_multiview_tpu_torch.ops import costkern
 
@@ -3002,7 +3394,7 @@ def run_shift_extract(img_l, img_r, cfg):
                 cfg.zero_disp, quant)
         reset_counts()
         got = costkern.ci_adcensus_kern(*args, shift_extract=True)
-        launches = read_counts(name, {"cost_dm": 3, "shear_right_dm": 1})
+        launches = read_counts(name, {"cost_dm": 2, "shear_right_dm": 1})
         ref = costkern.ci_adcensus_kern(*args)
         for eye, a, b in (("left", got[0], ref[0]), ("right", got[1],
                                                      ref[1])):
@@ -3169,6 +3561,33 @@ def run_synthesis_entries(img_l, img_r, bl, br, cfg):
           f"{res[OCCL_UNFUSED].get('fused_ms', float('nan')):.4f} ms "
           f"fused; equal masks", flush=True)
     del got
+    # 38 intermediate views: B12 once; 2 views: the sources alone, no B12
+    for nv, name in ((40, SYNTH_VIEWS_40), (2, SYNTH_VIEWS_2)):
+        vcfg = cfg.replace(num_views=nv)
+        vargs = (img_l, img_r, bl, br, vcfg)
+        reset_counts()
+        views = pipeline.synthesize_views(*vargs)
+        launches = read_counts(name, {
+            **masks, "dibr_feather_mask": 1,
+            "warp_merge_views": int(nv > 2)},
+            zero=("warp_merge_interlace", "warp_views"))
+        mids = (dibr.warp_merge_views_plain(
+            img_l, img_r, bl, br, *pipeline.synthesis_masks(bl, br, vcfg),
+            dibr.synth_shifts(nv)) if nv > 2
+            else img_l.new_empty((0, *img_l.shape)))
+        if not torch.equal(views, torch.cat([img_r[None], mids,
+                                             img_l[None]])):
+            raise SmokeFailure(f"path {name}: the view stack differs from "
+                               f"the plain chain's")
+        del views, mids
+        print(f"path {name}: the view stack equal to the plain chain's",
+              flush=True)
+        res[name] = dict(
+            launches=launches,
+            synth_views_ms=time_ms(lambda: pipeline.synthesize_views(*vargs),
+                                   10),
+            synth_interlace_ms=time_ms(
+                lambda: pipeline.synthesize_interlace(*vargs), 10))
     shifts = dibr.synth_shifts(cfg.num_views)
     reset_counts()
     dibr.warp_views(img_l, img_r, bl, br, shifts)
@@ -4166,6 +4585,7 @@ def synth_checks(root: str) -> int:
         check_synth_edges(chk, img_l, img_r, bl, br, masks, cfg)
         check_occl_edges(chk, bl, br, cfg)
         check_many_views(chk, img_l, img_r, bl, br, cfg)
+        check_view_stack_edges(chk, img_l, img_r, bl, br, masks, cfg)
         run_synthesis_entries(img_l, img_r, bl, br, cfg)
         del masks, out, img_l, img_r, bl, br
         torch.cuda.empty_cache()
@@ -4188,6 +4608,11 @@ def synth_checks(root: str) -> int:
                 check_synth_kernels(chk, img_l, img_r, out[0], out[1], pcfg,
                                     b14=False)
                 chk.suffix = ""
+                ms = time_ms(lambda: pipeline.synthesize_views(
+                    img_l, img_r, out[0], out[1], pcfg), 10)
+                print(f"synthesis: {ms:.3f} ms view stack "
+                      f"(synthesize_views) at {UHD4K}, package under "
+                      f"{root}, on {gpu_line()}", flush=True)
             del out
             torch.cuda.empty_cache()
     except (SmokeFailure, RuntimeError, ValueError) as e:
@@ -4234,14 +4659,18 @@ def band_checks(root: str) -> int:
         check_dm_kernels(chk, img_l, img_r, arms_l, arms_r, cfg, full=False)
         chk.suffix = AT_CHUNK
         ext = band.chunk_bounds(cfg.num_rows, 540, 2 * usd)[0]
-        check_dm_kernels(chk, img_l[:ext], img_r[:ext], arms_l[:, :ext],
-                         arms_r[:, :ext], cfg, full=False)
+        check_dm_kernels(chk, img_l, img_r, arms_l[:, :ext],
+                         arms_r[:, :ext], cfg, full=False, rows=(0, ext))
         chk.suffix = AT_ODD
         odd_l, odd_r = (t[:200, :1001].contiguous() for t in (img_l, img_r))
         check_dm_kernels(chk, odd_l, odd_r, cross.cross_arms(odd_l, *arm_args),
                          cross.cross_arms(odd_r, *arm_args), cfg, full=False)
         chk.suffix = ""
         del odd_l, odd_r
+        torch.cuda.empty_cache()
+        # B16's one-eye modes and its edges
+        check_shift_extract(chk, img_l, img_r, cfg)
+        check_dm_edges(chk, img_l, img_r, cfg)
         check_vdm_edges(chk, cfg.num_disp, dev)
         check_hdm_edges(chk, cfg.num_disp, dev)
         torch.cuda.empty_cache()
@@ -4250,6 +4679,7 @@ def band_checks(root: str) -> int:
         paths[DM_CHUNKED] = run_dm_core(DM_CHUNKED, img_l, img_r, arms_l,
                                         arms_r,
                                         cfg2.replace(band_row_chunk=540))
+        hd = (img_l, img_r, arms_l, arms_r)
         del img_l, img_r, arms_l, arms_r
         torch.cuda.empty_cache()
 
@@ -4264,14 +4694,19 @@ def band_checks(root: str) -> int:
         core_rows = band.chunk_bounds(cfg4k.num_rows, cfg4k.band_row_chunk,
                                       2 * cfg4k.usd)[0]
         chk.suffix = AT_4K
-        check_dm_kernels(chk, img_l[:core_rows], img_r[:core_rows],
+        check_dm_kernels(chk, img_l, img_r,
                          arms_l[:, :core_rows].contiguous(),
                          arms_r[:, :core_rows].contiguous(), cfg4k,
-                         full=False)
+                         full=False, rows=(0, core_rows))
         chk.suffix = ""
+        check_dm_chunk4k(chk, img_l, img_r, cfg4k)
         torch.cuda.empty_cache()
         paths[DM_4K] = run_dm_core(DM_4K, img_l, img_r, arms_l, arms_r,
                                    cfg4k.replace(band_digits=2))
+        torch.cuda.empty_cache()
+        # the cost entry and the disparity-major core split into their
+        # parts by CUDA events
+        run_cost_splits(*hd, cfg, cfg4k, (img_l, img_r, arms_l, arms_r))
     except (SmokeFailure, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4416,11 +4851,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         masks = check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
         check_synth_edges(chk, img_l, img_r, bl, br, masks, cfg)
-        del masks
         torch.cuda.empty_cache()
         check_occl_edges(chk, bl, br, cfg)
         torch.cuda.empty_cache()
         check_many_views(chk, img_l, img_r, bl, br, cfg)
+        check_view_stack_edges(chk, img_l, img_r, bl, br, masks, cfg)
+        del masks
         paths.update(run_synthesis_entries(img_l, img_r, bl, br, cfg))
         torch.cuda.empty_cache()
         # the entry points beside process_frame, on this frame's stages:
@@ -4455,8 +4891,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         chk.suffix = AT_CHUNK
         ext = band.chunk_bounds(cfg.num_rows, 540, 2 * cfg.usd)[0]
-        check_dm_kernels(chk, img_l[:ext], img_r[:ext], arms_l[:, :ext],
-                         arms_r[:, :ext], cfg, full=False)
+        check_dm_kernels(chk, img_l, img_r, arms_l[:, :ext],
+                         arms_r[:, :ext], cfg, full=False, rows=(0, ext))
         chk.suffix = AT_ODD
         odd_l, odd_r = (t[:200, :1001].contiguous() for t in (img_l, img_r))
         arm_args = (cfg.ucd, cfg.lcd, cfg.usd, cfg.lsd)
@@ -4466,6 +4902,7 @@ def main() -> int:
         check_shift_extract(chk, odd_l, odd_r, cfg)
         chk.suffix = ""
         del odd_l, odd_r
+        check_dm_edges(chk, img_l, img_r, cfg)
         check_vdm_edges(chk, cfg.num_disp, dev)
         check_hdm_edges(chk, cfg.num_disp, dev)
         torch.cuda.empty_cache()
@@ -4534,6 +4971,7 @@ def main() -> int:
         img_l, img_r = (t.contiguous() for t in
                         pipeline.demux_sbs(torch.from_numpy(sbs4k).to(dev)))
         check_cost_chunk(chk, img_l, img_r, cfg4k)
+        check_dm_chunk4k(chk, img_l, img_r, cfg4k)
         chk.suffix = AT_4K
         core_rows = band.chunk_bounds(cfg4k.num_rows, cfg4k.band_row_chunk,
                                       2 * cfg4k.usd)[0]
@@ -4558,10 +4996,10 @@ def main() -> int:
         arms_l, arms_r = (cross.cross_arms(t, *arm_args)
                           for t in (img_l, img_r))
         chk.suffix = AT_4K
-        check_dm_kernels(chk, img_l[:core_rows], img_r[:core_rows],
+        check_dm_kernels(chk, img_l, img_r,
                          arms_l[:, :core_rows].contiguous(),
                          arms_r[:, :core_rows].contiguous(), cfg4k,
-                         full=False)
+                         full=False, rows=(0, core_rows))
         chk.suffix = ""
         torch.cuda.empty_cache()
         paths[DM_4K] = run_dm_core(DM_4K, img_l, img_r, arms_l, arms_r,

@@ -12,7 +12,9 @@ its module names, so each counterpart is easy to find:
   ops.costkern   -- kernels B2 (cost pair volume or one eye of a row
                     range, the census computed in the kernel; u8, int16
                     or float32), B3 (right-eye shear), B16 (`cost_dm`:
-                    both eyes or one, disparity-major) and B17
+                    both eyes or one of a row range, disparity-major,
+                    the census computed in the kernel too; both share
+                    csrc/census.cuh) and B17
                     (`shear_right_dm`: the right eye by per-plane
                     shifts), with `ci_adcensus_kern(_stacked)` and
                     `ci_adcensus_kern_xm`
@@ -35,7 +37,8 @@ its module names, so each counterpart is easy to find:
   ops.dibr       -- kernels B7 (hits), B11, G1 (the mask feather), B12
                     (warp + merge + interlace in one kernel,
                     `warp_merge_interlace`, the synthesis of every path;
-                    the view stack, `warp_merge_views`) and B14 (the
+                    the view stack, `warp_merge_views`, every view in
+                    one launch) and B14 (the
                     float warps of every view); the forward warp
   ops.warpkern   -- kernels B19/B20 (the bounded row-major warps,
                     `dibr_warp_views_kern`, `dibr_warp_pair_kern`)

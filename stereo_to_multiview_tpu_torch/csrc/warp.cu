@@ -26,25 +26,35 @@
 // synthesis, whose lerp rounds both products, and not the TPU kernel's
 // contracted multiply-add.
 //
-// Bound on the H100: memory, and little of it (at 1080p, 8 views: 12 MB
-// of images and 41 MB of float planes in, 37 MB out, ~27 us).  Design:
-// one thread per (view, pixel) computes both warps and the merge, so the
-// float warp volumes of the unfused chain never reach device memory; the
-// TPU kernel's loop over the block's disparity offsets (it cannot gather)
-// becomes a direct read of the two samples.
+// Bound on the H100: the images and the five float planes read once and
+// the views written once (1080p, 6 views: 12 MB of images and 41 MB of
+// float planes in, 37 MB out, ~27 us; 4K, 14 views: 166 MB), or the
+// float32 operations of the merges (about 160 a pixel and view, below).
+// Design (`stm_warp_merge`, below the interlace mode, whose conversion-free
+// merge it shares): a block takes a segment of up to 1024 pixels of one
+// row, stages both images' rows in shared memory (the samples' gathers
+// then read shared memory; rows too wide for it are read from device
+// memory), reads the five planes once a pixel (4 pixels a thread, in
+// registers, 80 of them so that three blocks share an SM; a pixel whose
+// feather and one mask make its merge one sample's lerp computes that
+// lerp alone, the others the conversion-free merge where their masks lie
+// in range), and loops over all views in one launch, the shifts read from
+// a device array; each view's segment is staged in shared memory (two
+// buffers, one barrier a view) and stored 16 bytes at a time, the bytes
+// before the first and after the last 16-byte boundary one at a time.
 //
 // B14 writes those float volumes, because the unfused chain's mask
 // multiply and merge follow it: va[v] = u8(lerp(img_l, disp_r, sl)) and
 // vb[v] = u8(lerp(img_r, disp_l, sr)) as float32, (nv, H, W, 3) each.  Its
 // bound is its output: 2 x 149 MB written at 1080p and 6 views against 28
-// MB read (~0.1 ms).  Same design, one thread per (view, pixel); the
-// sampling code is B12's own (`make_lerp`, `lerp_u8`), so the two cannot
-// drift apart.
+// MB read (~0.1 ms).  One thread per (view, pixel); the sampling code is
+// B12's own (`make_lerp`, `lerp_u8`), so the two cannot drift apart.
 //
-// The shifts (and B19's bounds) reach these kernels by value,
+// B14's and B19's shifts (and B19's bounds) reach their kernels by value,
 // WARP_MAX_VIEWS views at a time: an entry point takes any number of views
-// and launches its kernel once for each group of at most that many.  The
-// interlace mode reads them from a device array in one launch.
+// and launches its kernel once for each group of at most that many.  B12
+// (view stack and interlace mode) reads them from a device array in one
+// launch.
 
 #include "stm_common.cuh"
 
@@ -104,62 +114,6 @@ __device__ __forceinline__ uint8_t merge_u8(const uint8_t* row_l,
   const uint8_t b = to_u8(__fmul_rn(m_b, (float)sample(row_l, from_l, ch)));
   const uint8_t a = to_u8(__fmul_rn(m, (float)sample(row_r, from_r, ch)));
   return (uint8_t)(b + a);
-}
-
-__global__ void __launch_bounds__(WARP_TX)
-warp_merge_kernel(const uint8_t* __restrict__ img_l,
-                  const uint8_t* __restrict__ img_r,
-                  const float* __restrict__ disp_l,
-                  const float* __restrict__ disp_r,
-                  const float* __restrict__ mask_l,
-                  const float* __restrict__ mask_r,
-                  const float* __restrict__ feather, WarpShifts shifts,
-                  uint8_t* __restrict__ out, int H, int W) {
-  const int x = blockIdx.x * WARP_TX + threadIdx.x;
-  const int y = blockIdx.y;
-  const int v = blockIdx.z;
-  if (x >= W) return;
-  const size_t i = (size_t)y * W + x;
-  const Lerp from_l = make_lerp(x, disp_r[i], shifts.l[v], mask_r[i], W);
-  const Lerp from_r = make_lerp(x, disp_l[i], shifts.r[v], mask_l[i], W);
-  const float m = feather[i];
-  const float m_b = __fsub_rn(1.0f, m);
-  const uint8_t* row_l = img_l + (size_t)y * W * 3;
-  const uint8_t* row_r = img_r + (size_t)y * W * 3;
-  uint8_t* o = out + (((size_t)v * H + y) * W + x) * 3;
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch)
-    o[ch] = merge_u8(row_l, row_r, from_l, from_r, m, m_b, ch);
-}
-
-// img_l, img_r: (H, W, 3) u8; disp_*, mask_*, feather: (H, W) f32;
-// shifts_l, shifts_r: host arrays of nv floats; out: (nv, H, W, 3) u8.
-STM_API int stm_warp_merge(const void* img_l, const void* img_r,
-                           const void* disp_l, const void* disp_r,
-                           const void* mask_l, const void* mask_r,
-                           const void* feather, const float* shifts_l,
-                           const float* shifts_r, void* out, int H, int W,
-                           int nv, void* stream) {
-  if (H <= 0 || W <= 0 || nv <= 0 || shifts_l == nullptr ||
-      shifts_r == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const size_t view = (size_t)H * W * 3;
-  for (int v0 = 0; v0 < nv; v0 += WARP_MAX_VIEWS) {
-    const int n = min(nv - v0, WARP_MAX_VIEWS);
-    WarpShifts s;
-    for (int v = 0; v < n; ++v) {
-      s.l[v] = shifts_l[v0 + v];
-      s.r[v] = shifts_r[v0 + v];
-    }
-    dim3 grid((W + WARP_TX - 1) / WARP_TX, H, n);
-    warp_merge_kernel<<<grid, WARP_TX, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
-        (const float*)disp_r, (const float*)mask_l, (const float*)mask_r,
-        (const float*)feather, s, (uint8_t*)out + v0 * view, H, W);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
 }
 
 // B12's interlace mode (`stm_warp_merge_interlace`): the merged views and
@@ -314,6 +268,24 @@ __device__ __forceinline__ float lerp_f(const uint8_t* row, const FastLerp& l,
                             __fmul_rn(l.w1, byte_f(row[l.i1 * 3 + ch]))));
 }
 
+// `merge_u8` as an integer-valued float in [0, 256), without conversions,
+// where the masks lie in [0, 1] and the feather m in [0, 1 + 2^-8].
+__device__ __forceinline__ float merge_fast(const uint8_t* row_l,
+                                            const uint8_t* row_r,
+                                            const FastLerp& fl,
+                                            const FastLerp& fr, float ml,
+                                            float mr, float m, float m_b,
+                                            int ch) {
+  // u8((1 - m) * from_l): a product in (-1, 0) truncates to 0
+  const float b = floor_nn(fmaxf(
+      __fmul_rn(m_b, floor_nn(__fmul_rn(lerp_f(row_l, fl, ch), mr))),
+      0.0f));
+  const float a =
+      floor_nn(__fmul_rn(m, floor_nn(__fmul_rn(lerp_f(row_r, fr, ch), ml))));
+  const float t = __fadd_rn(b, a);
+  return t >= 256.0f ? __fsub_rn(t, 256.0f) : t;    // the u8 sum wraps
+}
+
 // A subpixel's view and, for an intermediate view, its two shifts.
 struct ViewSel {
   int v;
@@ -350,15 +322,8 @@ __device__ __forceinline__ float view_fast(const MergeSrc& s,
                                            const ViewSel& vs, int ch) {
   const FastLerp fl = fast_lerp(p.xf, p.dr, vs.sl, s.W);
   const FastLerp fr = fast_lerp(p.xf, p.dl, vs.sr, s.W);
-  // u8((1 - m) * from_l): a product in (-1, 0) truncates to 0
-  const float b = floor_nn(fmaxf(
-      __fmul_rn(p.m_b, floor_nn(__fmul_rn(lerp_f(p.row_l, fl, ch), p.mr))),
-      0.0f));
-  const float a =
-      floor_nn(__fmul_rn(p.m, floor_nn(__fmul_rn(lerp_f(p.row_r, fr, ch),
-                                                 p.ml))));
-  float t = __fadd_rn(b, a);
-  t = t >= 256.0f ? __fsub_rn(t, 256.0f) : t;    // the u8 sum wraps
+  const float t = merge_fast(p.row_l, p.row_r, fl, fr, p.ml, p.mr, p.m,
+                             p.m_b, ch);
   const uint8_t* src = vs.v == 0 ? p.row_r : p.row_l;
   const float pix = byte_f(src[p.x * 3 + ch]);
   return vs.v == 0 || vs.v == s.V - 1 ? pix : t;
@@ -486,6 +451,163 @@ STM_API int stm_warp_merge_interlace(
       s, (const int*)yi0, (const int*)yi1, (const float*)wy,
       (const int*)xi0, (const int*)xi1, (const float*)wx, y_mod, inv_y,
       (uint8_t*)out, rows, cols);
+  return (int)cudaGetLastError();
+}
+
+// B12's view stack (`stm_warp_merge`): every intermediate view's merge
+// (`merge_u8`, or `merge_fast` where the pixel's masks lie in range, or
+// one sample's lerp where the feather and a mask make the merge that), at
+// shifts sl[v], sr[v] of a device array, into (nv, H, W, 3) u8.
+#define WMV_TX 256
+#define WMV_PX 4
+#define WMV_SEG (WMV_TX * WMV_PX)
+#define WMV_OBUF (3 * WMV_SEG + 16)   // a view's staged segment, aligned
+enum { WMV_EXACT = 0, WMV_FAST = 1, WMV_ONE = 2 };
+
+// Shared memory of a block: both rows (3W bytes, padded to 16) when
+// staged, then two view buffers.
+__host__ __device__ inline int wmv_row_pad(int W) {
+  return (3 * W + 15) & ~15;
+}
+
+__device__ void wmv_copy_row(uint8_t* dst, const uint8_t* src, int n) {
+  if (((uintptr_t)src & 15) == 0) {
+    for (int i = threadIdx.x; i < n / 16; i += WMV_TX)
+      reinterpret_cast<uint4*>(dst)[i] =
+          reinterpret_cast<const uint4*>(src)[i];
+    for (int i = n / 16 * 16 + threadIdx.x; i < n; i += WMV_TX)
+      dst[i] = src[i];
+  } else {
+    for (int i = threadIdx.x; i < n; i += WMV_TX) dst[i] = src[i];
+  }
+}
+
+template <bool STAGE>
+__global__ void __launch_bounds__(WMV_TX, 3)
+warp_merge_views_kernel(MergeSrc s, uint8_t* __restrict__ out, int nv) {
+  extern __shared__ __align__(16) uint8_t wmv_sm[];
+  const int W = s.W, y = blockIdx.y, rb = 3 * W;
+  const int seg0 = blockIdx.x * WMV_SEG;
+  const int npx = min(WMV_SEG, W - seg0);
+  const uint8_t* row_l = s.img_l + (size_t)y * rb;
+  const uint8_t* row_r = s.img_r + (size_t)y * rb;
+  uint8_t* obuf = wmv_sm;
+  if (STAGE) {
+    const int rp = wmv_row_pad(W);
+    wmv_copy_row(wmv_sm, row_l, rb);
+    wmv_copy_row(wmv_sm + rp, row_r, rb);
+    row_l = wmv_sm;
+    row_r = wmv_sm + rp;
+    obuf = wmv_sm + 2 * rp;
+    __syncthreads();
+  }
+  // the pixels' planes, read once for every view, and each pixel's kind:
+  // WMV_ONE where the merge is one eye's sample alone (feather 0 and mask_r
+  // 1: the left image's lerp; feather 1 and mask_l 1: the right image's;
+  // the other term is u8(0 * a byte) = 0 and the mask's product exact),
+  // WMV_FAST where the masks lie in range (`merge_fast`), else WMV_EXACT
+  float dl[WMV_PX], dr[WMV_PX], ml[WMV_PX], mr[WMV_PX], m[WMV_PX],
+      m_b[WMV_PX];
+  int kind[WMV_PX];
+#pragma unroll
+  for (int k = 0; k < WMV_PX; ++k) {
+    const int j = threadIdx.x + k * WMV_TX;
+    kind[k] = WMV_EXACT;
+    if (j < npx) {
+      const size_t i = (size_t)y * W + seg0 + j;
+      dl[k] = s.disp_l[i];
+      dr[k] = s.disp_r[i];
+      ml[k] = s.mask_l[i];
+      mr[k] = s.mask_r[i];
+      m[k] = s.feather[i];
+      m_b[k] = __fsub_rn(1.0f, m[k]);
+      if ((m[k] == 0.0f && mr[k] == 1.0f) || (m[k] == 1.0f && ml[k] == 1.0f))
+        kind[k] = WMV_ONE;
+      else if (ml[k] >= 0.0f && ml[k] <= 1.0f && mr[k] >= 0.0f &&
+               mr[k] <= 1.0f && m[k] >= 0.0f && m[k] <= 1.00390625f)
+        kind[k] = WMV_FAST;
+    }
+  }
+  const int nb = 3 * npx;
+  for (int v = 0; v < nv; ++v) {
+    const float sl = __ldg(s.shifts + v), sr = __ldg(s.shifts + nv + v);
+    uint8_t* dst = out + ((size_t)v * s.H + y) * rb + (size_t)seg0 * 3;
+    // byte b of the segment sits at ob[off + b], so ob's 16-byte words
+    // fall on dst's
+    const int off = (int)((uintptr_t)dst & 15);
+    uint8_t* ob = obuf + (v & 1) * WMV_OBUF + off;
+#pragma unroll
+    for (int k = 0; k < WMV_PX; ++k) {
+      const int j = threadIdx.x + k * WMV_TX;
+      if (j >= npx) continue;
+      const int x = seg0 + j;
+      uint8_t* o = ob + 3 * j;
+      if (kind[k] == WMV_ONE) {
+        const bool left = m[k] == 0.0f;
+        const FastLerp fo = fast_lerp(int_f(x), left ? dr[k] : dl[k],
+                                      left ? sl : sr, W);
+        const uint8_t* row = left ? row_l : row_r;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) o[ch] = byte_of(lerp_f(row, fo, ch));
+      } else if (kind[k] == WMV_FAST) {
+        const float xf = int_f(x);
+        const FastLerp fl = fast_lerp(xf, dr[k], sl, W);
+        const FastLerp fr = fast_lerp(xf, dl[k], sr, W);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          o[ch] = byte_of(merge_fast(row_l, row_r, fl, fr, ml[k], mr[k],
+                                     m[k], m_b[k], ch));
+      } else {
+        const Lerp from_l = make_lerp(x, dr[k], sl, mr[k], W);
+        const Lerp from_r = make_lerp(x, dl[k], sr, ml[k], W);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          o[ch] = merge_u8(row_l, row_r, from_l, from_r, m[k], m_b[k], ch);
+      }
+    }
+    // the buffer written; the other one's stores (view v - 1) are done by
+    // every thread before it is written again (view v + 1)
+    __syncthreads();
+    const int head = min((16 - off) & 15, nb);
+    const int words = (nb - head) >> 4;
+    for (int i = threadIdx.x; i < words; i += WMV_TX)
+      reinterpret_cast<uint4*>(dst + head)[i] =
+          reinterpret_cast<const uint4*>(ob + head)[i];
+    for (int i = threadIdx.x; i < head; i += WMV_TX) dst[i] = ob[i];
+    for (int i = head + 16 * words + threadIdx.x; i < nb; i += WMV_TX)
+      dst[i] = ob[i];
+  }
+}
+
+// img_l, img_r: (H, W, 3) u8; disp_*, mask_*, feather: (H, W) f32;
+// shifts: 2 nv f32 on the device, sl[0 .. nv - 1] then sr[0 .. nv - 1];
+// out: (nv, H, W, 3) u8, any alignment.  One launch for every view.
+STM_API int stm_warp_merge(const void* img_l, const void* img_r,
+                           const void* disp_l, const void* disp_r,
+                           const void* mask_l, const void* mask_r,
+                           const void* feather, const void* shifts, void* out,
+                           int H, int W, int nv, void* stream) {
+  if (H <= 0 || W <= 0 || nv <= 0 || shifts == nullptr || H > 65535 ||
+      W >= (1 << 23))
+    return (int)cudaErrorInvalidValue;
+  MergeSrc s{(const uint8_t*)img_l, (const uint8_t*)img_r,
+             (const float*)disp_l,  (const float*)disp_r,
+             (const float*)mask_l,  (const float*)mask_r,
+             (const float*)feather, (const float*)shifts,
+             H, W, nv + 2};
+  dim3 grid((W + WMV_SEG - 1) / WMV_SEG, H);
+  const size_t staged = 2 * (size_t)wmv_row_pad(W) + 2 * WMV_OBUF;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (staged <= 227 * 1024) {
+    cudaError_t err = stm_smem_cap(warp_merge_views_kernel<true>, staged);
+    if (err != cudaSuccess) return (int)err;
+    warp_merge_views_kernel<true><<<grid, WMV_TX, staged, st>>>(
+        s, (uint8_t*)out, nv);
+  } else {
+    // rows too wide for shared memory: the gathers read device memory
+    warp_merge_views_kernel<false><<<grid, WMV_TX, 2 * WMV_OBUF, st>>>(
+        s, (uint8_t*)out, nv);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -56,13 +56,13 @@ _SIGS = {
     "stm_bleed_mask": [_P, _P, _I, _I, _I, _F, _P],
     "stm_occl_masks": [_P] * 6 + [_I] * 3 + [_F, _P],
     "stm_occl_masks_rmax": [_I],
-    "stm_warp_merge": [_P] * 10 + [_I] * 3 + [_P],
+    "stm_warp_merge": [_P] * 9 + [_I] * 3 + [_P],
     "stm_warp_merge_interlace": [_P] * 15 + [_I] * 6 + [_F, _P],
     "stm_feather": [_P] * 5 + [_I] * 3 + [_F, _P],
     "stm_feather_rmax": [],
     "stm_warp_views": [_P] * 8 + [_I] * 3 + [_P],
     "stm_warp_views_bounded": [_P] * 10 + [_I] * 3 + [_P],
-    "stm_cost_dm": [_P] * 8 + [_I] * 8 + [_P],
+    "stm_cost_dm": [_P] * 6 + [_I] * 12 + [_P],
     "stm_shear_dm": [_P, _P] + [_I] * 5 + [_P],
     "stm_span_sum": [_P] * 4 + [_I] * 7 + [_P],
     "stm_pass1_dm": [_P] * 6 + [_I] * 4 + [_P],

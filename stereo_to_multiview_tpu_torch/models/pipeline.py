@@ -232,24 +232,25 @@ def synthesis_masks(disp_l, disp_r, cfg: PipelineConfig,
 
 
 def xla_views(img_l, img_r, disp_l, disp_r, mask_l, mask_r, feathered,
-              cfg: PipelineConfig) -> torch.Tensor:
+              cfg: PipelineConfig, out=None) -> torch.Tensor:
     """The XLA engine's intermediate views, (nv, H, W, 3) u8: for each
     shift, the left image warped with disp_r at -shift and the right one
     with disp_l at 1 - shift (bounded warps, `dibr_backward_warp`),
     merged with the feathered mask; plain torch, each lerp's second term
     added by a fused multiply-add as in the JAX package's jitted
-    frame."""
+    frame.  Written into `out`, (nv, H, W, 3), when given."""
     nd_s, zd_s = synth_disp_bounds(cfg)
     shifts = synth_shifts(cfg.num_views)
     if not shifts:
-        return img_l.new_empty((0, *img_l.shape))
-    return torch.stack([
+        return img_l.new_empty((0, *img_l.shape)) if out is None else out
+    views = [
         mux_merge_ab(
             dibr_backward_warp(img_l, mask_r, disp_r, -s, nd_s, zd_s, True),
             dibr_backward_warp(img_r, mask_l, disp_l, 1.0 - s, nd_s, zd_s,
                                True),
             feathered)
-        for s in shifts])
+        for s in shifts]
+    return torch.stack(views) if out is None else torch.stack(views, out=out)
 
 
 def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
@@ -258,15 +259,22 @@ def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
     View 0 = right source, view V-1 = left source; intermediate view v
     warps L with disp_r at -shift and R with disp_l at 1 - shift,
     shift = 1 - v/(V-1), and merges them with the feathered mask: B12 on
-    the band engine, the bounded plain-torch warps on the XLA engine."""
+    the band engine, the bounded plain-torch warps on the XLA engine.  The
+    stack is allocated once; the two sources are copied into it and the
+    intermediate views written into it in place."""
     masks = synthesis_masks(disp_l, disp_r, cfg, timer)
     with stage_scope("dibr_dbm", timer):
+        views = torch.empty((cfg.num_views, *img_l.shape), dtype=torch.uint8,
+                            device=img_l.device)
+        views[0] = img_r
+        views[-1] = img_l
+        mids = views[1:-1]
         if use_xla(cfg):
-            mids = xla_views(img_l, img_r, disp_l, disp_r, *masks, cfg)
+            xla_views(img_l, img_r, disp_l, disp_r, *masks, cfg, out=mids)
         else:
-            mids = warp_merge_views(img_l, img_r, disp_l, disp_r, *masks,
-                                    synth_shifts(cfg.num_views))
-    return torch.cat([img_r[None], mids, img_l[None]])
+            warp_merge_views(img_l, img_r, disp_l, disp_r, *masks,
+                             synth_shifts(cfg.num_views), out=mids)
+    return views
 
 
 def synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,

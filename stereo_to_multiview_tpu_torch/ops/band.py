@@ -31,7 +31,6 @@ import torch
 
 from stereo_to_multiview_tpu_torch import kernels
 from stereo_to_multiview_tpu_torch.ops.chunks import chunk_bounds
-from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
 from stereo_to_multiview_tpu_torch.ops.costkern import (
     QSCALE, cost_dm, cost_dtype, cost_pair, pair_margin, shear_right)
 from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
@@ -501,11 +500,12 @@ def band_aggregate_q_dm(cost2: torch.Tensor, arms_l: torch.Tensor,
 
 def band_stereo_core_dm(img_l, img_r, arms_l, arms_r, cfg):
     """The stereo core in the disparity-major layout: the stacked cost
-    (kernel B16) and `band_aggregate_q_dm` (B18a-c) over row chunks of
-    cfg.band_row_chunk output rows with a halo of 2*usd rows, the census
-    codes from the whole frame.  No (H, W, D) volume, pair volume or shear
-    exists.  It aggregates u8 costs at digits=2 whatever cfg.band_digits
-    and cfg.band_qscale say, as the JAX package's does, and equals
+    (kernel B16, on the chunk's row range of the whole frame: its census
+    is the whole frame's) and `band_aggregate_q_dm` (B18a-c) over row
+    chunks of cfg.band_row_chunk output rows with a halo of 2*usd rows.
+    No (H, W, D) volume, pair volume or shear exists.  It aggregates u8
+    costs at digits=2 whatever cfg.band_digits and cfg.band_qscale say,
+    as the JAX package's does, and equals
     `band_stereo_core_chunked` at band_digits=2 and the default qscale;
     cfg.use_hslo and cfg.band_lossy_wta are not read.  Returns (disp_l,
     disp_r) float32 (H, W)."""
@@ -515,14 +515,11 @@ def band_stereo_core_dm(img_l, img_r, arms_l, arms_r, cfg):
         raise ValueError("band engine requires usd <= 64")
     chunk = cfg.band_row_chunk or h
     ext, bounds = chunk_bounds(h, chunk, 2 * usd)
-    cen_l = census_transform_9x7(mux_average(img_l))
-    cen_r = census_transform_9x7(mux_average(img_r))
     parts_l, parts_r = [], []
     for start, lo in bounds:
         sl = slice(start, start + ext)
-        cost2 = cost_dm(img_l[sl], img_r[sl], cen_l[sl], cen_r[sl],
-                        cfg.ad_coeff, cfg.census_coeff, cfg.num_disp,
-                        cfg.zero_disp)
+        cost2 = cost_dm(img_l, img_r, cfg.ad_coeff, cfg.census_coeff,
+                        cfg.num_disp, cfg.zero_disp, rows=(start, ext))
         dl, dr = band_aggregate_q_dm(
             cost2, arms_l[:, sl], arms_r[:, sl], num_disp=cfg.num_disp,
             zero_disp=cfg.zero_disp, max_arm=usd)

@@ -26,10 +26,13 @@ aggregation reads.
 B16 (`cost_dm`) computes both eyes directly, every other-eye read clamped
 to the row, into ONE disparity-major (2D, H, W) volume: the left eye on
 planes [0, D), the right eye on [D, 2D); u8 costs from the same table, or
-float32 costs as the sum of the table's two float32 terms.  Its other
-modes give one eye's (D, H, W) planes, the right eye's over a column
-range.  `ci_adcensus_kern_stacked` and `ci_adcensus_kern` are the JAX
-package's entry points on it; with shift_extract=True the latter takes
+float32 costs as the sum of the table's two float32 terms.  Like B2 it
+takes the whole frame's images and a row range and computes gray and
+census itself (the shared device code of csrc/census.cuh).  Its other
+modes give one eye's (D, H, W) planes, or write the right eye's over one
+or two column ranges into a given volume.  `ci_adcensus_kern_stacked`
+and `ci_adcensus_kern` are the JAX package's entry points on it; with
+shift_extract=True the latter takes
 the right eye from the left by per-plane shifts (B17, `shear_right_dm`).
 `ci_adcensus_kern_xm`, the JAX package's entry of the band engine, runs
 on B2 and B3.
@@ -137,11 +140,12 @@ def _pair_geometry(eye: str, num_disp: int, zero_disp: int):
     return 0, (1 if eye == "l" else -1), eye == "r"
 
 
-def _row_range(rows, h: int):
-    """(start, count) of a `cost_pair` row range: every row by default."""
+def _row_range(rows, h: int, what: str = "cost_pair"):
+    """(start, count) of a `cost_pair` or `cost_dm` row range: every row
+    by default."""
     start, count = (0, h) if rows is None else rows
     if not (0 <= start and 0 < count and start + count <= h):
-        raise ValueError(f"cost_pair: rows {rows} are not inside the "
+        raise ValueError(f"{what}: rows {rows} are not inside the "
                          f"frame's {h} rows")
     return start, count
 
@@ -184,12 +188,6 @@ def cost_pair_plain(img_l, img_r, table, num_disp: int, zero_disp: int,
         ham = hamming48(oc, oth_c[:, xr])
         out[:, :, d] = tab[ad * HAM_VALUES + ham]
     return out
-
-
-def pack_bgr(img: torch.Tensor) -> torch.Tensor:
-    """(H, W, 3) u8 -> (H, W) int32 b | g << 8 | r << 16."""
-    c = img.to(torch.int32)
-    return c[:, :, 0] | (c[:, :, 1] << 8) | (c[:, :, 2] << 16)
 
 
 @kernels.kernel_wrapper
@@ -278,104 +276,148 @@ MAX_REACH = 128      # |d - zero_disp| the disparity-major kernel can reach
 EYES = {"lr": 0, "l": 1, "r": 2}   # the C entry point's eyes argument
 
 
-def _columns(eyes: str, cols, w: int):
-    """The output columns [x0, x1) of a `cost_dm` mode: every column
-    unless the right eye alone is asked for a range."""
+def _dm_columns(eyes: str, cols, w: int):
+    """The column ranges of a `cost_dm` mode: the whole row for "lr" and
+    "l"; for "r" the one or two ascending, disjoint ranges [x0, x1) of
+    `cols`."""
     if eyes not in EYES:
         raise ValueError(f"cost_dm: eyes must be 'lr', 'l' or 'r', not "
                          f"{eyes!r}")
-    x0, x1 = (0, w) if cols is None else cols
-    if cols is not None and eyes != "r":
-        raise ValueError("cost_dm: a column range is for eyes='r' only")
-    if not 0 <= x0 < x1 <= w:
-        raise ValueError(f"cost_dm: columns [{x0}, {x1}) are not inside "
-                         f"[0, {w})")
-    return x0, x1
+    if eyes != "r":
+        if cols is not None:
+            raise ValueError("cost_dm: column ranges are for eyes='r' only")
+        return ((0, w),)
+    ranges = tuple((int(x0), int(x1)) for x0, x1 in cols or ())
+    lo = 0
+    for x0, x1 in ranges:
+        if not lo <= x0 < x1 <= w:
+            raise ValueError(f"cost_dm: columns {ranges} are not ascending, "
+                             f"disjoint ranges inside [0, {w})")
+        lo = x1
+    if not 1 <= len(ranges) <= 2:
+        raise ValueError("cost_dm: eyes='r' takes one or two column ranges")
+    return ranges
 
 
-def ci_adcensus_stacked_plain(img_l, img_r, cen_l, cen_r, ad_coeff: float,
-                              census_coeff: float, num_disp: int,
-                              zero_disp: int, quant: bool = True,
-                              eyes: str = "lr", cols=None) -> torch.Tensor:
-    """Plain version of `cost_dm`: one disparity plane of each eye at a
-    time, the cost as the float32 sum of the two `cost_terms` and, with
-    `quant`, rint(cost * 127) as u8 (no table)."""
+def _dm_out(eyes: str, out, num_disp: int, count: int, w: int,
+            dtype: torch.dtype, dev) -> torch.Tensor:
+    """The volume a `cost_dm` mode writes: a new (2D or D, count, W) one
+    for "lr" and "l"; for "r" the caller's (D, count, W) `out`, written in
+    place at the ranges' columns."""
+    if eyes != "r":
+        if out is not None:
+            raise ValueError("cost_dm: `out` is for eyes='r' only")
+        return torch.empty(((2 if eyes == "lr" else 1) * num_disp, count, w),
+                           device=dev, dtype=dtype)
+    if out is None:
+        raise ValueError("cost_dm: eyes='r' writes into `out`")
+    if (tuple(out.shape) != (num_disp, count, w) or out.dtype != dtype
+            or out.device != dev):
+        raise ValueError(f"cost_dm: out must be a ({num_disp}, {count}, {w}) "
+                         f"{dtype} volume on {dev}")
+    return out
+
+
+def cost_dm_plain(img_l, img_r, ad_coeff: float, census_coeff: float,
+                  num_disp: int, zero_disp: int, quant: bool = True,
+                  eyes: str = "lr", rows=None, cols=None,
+                  out=None) -> torch.Tensor:
+    """Plain version of `cost_dm`: the census of the rows by
+    `census_rows`, then one disparity plane of each eye at a time, the
+    cost as the float32 sum of the two `cost_terms` and, with `quant`,
+    rint(cost * 127) as u8 (no table)."""
     h, w = img_l.shape[:2]
-    x0, x1 = _columns(eyes, cols, w)
+    start, count = _row_range(rows, h, "cost_dm")
+    ranges = _dm_columns(eyes, cols, w)
     dev = img_l.device
+    out = _dm_out(eyes, out, num_disp, count, w,
+                  torch.uint8 if quant else F32, dev)
     a, c = device_cost_terms(ad_coeff, census_coeff, dev)
-    xs = torch.arange(x0, x1, device=dev)
-    lv, rv = img_l.to(torch.int32), img_r.to(torch.int32)
-    out = torch.empty(((2 if eyes == "lr" else 1) * num_disp, h, x1 - x0),
-                      device=dev, dtype=torch.uint8 if quant else F32)
+    cen_l, cen_r = (census_rows(x, start, count) for x in (img_l, img_r))
+    lv, rv = (x[start:start + count].to(torch.int32) for x in (img_l, img_r))
 
-    def emit(own, own_cen, oth, oth_cen, xo, plane):
+    def emit(own, own_cen, oth, oth_cen, x0, x1, xo, plane):
         ad = (own[:, x0:x1] - oth[:, xo]).abs().sum(dim=-1)
         cost = a[ad] + c[hamming48(own_cen[:, x0:x1], oth_cen[:, xo])]
         if quant:
             cost = torch.round(cost * f32(127.0)).to(torch.int32)
-        out[plane] = cost.to(out.dtype)
+        out[plane, :, x0:x1] = cost.to(out.dtype)
 
     right = num_disp if eyes == "lr" else 0
-    for d in range(num_disp):
-        k = d - zero_disp
-        if eyes != "r":
-            emit(lv, cen_l, rv, cen_r, (xs + k).clamp(0, w - 1), d)
-        if eyes != "l":
-            emit(rv, cen_r, lv, cen_l, (xs - k).clamp(0, w - 1), right + d)
+    for x0, x1 in ranges:
+        xs = torch.arange(x0, x1, device=dev)
+        for d in range(num_disp):
+            k = d - zero_disp
+            if eyes != "r":
+                emit(lv, cen_l, rv, cen_r, x0, x1, (xs + k).clamp(0, w - 1),
+                     d)
+            if eyes != "l":
+                emit(rv, cen_r, lv, cen_l, x0, x1, (xs - k).clamp(0, w - 1),
+                     right + d)
     return out
 
 
 @kernels.kernel_wrapper
-def cost_dm(img_l: torch.Tensor, img_r: torch.Tensor, cen_l: torch.Tensor,
-            cen_r: torch.Tensor, ad_coeff: float, census_coeff: float,
-            num_disp: int, zero_disp: int, quant: bool = True,
-            eyes: str = "lr", cols=None) -> torch.Tensor:
-    """(2D, H, W) disparity-major AD-census cost of two (H, W, 3) u8
-    images and their (H, W, 2) int32 census codes: plane d < D is the
-    left eye's C(L(x), R(clamp(x + d - zd))), plane D + d the right eye's
+def cost_dm(img_l: torch.Tensor, img_r: torch.Tensor, ad_coeff: float,
+            census_coeff: float, num_disp: int, zero_disp: int,
+            quant: bool = True, eyes: str = "lr", rows=None, cols=None,
+            out=None) -> torch.Tensor:
+    """Disparity-major AD-census cost of two (H, W, 3) u8 images of the
+    whole frame over the frame rows rows=(start, count) (every row by
+    default), the census of each eye that of the whole frame
+    (`census_rows`): a (2D, count, W) volume whose plane d < D is the left
+    eye's C(L(x), R(clamp(x + d - zd))), plane D + d the right eye's
     C(L(clamp(x - (d - zd))), R(x)).  u8 rint(127 * cost) with `quant`
     (the values of `cost_pair` + `shear_right`), else float32.  eyes="l"
-    gives the left eye's (D, H, W) planes alone, eyes="r" the right eye's,
-    over the columns cols=(x0, x1) if given: (D, H, x1 - x0).  Kernel B16
-    (csrc/cost_dm.cu)."""
-    if num_disp > MAX_REACH or zero_disp > MAX_REACH:
-        raise ValueError("ci_adcensus_kern supports num_disp/zero_disp "
+    gives the left eye's (D, count, W) planes alone; eyes="r" writes the
+    right eye's planes over the one or two column ranges cols=((x0, x1),
+    ...) into `out`, a (D, count, W) volume, in place, and returns it.
+    Kernel B16 (csrc/cost_dm.cu), which computes the grayscale and the
+    census itself."""
+    if zero_disp > MAX_REACH or num_disp - zero_disp > MAX_REACH:
+        raise ValueError("cost_dm reaches at most 128 columns either way: "
+                         "need zero_disp <= 128 and num_disp - zero_disp "
                          "<= 128")
     if kernels.on_cpu(img_l):
-        return ci_adcensus_stacked_plain(img_l, img_r, cen_l, cen_r,
-                                         ad_coeff, census_coeff, num_disp,
-                                         zero_disp, quant, eyes, cols)
+        return cost_dm_plain(img_l, img_r, ad_coeff, census_coeff, num_disp,
+                             zero_disp, quant, eyes, rows, cols, out)
     dev = img_l.device
-    h, w = img_l.shape[:2]
-    for name, t, dt in (("img_l", img_l, torch.uint8),
-                        ("img_r", img_r, torch.uint8),
-                        ("cen_l", cen_l, torch.int32),
-                        ("cen_r", cen_r, torch.int32)):
-        kernels.require(t, name, dt, 3, dev, contiguous=False)
-    if (img_r.shape != img_l.shape or img_l.shape[2] != 3
-            or cen_l.shape != (h, w, 2) or cen_r.shape != (h, w, 2)):
-        raise ValueError("cost_dm: inconsistent input shapes")
+    for name, t in (("img_l", img_l), ("img_r", img_r)):
+        kernels.require(t, name, torch.uint8, 3, dev, contiguous=False)
+    if img_r.shape != img_l.shape or img_l.shape[2] != 3:
+        raise ValueError("cost_dm: expected two (H, W, 3) images of one "
+                         "shape")
     if not 0 <= zero_disp <= num_disp:
         raise ValueError("cost_dm: need 0 <= zero_disp <= num_disp")
-    x0, x1 = _columns(eyes, cols, w)
-    lpk, rpk = pack_bgr(img_l), pack_bgr(img_r)
-    cl, cr = cen_l.contiguous(), cen_r.contiguous()
+    h, w = img_l.shape[:2]
+    start, count = _row_range(rows, h, "cost_dm")
+    ranges = _dm_columns(eyes, cols, w)
+    out = _dm_out(eyes, out, num_disp, count, w,
+                  torch.uint8 if quant else F32, dev)
+    kernels.require(out, "out", out.dtype, 3, dev)
     if quant:
         tabs = (device_cost_table(ad_coeff, census_coeff, dev).data_ptr(),
                 None, None)
     else:
         a, c = device_cost_terms(ad_coeff, census_coeff, dev)
         tabs = (None, a.data_ptr(), c.data_ptr())
-    out = torch.empty(((2 if eyes == "lr" else 1) * num_disp, h, x1 - x0),
-                      device=dev, dtype=torch.uint8 if quant else F32)
+    (a0, a1), (b0, b1) = ranges[0], (ranges + ((0, 0),))[1]
+    il, ir = img_l.contiguous(), img_r.contiguous()
     rc = kernels.lib("cost_dm").stm_cost_dm(
-        lpk.data_ptr(), rpk.data_ptr(), cl.data_ptr(), cr.data_ptr(), *tabs,
-        out.data_ptr(), h, w, num_disp, zero_disp, int(quant), EYES[eyes],
-        x0, x1, kernels.stream_of(out))
+        il.data_ptr(), ir.data_ptr(), *tabs, out.data_ptr(), h, w, num_disp,
+        zero_disp, int(quant), EYES[eyes], start, count, a0, a1, b0, b1,
+        kernels.stream_of(out))
     kernels.check_launch(rc, "cost_dm")
     cost_dm.launches += 1
     return out
+
+
+def _check_jax_reach(num_disp: int, zero_disp: int):
+    """The JAX entry points' limit (B16 itself reaches 128 columns either
+    way, up to D = 256)."""
+    if num_disp > MAX_REACH or zero_disp > MAX_REACH:
+        raise ValueError("ci_adcensus_kern supports num_disp/zero_disp "
+                         "<= 128")
 
 
 def ci_adcensus_kern_stacked(img_l: torch.Tensor, img_r: torch.Tensor,
@@ -385,9 +427,9 @@ def ci_adcensus_kern_stacked(img_l: torch.Tensor, img_r: torch.Tensor,
     """(H, W, 3) u8 pair -> ONE (2D, H, W) disparity-major cost volume
     (left eye on planes [0, D), right on [D, 2D)), the layout
     `band_aggregate_q_dm` reads; u8 with `quant`, else float32."""
-    return cost_dm(img_l, img_r, census_transform_9x7(mux_average(img_l)),
-                   census_transform_9x7(mux_average(img_r)), ad_coeff,
-                   census_coeff, num_disp, zero_disp, quant)
+    _check_jax_reach(num_disp, zero_disp)
+    return cost_dm(img_l, img_r, ad_coeff, census_coeff, num_disp,
+                   zero_disp, quant)
 
 
 def shear_right_dm_plain(vol: torch.Tensor, zero_disp: int) -> torch.Tensor:
@@ -446,9 +488,11 @@ def ci_adcensus_kern(img_l: torch.Tensor, img_r: torch.Tensor,
     silently, as in the JAX package): B16 computes the left eye alone, B17
     shears it into the right eye, and B16's right-eye mode recomputes the
     border strips [0, M) and [W - M, W), M = max(zd, D - zd), where the
-    shifted column leaves the image.  Equal to the direct path.
+    shifted column leaves the image, both in one launch, in place.  Equal
+    to the direct path.
     `fast_exp` changes no value, as in `ci_adcensus_kern_xm`."""
     del fast_exp
+    _check_jax_reach(num_disp, zero_disp)
     if not (shift_extract
             and shift_extract_applies(img_l.shape[1], num_disp, zero_disp)):
         vol = ci_adcensus_kern_stacked(img_l, img_r, ad_coeff, census_coeff,
@@ -456,15 +500,12 @@ def ci_adcensus_kern(img_l: torch.Tensor, img_r: torch.Tensor,
         return (vol[:num_disp].permute(1, 2, 0).contiguous(),
                 vol[num_disp:].permute(1, 2, 0).contiguous())
     w = img_l.shape[1]
-    cen_l = census_transform_9x7(mux_average(img_l))
-    cen_r = census_transform_9x7(mux_average(img_r))
-    args = (img_l, img_r, cen_l, cen_r, ad_coeff, census_coeff, num_disp,
-            zero_disp, quant)
+    args = (img_l, img_r, ad_coeff, census_coeff, num_disp, zero_disp,
+            quant)
     vol_l = cost_dm(*args, eyes="l")
     vol_r = shear_right_dm(vol_l, zero_disp)
     m = pair_margin(num_disp, zero_disp)
-    for x0, x1 in ((0, m), (w - m, w)):
-        vol_r[:, :, x0:x1] = cost_dm(*args, eyes="r", cols=(x0, x1))
+    cost_dm(*args, eyes="r", cols=((0, m), (w - m, w)), out=vol_r)
     return (vol_l.permute(1, 2, 0).contiguous(),
             vol_r.permute(1, 2, 0).contiguous())
 

@@ -319,32 +319,56 @@ def merge_shifts(shifts):
 
 
 def warp_merge_views_plain(img_l, img_r, disp_l, disp_r, mask_l, mask_r,
-                           feathered, shifts) -> torch.Tensor:
+                           feathered, shifts, out=None) -> torch.Tensor:
     """Plain version of `warp_merge_views`: two warps (unbounded, as the
     kernel) and a merge per view."""
     sl, sr = merge_shifts(shifts)
-    return torch.stack([
-        mux_merge_ab(masked(warp_interp_u8(img_l, disp_r, a), mask_r),
-                     masked(warp_interp_u8(img_r, disp_l, b), mask_l),
-                     feathered)
-        for a, b in zip(sl, sr)])
+    views = [mux_merge_ab(masked(warp_interp_u8(img_l, disp_r, a), mask_r),
+                          masked(warp_interp_u8(img_r, disp_l, b), mask_l),
+                          feathered)
+             for a, b in zip(sl, sr)]
+    if out is None:
+        return torch.stack(views)
+    return torch.stack(views, out=out)
+
+
+@functools.lru_cache(maxsize=16)
+def _stack_shifts(shifts: tuple, device: torch.device):
+    """B12's view-stack shift array on the device: sl, then sr."""
+    sl, sr = merge_shifts(shifts)
+    return torch.tensor(sl + sr, dtype=F32, device=device)
+
+
+def _views_out(out, nv: int, h: int, w: int, dev) -> torch.Tensor:
+    """The (nv, H, W, 3) u8 volume `warp_merge_views` writes: `out` if
+    given (checked), else a new one."""
+    if out is None:
+        return torch.empty((nv, h, w, 3), dtype=torch.uint8, device=dev)
+    if (tuple(out.shape) != (nv, h, w, 3) or out.dtype != torch.uint8
+            or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"warp_merge_views: out must be a contiguous "
+                         f"({nv}, {h}, {w}, 3) uint8 volume on {dev}")
+    return out
 
 
 @kernels.kernel_wrapper
 def warp_merge_views(img_l, img_r, disp_l, disp_r, mask_l, mask_r,
-                     feathered, shifts) -> torch.Tensor:
+                     feathered, shifts, out=None) -> torch.Tensor:
     """Every intermediate view, (nv, H, W, 3) u8: for each shift, the
     left image warped with disp_r at -shift (masked by mask_r) and the
     right image warped with disp_l at 1 - shift (masked by mask_l),
-    merged with the feathered weight (`mux_merge_ab`).  Kernel B12
-    (csrc/warp.cu)."""
-    if not shifts:
-        return img_l.new_empty((0, *img_l.shape))
-    if kernels.on_cpu(img_l):
-        return warp_merge_views_plain(img_l, img_r, disp_l, disp_r, mask_l,
-                                      mask_r, feathered, shifts)
+    merged with the feathered weight (`mux_merge_ab`).  Written into
+    `out`, a contiguous (nv, H, W, 3) u8 volume, when given (the view
+    stack's middle views, in place), and returned.  Kernel B12
+    (csrc/warp.cu), one launch for every view."""
     dev = img_l.device
     h, w = img_l.shape[:2]
+    if not shifts:
+        return _views_out(out, 0, h, w, dev)
+    if kernels.on_cpu(img_l):
+        return warp_merge_views_plain(
+            img_l, img_r, disp_l, disp_r, mask_l, mask_r, feathered, shifts,
+            _views_out(out, len(shifts), h, w, dev))
     for name, t in (("img_l", img_l), ("img_r", img_r)):
         kernels.require(t, name, torch.uint8, 3, dev)
         if t.shape != (h, w, 3):
@@ -356,12 +380,12 @@ def warp_merge_views(img_l, img_r, disp_l, disp_r, mask_l, mask_r,
         if t.shape != (h, w):
             raise ValueError(f"warp_merge_views: {name} is not (H, W)")
     nv = len(shifts)
-    sl, sr = merge_shifts(shifts)
-    out = torch.empty((nv, h, w, 3), dtype=torch.uint8, device=dev)
+    out = _views_out(out, nv, h, w, dev)
     rc = kernels.lib("warp").stm_warp_merge(
         img_l.data_ptr(), img_r.data_ptr(), disp_l.data_ptr(),
         disp_r.data_ptr(), mask_l.data_ptr(), mask_r.data_ptr(),
-        feathered.data_ptr(), kernels.host_f32(sl), kernels.host_f32(sr),
+        feathered.data_ptr(),
+        _stack_shifts(tuple(float(x) for x in shifts), dev).data_ptr(),
         out.data_ptr(), h, w, nv, kernels.stream_of(out))
     kernels.check_launch(rc, "warp_merge_views")
     warp_merge_views.launches += 1

@@ -97,18 +97,47 @@ def test_ci_adcensus_kern_matches_jax(stereo_pair, nd, zd):
 def test_stacked_cost_equals_the_lane_major_volumes(stereo_pair):
     """Kernel B16's values are those of B2 + B3: plane d of each eye is
     the (H, W, D) volume's slice d."""
-    from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
-    from stereo_to_multiview_tpu_torch.ops.mux import mux_average
     left, right = (_t(x) for x in stereo_pair)
     nd, zd = 12, 6
-    cen_l = census_transform_9x7(mux_average(left))
-    cen_r = census_transform_9x7(mux_average(right))
     pair = tck.cost_pair(left, right, 10.0, 30.0, nd, zd)
     m = tck.pair_margin(nd, zd)
-    vol = tck.cost_dm(left, right, cen_l, cen_r, 10.0, 30.0, nd, zd)
+    vol = tck.cost_dm(left, right, 10.0, 30.0, nd, zd)
     assert torch.equal(vol[:nd].permute(1, 2, 0),
                        pair[:, m:m + left.shape[1]])
     assert torch.equal(vol[nd:].permute(1, 2, 0), tck.shear_right(pair, zd))
+
+
+# the first, a middle and the last 16-row chunk of a 40-row frame with a
+# halo of 4 rows (usd 2), as `band_stereo_core_dm` cuts it: rows [0, 16),
+# [12, 28) and [24, 40)
+ROW_CHUNKS = [0, 2, 4]
+
+
+@pytest.mark.parametrize("quant", [True, False], ids=["u8", "float32"])
+@pytest.mark.parametrize("chunk", ROW_CHUNKS)
+def test_cost_dm_row_range_matches_jax_chunk(quant, chunk):
+    """`cost_dm` over a row range of the whole frame equals the JAX
+    chunk's cost exactly as `band_stereo_core_dm` slices it: the stacked
+    kernel on img[i0:i1], i0 = max(0, start - 3), then rows [c_lo, c_lo +
+    ext).  The census reads rows outside the range but inside the frame
+    (stereo_to_multiview_tpu/ops/band.py:1055-1060).  u8 exact; float32
+    within 2e-6 (the two packages' float32 exp differ in the last ulp)."""
+    left, right = _textured(np.random.default_rng(77), 40, 44)
+    nd, zd = 12, 5
+    ext, bounds = tband.chunk_bounds(40, 8, 4)
+    start = bounds[chunk][0]
+    i0, i1 = max(0, start - 3), min(40, start + ext + 3)
+    ref = jck.ci_adcensus_kern_stacked(
+        jnp.asarray(left[i0:i1]), jnp.asarray(right[i0:i1]), 10.0, 30.0, nd,
+        zd, quant=quant, interpret=True)[:, start - i0:start - i0 + ext]
+    got = tck.cost_dm(_t(left), _t(right), 10.0, 30.0, nd, zd, quant,
+                      rows=(start, ext))
+    assert got.shape == (2 * nd, ext, 44)
+    assert got.dtype == (torch.uint8 if quant else torch.float32)
+    if quant:
+        np.testing.assert_array_equal(_np(ref), _np(got))
+    else:
+        np.testing.assert_allclose(_np(ref), _np(got), rtol=0, atol=2e-6)
 
 
 def test_ci_adcensus_kern_shift_extract_raises():

@@ -16,8 +16,6 @@ import torch
 from stereo_to_multiview_tpu.ops import costkern as jck
 
 from stereo_to_multiview_tpu_torch.ops import costkern as tck
-from stereo_to_multiview_tpu_torch.ops.cost import census_transform_9x7
-from stereo_to_multiview_tpu_torch.ops.mux import mux_average
 
 torch.set_num_threads(1)
 
@@ -30,33 +28,54 @@ def _pair(seed, h, w):
 
 def _cost_args(left, right, nd, zd):
     l, r = torch.from_numpy(left), torch.from_numpy(right)
-    return (l, r, census_transform_9x7(mux_average(l)),
-            census_transform_9x7(mux_average(r)), 10.0, 30.0, nd, zd)
+    return (l, r, 10.0, 30.0, nd, zd)
 
 
 @pytest.mark.parametrize("quant", [True, False])
 def test_cost_dm_one_eye_modes_are_the_stacked_planes(quant):
-    """eyes="l" is the stacked volume's first D planes, eyes="r" over
-    [x0, x1) its last D planes at those columns."""
-    left, right = _pair(50, 6, 90)
+    """eyes="l" is the stacked volume's first D planes; eyes="r" writes
+    its last D planes at the columns of one or two ranges into the
+    given volume, in place, and leaves its other columns as they were;
+    on a row range, both are those rows of the whole frame's planes."""
+    left, right = _pair(50, 9, 90)
     nd, zd = 16, 10
     args = _cost_args(left, right, nd, zd)
     both = tck.cost_dm(*args, quant)
     assert torch.equal(tck.cost_dm(*args, quant, eyes="l"), both[:nd])
-    for cols in ((0, 10), (37, 90), (0, 90)):
-        strip = tck.cost_dm(*args, quant, eyes="r", cols=cols)
-        assert torch.equal(strip, both[nd:, :, cols[0]:cols[1]])
+    for cols in (((0, 10),), ((37, 90),), ((0, 90),),
+                 ((0, 16), (74, 90)), ((0, 1), (89, 90))):
+        vol = torch.full_like(both[nd:], 7)
+        got = tck.cost_dm(*args, quant, eyes="r", cols=cols, out=vol)
+        assert got is vol
+        want = torch.full_like(vol, 7)
+        for x0, x1 in cols:
+            want[:, :, x0:x1] = both[nd:, :, x0:x1]
+        assert torch.equal(vol, want)
+    rows = (3, 4)
+    part = tck.cost_dm(*args, quant, rows=rows)
+    assert torch.equal(part, both[:, 3:7])
+    vol = torch.zeros_like(part[nd:])
+    tck.cost_dm(*args, quant, eyes="r", rows=rows, cols=((0, 16), (74, 90)),
+                out=vol)
+    assert torch.equal(vol[:, :, 74:], both[nd:, 3:7, 74:])
 
 
 def test_cost_dm_refuses_bad_modes():
     left, right = _pair(51, 4, 20)
     args = _cost_args(left, right, 8, 4)
+    out = torch.zeros((8, 4, 20), dtype=torch.uint8)
     with pytest.raises(ValueError, match="eyes"):
         tck.cost_dm(*args, eyes="both")
     with pytest.raises(ValueError, match="eyes='r' only"):
-        tck.cost_dm(*args, eyes="l", cols=(0, 4))
-    with pytest.raises(ValueError, match="not inside"):
-        tck.cost_dm(*args, eyes="r", cols=(5, 21))
+        tck.cost_dm(*args, eyes="l", cols=((0, 4),))
+    with pytest.raises(ValueError, match="not ascending"):
+        tck.cost_dm(*args, eyes="r", cols=((5, 21),), out=out)
+    with pytest.raises(ValueError, match="not ascending"):
+        tck.cost_dm(*args, eyes="r", cols=((8, 12), (4, 6)), out=out)
+    with pytest.raises(ValueError, match="writes into `out`"):
+        tck.cost_dm(*args, eyes="r", cols=((0, 4),))
+    with pytest.raises(ValueError, match="rows"):
+        tck.cost_dm(*args, rows=(2, 3))
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
@@ -132,8 +151,7 @@ def test_shift_extract_wrappers_reject_other_devices(wrapper):
         return torch.empty(shape, dtype=dtype, device="meta")
     calls = {
         "cost_dm_left": lambda: tck.cost_dm(
-            m(4, 8, 3), m(4, 8, 3), m(4, 8, 2, dtype=torch.int32),
-            m(4, 8, 2, dtype=torch.int32), 10.0, 30.0, 8, 4, eyes="l"),
+            m(4, 8, 3), m(4, 8, 3), 10.0, 30.0, 8, 4, eyes="l"),
         "shear_right_dm": lambda: tck.shear_right_dm(m(8, 4, 8), 4),
     }
     with pytest.raises(ValueError, match="CPU or CUDA"):
