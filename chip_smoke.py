@@ -91,7 +91,14 @@
    at 4K with 14, on 37x1001, 37x1 and 37x17 crops, on masks and a
    feather outside [0, 1], and into a view stack whose middle views are
    not 16-byte aligned; `synthesize_views` with 40 views (B12 once) and
-   with 2 (no B12).
+   with 2 (no B12).  B19 (every view in one launch, its count held at one
+   for 38 views) on the 4K frame with 14 views, on 37x1001, 37x1, 37x15
+   and 37x17 crops and on disparities of +-64 whose samples clamp at both
+   ends of a row, and B20 at the shifts 0 and 1, each bit for bit (its
+   zeros +0.0) and timed from a CUDA graph beside its CUDA-event time;
+   B17 u8 on rows of 4-byte words (200x1004) and of bytes (W = 1, 15,
+   17), at zd = 0 and zd = D, on one plane and on a 4K chunk's shape
+   (128x680x3840).
 3. Drives the paths on SBS frames built from tests/data/bud_{2,3}.bmp:
    `process_frame` at HD1080_D128 (the main path), at
    HD1080_D128_HSLO_4K (scanline optimisation, median, 1080p views
@@ -163,16 +170,18 @@ broken copy of one fails, and to time two commits' kernels in turns.
 `--synth-checks [--package-root DIR]` does the same for the synthesis
 kernels: the occlusion stage (fused, and B7's hits and B11 unfused), the
 feather G1 and B12 (its view stack and its interlace mode) at their
-edges, and each preset path's interlaced frame against the
+edges, the row-major warps B19 and B20 (at their edges, as a path, and
+B19 on the 4K frame), and each preset path's interlaced frame against the
 plain chain.  `--band-checks [--package-root DIR]` does the same for B15
 (its path shapes and edges, `dr_irv_band_lr` as a path) and the
 disparity-major core (B16, B18a-c at 1080p, a 680-row chunk, 200x1001
 and a 4K chunk, B16's one-eye modes and edges, B18a-c's edges,
-`band_stereo_core_dm` as paths), then prints `ci_adcensus_kern` (u8,
-float32) and `band_stereo_core_dm` (1080p whole and in 540-row chunks,
-4K) split by CUDA events into the torch census (a package whose B16
-takes census codes), B16, B18a-c, the chunks' glue and the relayout
-copies.
+`band_stereo_core_dm` as paths, B17 at its edges,
+`ci_adcensus_kern(shift_extract=True)` as a path), then prints
+`ci_adcensus_kern` (u8, float32) and `band_stereo_core_dm` (1080p whole
+and in 540-row chunks, 4K) split by CUDA events into the torch census (a
+package whose B16 takes census codes), B16, B18a-c, the chunks' glue and
+the relayout copies.
 `--runtime-checks` runs phase 5 alone, `--shard-checks` phase 6 alone.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
@@ -614,6 +623,33 @@ KERNELS.update({
 })
 KERNELS["B19 dibr_warp_views_kern" + AT_VIEWS38] = KERNELS[
     "B19 dibr_warp_views_kern"]
+# B19 (one launch for every view, rows staged, 16-byte stores) where its
+# segments, view loop and stores meet their edges: the 4K frame with 14
+# views, a 37x1001 crop (no row 16-byte aligned at a segment's start but
+# every fourth), W = 1, 15 and 17, and disparities of +-64 that clamp c
+# at both ends of a row; B20 at the shifts 0 and 1 (a warp of shift 0,
+# bounds (0, 0))
+B19 = "B19 dibr_warp_views_kern"
+B19_4K = " (2160x3840, 14 views)"
+B19_EDGES = (" (37x1001 crop)", " (37x1, W=1)", " (37x15, W=15)",
+             " (37x17, W=17)",
+             " (200x1001, disparities +-64 that clamp c at both row ends)")
+B20_SHIFTS = {" (shift 0)": 0.0, " (shift 1)": 1.0}
+for _suffix in (B19_4K, *B19_EDGES):
+    KERNELS[B19 + _suffix] = KERNELS[B19]
+for _suffix in B20_SHIFTS:
+    KERNELS["B20 dibr_warp_pair_kern" + _suffix] = KERNELS[
+        "B20 dibr_warp_pair_kern"]
+# B17 u8 where its paths meet their edges: rows of 4-byte words (W =
+# 1004, the 4-byte path), of bytes (W = 1, 15, 17), the shifts of one sign
+# (zd = 0: every s >= 0; zd = D: every s < 0), one plane, and the 4K
+# preset's chunk shape
+B17U8 = "B17 shear_right_dm (u8)"
+B17_EDGES = (" (200x1004: 4-byte words)", " (37x1, W=1)", " (37x15, W=15)",
+             " (37x17, W=17)", " (zd=0)", " (zd=D)", " (D=1)",
+             " (128x680x3840, a 4K chunk's shape)")
+for _suffix in B17_EDGES:
+    KERNELS[B17U8 + _suffix] = KERNELS[B17U8]
 # the band engine's dials: band_qscale (int16 costs above 127.5) and
 # band_lossy_wta (pass 4's inputs rounded to bf16), each as a path of
 # process_frame, and the band engine's cost entry `ci_adcensus_kern_xm`
@@ -931,10 +967,12 @@ class KernelChecks:
 
     def record(self, name, got, ref, kern, plain, nbytes, ops, library=None,
                plain_once=False, ops_rate=PEAK_OPS_PER_S, graph=False,
-               bits=False):
+               bits=False, events=False):
         """With `bits`, float32 outputs must agree in every bit (the sign
         of a zero too) but a NaN's payload: NaN where the plain version
-        has NaN."""
+        has NaN.  With `graph` and `events`, the calls' CUDA-event time
+        (the wrapper's host time included) beside their device time, as
+        `event_ms`."""
         import torch
         name += self.suffix
         torch.cuda.synchronize()
@@ -976,6 +1014,11 @@ class KernelChecks:
                       else time_ms(plain, max(1, reps // 4))), bound_ms=b_ms,
             bound_by=b_by,
             library_ms=None if library is None else time_ms(library, reps))
+        if graph and events:
+            r["event_ms"] = time_ms(kern, reps)
+            print(f"kernel {name}: {r['ms']:.4f} ms device time (CUDA "
+                  f"graph), {r['event_ms']:.4f} ms by CUDA events",
+                  flush=True)
         print(f"kernel {name}: equal to plain; {r['ms']:.4f} ms "
               f"(plain {r['plain_ms']:.3f} ms, bound {b_ms:.4f} ms by "
               f"{b_by}, library {r['library_ms']})", flush=True)
@@ -1951,8 +1994,8 @@ def has_fused_occl() -> bool:
 def check_many_views(chk, img_l, img_r, bl, br, cfg):
     """B12 (both modes), B14 and B19 with 38 intermediate views
     (num_views=40, more than one kernel argument block of 32 views
-    holds), on a 200x1001 crop of a frame's images and final
-    disparities."""
+    holds; B19 one launch for all of them), on a 200x1001 crop of a
+    frame's images and final disparities."""
     from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
     from stereo_to_multiview_tpu_torch.ops import dibr, warpkern
 
@@ -1983,13 +2026,11 @@ def check_many_views(chk, img_l, img_r, bl, br, cfg):
                nbytes=2 * hw * 3 + 2 * hw * 4 + 2 * vab[0].numel() * 4,
                ops=2 * vab[0].numel() * 8)
     bargs = (l, r, dl, dr, shifts, cfg.num_disp, cfg.zero_disp)
-    got = warpkern.dibr_warp_views_kern(*bargs)
-    chk.record("B19 dibr_warp_views_kern", got,
-               warpkern.warp_views_bounded_plain(*bargs),
-               lambda: warpkern.dibr_warp_views_kern(*bargs),
-               lambda: warpkern.warp_views_bounded_plain(*bargs),
-               nbytes=2 * hw * 3 + 2 * hw * 4 + 2 * got[0].numel() * 4,
-               ops=2 * got[0].numel() * 8)
+    # every view in one launch
+    reset_counts()
+    warpkern.dibr_warp_views_kern(*bargs)
+    read_counts(WARP_RM + " num_views=40", {"dibr_warp_views_kern": 1})
+    record_b19(chk, B19, *bargs)
     chk.suffix = ""
 
 
@@ -3096,7 +3137,6 @@ def check_shift_extract(chk, img_l, img_r, cfg):
     launch, written into the sheared volume in place) and B17 (u8 and
     float32) on a frame's pair."""
     import torch
-    import torch.nn.functional as F
     from stereo_to_multiview_tpu_torch.ops import costkern
 
     h, w = img_l.shape[:2]
@@ -3105,9 +3145,6 @@ def check_shift_extract(chk, img_l, img_r, cfg):
     m = costkern.pair_margin(nd, zd)
     kern, plain = dm_cost_fns(costkern, img_l, img_r)
     coeffs = (cfg.ad_coeff, cfg.census_coeff, nd, zd)
-    x = torch.arange(w, device=img_l.device)[None, None, :]
-    d = torch.arange(nd, device=img_l.device)[:, None, None]
-    idx = (x + m - (d - zd)).expand(nd, h, w)
     for quant, label, size in ((True, "u8", 1), (False, "float32", 4)):
         kw = dict(quant=quant, eyes="l")
         left = kern(*coeffs, **kw)
@@ -3122,19 +3159,74 @@ def check_shift_extract(chk, img_l, img_r, cfg):
                     (B16_STRIPS, ((0, m), (w - m, w)))):
                 record_strips(chk, name, kern, plain, coeffs, sheared, cols,
                               nd, zd)
-        # the library call: one gather from a zero-padded copy (made
-        # beforehand) computes the same function
-        padded = F.pad(left, (m, m))
-        if not torch.equal(torch.gather(padded, 2, idx), sheared):
-            raise SmokeFailure("B17: the library gather disagrees")
-        chk.record(f"B17 shear_right_dm ({label})", sheared,
-                   costkern.shear_right_dm_plain(left, zd),
-                   lambda: costkern.shear_right_dm(left, zd),
-                   lambda: costkern.shear_right_dm_plain(left, zd),
-                   nbytes=2 * vol * size, ops=0,
-                   library=lambda: torch.gather(padded, 2, idx))
-        del left, sheared, padded
+        del sheared
+        record_shear_dm(chk, f"B17 shear_right_dm ({label})", left, zd)
+        del left
         torch.cuda.empty_cache()
+
+
+def record_shear_dm(chk, name, vol, zd):
+    """One B17 entry: the shear of a (D, H, W) volume against its plain
+    version, beside the library call, one gather from a zero-padded copy
+    made beforehand (held equal to the plain version first); bytes: the
+    volume read and written once."""
+    import torch
+    import torch.nn.functional as F
+    from stereo_to_multiview_tpu_torch.ops import costkern
+
+    nd, h, w = vol.shape
+    m = max(zd, nd - zd)
+    x = torch.arange(w, device=vol.device)[None, None, :]
+    d = torch.arange(nd, device=vol.device)[:, None, None]
+    idx = (x + m - (d - zd)).expand(nd, h, w)
+    padded = F.pad(vol, (m, m))
+    try:
+        ref = costkern.shear_right_dm_plain(vol, zd)
+    except RuntimeError:
+        # an older package's plain version slices past rows shorter than
+        # the shifts; this checkout's must not
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(costkern.__file__))))
+        if os.path.samefile(root, HERE):
+            raise
+        print(f"{name}: not taken by the package's plain version",
+              flush=True)
+        return
+    if not torch.equal(torch.gather(padded, 2, idx), ref):
+        raise SmokeFailure(f"{name}: the library gather disagrees")
+    chk.record(name, costkern.shear_right_dm(vol, zd), ref,
+               lambda: costkern.shear_right_dm(vol, zd),
+               lambda: costkern.shear_right_dm_plain(vol, zd),
+               nbytes=2 * vol.numel() * vol.element_size(), ops=0,
+               library=lambda: torch.gather(padded, 2, idx))
+
+
+def check_shear_dm_edges(chk, img_l, img_r, cfg):
+    """B17 u8 at its edges (`B17_EDGES`) on the 1080p frame's left-eye
+    volume (B16's left-eye mode): crops of 200x1004, 37x1, 37x15 and
+    37x17, the whole volume at zd = 0 and zd = D, its first plane at
+    zd = 1, and its first 680 rows tiled twice across (128x680x3840)."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import costkern
+
+    nd, zd = cfg.num_disp, cfg.zero_disp
+    kern, _ = dm_cost_fns(costkern, img_l, img_r)
+    left = kern(cfg.ad_coeff, cfg.census_coeff, nd, zd, quant=True,
+                eyes="l")
+    y0 = left.shape[1] // 2
+    for suffix, (rows, cols) in zip(B17_EDGES[:4], ((200, 1004), (37, 1),
+                                                    (37, 15), (37, 17))):
+        record_shear_dm(chk, B17U8 + suffix,
+                        left[:, y0:y0 + rows, :cols].contiguous(), zd)
+    record_shear_dm(chk, B17U8 + B17_EDGES[4], left, 0)
+    record_shear_dm(chk, B17U8 + B17_EDGES[5], left, nd)
+    record_shear_dm(chk, B17U8 + B17_EDGES[6], left[:1].contiguous(), 1)
+    wide = left[:, :680].repeat(1, 1, 2).contiguous()
+    del left
+    torch.cuda.empty_cache()
+    record_shear_dm(chk, B17U8 + B17_EDGES[7], wide, zd)
+    del wide
+    torch.cuda.empty_cache()
 
 
 def record_strips(chk, name, kern, plain, coeffs, vol, cols, nd, zd):
@@ -3415,38 +3507,74 @@ def run_shift_extract(img_l, img_r, cfg):
     return res
 
 
+def same_bits(a, b) -> bool:
+    """Equal shapes and equal float32 bits, a zero's sign included."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def record_b19(chk, name, img_l, img_r, dl, dr, shifts, nd, zd):
+    """One B19 entry: every view's bounded warps against the plain
+    version in every bit (the zeros outside a view's range +0.0), timed
+    from a CUDA graph (device time) and by CUDA events (the wrapper's host
+    time included); bytes: the images and disparities read once, both
+    volumes written once.  Returns the kernel's output."""
+    from stereo_to_multiview_tpu_torch.ops import warpkern
+    hw = img_l.shape[0] * img_l.shape[1]
+    args = (img_l, img_r, dl, dr, shifts, nd, zd)
+    got = warpkern.dibr_warp_views_kern(*args)
+    chk.record(name, got, warpkern.warp_views_bounded_plain(*args),
+               lambda: warpkern.dibr_warp_views_kern(*args),
+               lambda: warpkern.warp_views_bounded_plain(*args),
+               nbytes=2 * hw * 3 + 2 * hw * 4 + 2 * got[0].numel() * 4,
+               ops=2 * got[0].numel() * 8, graph=True, events=True,
+               bits=True)
+    return got
+
+
+def record_b20(chk, name, img_l, img_r, dl, dr, s, nd, zd):
+    """One B20 entry (one view at shift `s`), as `record_b19`."""
+    from stereo_to_multiview_tpu_torch.ops import warpkern
+    hw = img_l.shape[0] * img_l.shape[1]
+    pargs = (img_l, img_r, dl, dr, s, nd, zd)
+    pair = warpkern.dibr_warp_pair_kern(*pargs)
+
+    def plain():
+        va, vb = warpkern.warp_views_bounded_plain(img_l, img_r, dl, dr,
+                                                   (s,), nd, zd)
+        return va[0], vb[0]
+
+    chk.record(name, pair, plain(),
+               lambda: warpkern.dibr_warp_pair_kern(*pargs), plain,
+               nbytes=2 * hw * 3 + 2 * hw * 4 + 2 * pair[0].numel() * 4,
+               ops=2 * pair[0].numel() * 8, graph=True, events=True,
+               bits=True)
+
+
 def check_warp_rowmajor(chk, img_l, img_r, bl, br, cfg):
     """B19 and B20 on a frame's final disparities and the views of the
     configuration, B19 once more on disparities pushed outside the range;
     then the row-major warps as a path: B19 once and B20 per view, equal
-    view by view and equal to the unfused warps (B14) on these in-range
-    disparities.  Returns the path's results."""
+    view by view in every bit and equal to the unfused warps (B14) on
+    these in-range disparities.  Returns the path's results."""
     import torch
     from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
     from stereo_to_multiview_tpu_torch.ops import dibr, warpkern
 
-    hw = img_l.shape[0] * img_l.shape[1]
     nd, zd = cfg.num_disp, cfg.zero_disp
     shifts = _synth_shifts(cfg.num_views)
     nv = len(shifts)
-    in_bytes = 2 * hw * 3 + 2 * hw * 4
-    outside = "B19 dibr_warp_views_kern (disparities outside [-64, 64])"
-    for name, dl, dr in (("B19 dibr_warp_views_kern", bl, br),
-                         (outside, bl * 3, br * 3)):
-        args = (img_l, img_r, dl, dr, shifts, nd, zd)
-        got = warpkern.dibr_warp_views_kern(*args)
-        chk.record(name, got, warpkern.warp_views_bounded_plain(*args),
-                   lambda: warpkern.dibr_warp_views_kern(*args),
-                   lambda: warpkern.warp_views_bounded_plain(*args),
-                   nbytes=in_bytes + 2 * got[0].numel() * 4,
-                   ops=2 * got[0].numel() * 8)
+    outside = B19 + " (disparities outside [-64, 64])"
+    for name, dl, dr in ((B19, bl, br), (outside, bl * 3, br * 3)):
+        got = record_b19(chk, name, img_l, img_r, dl, dr, shifts, nd, zd)
         zeros = float((got[0] == 0).float().mean())
         print(f"  {name}: {zeros:.4f} of the left-image warps' subpixels "
               f"are 0", flush=True)
         if name == outside:
             # the bounds must act: the unbounded B14 reads a true sample
             # where B19 gives 0, and agrees with B19 everywhere else
-            b14 = dibr.warp_views(*args[:5])
+            b14 = dibr.warp_views(img_l, img_r, dl, dr, shifts)
             for i, eye in enumerate(("left", "right")):
                 cut = (got[i] == 0) & (b14[i] != 0)
                 share = float(cut.float().mean())
@@ -3461,18 +3589,8 @@ def check_warp_rowmajor(chk, img_l, img_r, bl, br, cfg):
                                        f"inside the bounds")
             del b14, cut
         del got
-    s = shifts[nv // 2]
-    pargs = (img_l, img_r, bl, br, s, nd, zd)
-    pair = warpkern.dibr_warp_pair_kern(*pargs)
-    va, vb = warpkern.warp_views_bounded_plain(img_l, img_r, bl, br, (s,),
-                                               nd, zd)
-    chk.record("B20 dibr_warp_pair_kern", pair, (va[0], vb[0]),
-               lambda: warpkern.dibr_warp_pair_kern(*pargs),
-               lambda: warpkern.warp_views_bounded_plain(
-                   img_l, img_r, bl, br, (s,), nd, zd),
-               nbytes=in_bytes + 2 * pair[0].numel() * 4,
-               ops=2 * pair[0].numel() * 8)
-    del pair, va, vb
+    record_b20(chk, "B20 dibr_warp_pair_kern", img_l, img_r, bl, br,
+               shifts[nv // 2], nd, zd)
 
     args = (img_l, img_r, bl, br, shifts, nd, zd)
     reset_counts()
@@ -3483,7 +3601,7 @@ def check_warp_rowmajor(chk, img_l, img_r, bl, br, cfg):
                                      "dibr_warp_pair_kern": nv},
                            zero=("warp_views",))
     for v, (a, b) in enumerate(pairs):
-        if not (torch.equal(views[0][v], a) and torch.equal(views[1][v], b)):
+        if not (same_bits(views[0][v], a) and same_bits(views[1][v], b)):
             raise SmokeFailure(f"path {WARP_RM}: B19 and B20 differ at view "
                                f"{v}")
     b14 = dibr.warp_views(img_l, img_r, bl, br, shifts)
@@ -3503,6 +3621,53 @@ def check_warp_rowmajor(chk, img_l, img_r, bl, br, cfg):
           f"one call, {res['pairs_ms']:.4f} ms as {nv} pair calls",
           flush=True)
     return res
+
+
+def check_warp_rowmajor_edges(chk, img_l, img_r, bl, br, cfg):
+    """B19 at its edges (`B19_EDGES`) on crops of a frame's images and
+    final disparities, and on disparities of +-64 (the configuration's
+    reach) whose samples clamp at both ends of a row; B20 at the shifts 0
+    and 1 on the whole frame."""
+    import torch
+    from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
+
+    nd, zd = cfg.num_disp, cfg.zero_disp
+    shifts = _synth_shifts(cfg.num_views)
+    y0 = img_l.shape[0] // 2
+
+    def crop(rows, cols):
+        return [t[y0:y0 + rows, :cols].contiguous()
+                for t in (img_l, img_r, bl, br)]
+
+    for suffix, shape in zip(B19_EDGES[:4], ((37, 1001), (37, 1), (37, 15),
+                                             (37, 17))):
+        record_b19(chk, B19 + suffix, *crop(*shape), shifts, nd, zd)
+    # left half +reach, right half -reach in disp_r (its warp's shifts are
+    # negative), the other way round in disp_l, a quarter less on every
+    # third row: samples clamped to column 0 at the row's start and W - 1
+    # at its end
+    l, r, _, _ = crop(200, 1001)
+    reach = float(min(zd, nd - zd))
+    x = torch.arange(1001, device=l.device)
+    y = torch.arange(200, device=l.device)
+    sign = torch.where(x < 500, 1.0, -1.0)[None, :]
+    mag = reach - 0.25 * (y % 3 == 0).float()[:, None]
+    dr = (mag * sign).contiguous()
+    dl = (-dr).contiguous()
+    record_b19(chk, B19 + B19_EDGES[4], l, r, dl, dr, shifts, nd, zd)
+    for suffix, s in B20_SHIFTS.items():
+        record_b20(chk, "B20 dibr_warp_pair_kern" + suffix, img_l, img_r, bl,
+                   br, s, nd, zd)
+
+
+def check_warp_rowmajor_4k(chk, img_l, img_r, bl, br, cfg):
+    """B19 on the 4K preset's frame: its images and final disparities,
+    its 14 intermediate views."""
+    import torch
+    from stereo_to_multiview_tpu_torch.models.pipeline import _synth_shifts
+    record_b19(chk, B19 + B19_4K, img_l, img_r, bl, br,
+               _synth_shifts(cfg.num_views), cfg.num_disp, cfg.zero_disp)
+    torch.cuda.empty_cache()
 
 
 def run_synthesis_entries(img_l, img_r, bl, br, cfg):
@@ -4563,9 +4728,10 @@ def synth_checks(root: str) -> int:
     """`--synth-checks [--package-root DIR]`: only the synthesis kernels,
     on the package under DIR: G1 and B12 (both modes) on the 1080p
     frame's stages and at their edges, the synthesis entries as paths,
-    then the preset paths' interlaced frames (one frame each, launch
-    counts held) against the plain chain, and the 4K frame's G1 and
-    B12.  Exit 1 if one fails: a deliberately broken copy must."""
+    B19 and B20 (at their edges and as a path), then the preset paths'
+    interlaced frames (one frame each, launch counts held) against the
+    plain chain, and the 4K frame's G1, B12 and B19.  Exit 1 if one
+    fails: a deliberately broken copy must."""
     import torch
     sys.path.insert(0, root)
     from stereo_to_multiview_tpu_torch import config, kernels
@@ -4587,7 +4753,11 @@ def synth_checks(root: str) -> int:
         check_many_views(chk, img_l, img_r, bl, br, cfg)
         check_view_stack_edges(chk, img_l, img_r, bl, br, masks, cfg)
         run_synthesis_entries(img_l, img_r, bl, br, cfg)
-        del masks, out, img_l, img_r, bl, br
+        del masks
+        torch.cuda.empty_cache()
+        check_warp_rowmajor(chk, img_l, img_r, bl, br, cfg)
+        check_warp_rowmajor_edges(chk, img_l, img_r, bl, br, cfg)
+        del out, img_l, img_r, bl, br
         torch.cuda.empty_cache()
         cfg4k = config.UHD4K_16V
         sbs4k = stereo_sbs(cfg4k.num_rows, cfg4k.num_cols)
@@ -4608,6 +4778,8 @@ def synth_checks(root: str) -> int:
                 check_synth_kernels(chk, img_l, img_r, out[0], out[1], pcfg,
                                     b14=False)
                 chk.suffix = ""
+                check_warp_rowmajor_4k(chk, img_l, img_r, out[0], out[1],
+                                       pcfg)
                 ms = time_ms(lambda: pipeline.synthesize_views(
                     img_l, img_r, out[0], out[1], pcfg), 10)
                 print(f"synthesis: {ms:.3f} ms view stack "
@@ -4670,6 +4842,9 @@ def band_checks(root: str) -> int:
         torch.cuda.empty_cache()
         # B16's one-eye modes and its edges
         check_shift_extract(chk, img_l, img_r, cfg)
+        check_shear_dm_edges(chk, img_l, img_r, cfg)
+        paths.update(run_shift_extract(img_l, img_r, cfg))
+        torch.cuda.empty_cache()
         check_dm_edges(chk, img_l, img_r, cfg)
         check_vdm_edges(chk, cfg.num_disp, dev)
         check_hdm_edges(chk, cfg.num_disp, dev)
@@ -4765,7 +4940,8 @@ def main() -> int:
                          "versions and print no result line")
     ap.add_argument("--synth-checks", action="store_true",
                     help="only hold the synthesis kernels (B7's hits, "
-                         "B11, the fused occlusion stage, G1, B12) and "
+                         "B11, the fused occlusion stage, G1, B12, B19, "
+                         "B20) and "
                          "the presets' interlaced frames against their "
                          "plain versions and print no result line")
     ap.add_argument("--band-checks", action="store_true",
@@ -4868,10 +5044,13 @@ def main() -> int:
         del raw
         torch.cuda.empty_cache()
         paths[WARP_RM] = check_warp_rowmajor(chk, img_l, img_r, bl, br, cfg)
+        check_warp_rowmajor_edges(chk, img_l, img_r, bl, br, cfg)
+        torch.cuda.empty_cache()
         report["forward_warp"] = check_forward_warp(img_l, img_r, bl, br, cfg)
         del bl, br
         torch.cuda.empty_cache()
         check_shift_extract(chk, img_l, img_r, cfg)
+        check_shear_dm_edges(chk, img_l, img_r, cfg)
         paths.update(run_shift_extract(img_l, img_r, cfg))
         torch.cuda.empty_cache()
         check_band_digits(chk, img_l, img_r, arms_l, cfg)
@@ -4989,6 +5168,7 @@ def main() -> int:
         check_synth_kernels(chk, img_l, img_r, out[0], out[1], cfg4k,
                             b14=False)
         chk.suffix = ""
+        check_warp_rowmajor_4k(chk, img_l, img_r, out[0], out[1], cfg4k)
         del out
         torch.cuda.empty_cache()
         # the disparity-major core at 3840 columns: its kernels on one of

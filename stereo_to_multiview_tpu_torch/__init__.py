@@ -41,7 +41,8 @@ its module names, so each counterpart is easy to find:
                     one launch) and B14 (the
                     float warps of every view); the forward warp
   ops.warpkern   -- kernels B19/B20 (the bounded row-major warps,
-                    `dibr_warp_views_kern`, `dibr_warp_pair_kern`)
+                    `dibr_warp_views_kern`, `dibr_warp_pair_kern`;
+                    every view in one launch)
   ops.mux        -- the interlace's view pattern and `mux_multiview`
   ops.scale      -- the rescales of the lowres path and the interlace
   ops.cost, ops.cross, ops.wta, ops.hslo (`dc_hslo`)

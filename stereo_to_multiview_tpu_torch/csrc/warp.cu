@@ -48,13 +48,12 @@
 // vb[v] = u8(lerp(img_r, disp_l, sr)) as float32, (nv, H, W, 3) each.  Its
 // bound is its output: 2 x 149 MB written at 1080p and 6 views against 28
 // MB read (~0.1 ms).  One thread per (view, pixel); the sampling code is
-// B12's own (`make_lerp`, `lerp_u8`), so the two cannot drift apart.
-//
-// B14's and B19's shifts (and B19's bounds) reach their kernels by value,
-// WARP_MAX_VIEWS views at a time: an entry point takes any number of views
-// and launches its kernel once for each group of at most that many.  B12
-// (view stack and interlace mode) reads them from a device array in one
-// launch.
+// B12's own (`make_lerp`, `lerp_u8`), so the two cannot drift apart.  Its
+// shifts reach the kernel by value, WARP_MAX_VIEWS views at a time: the
+// entry point takes any number of views and launches its kernel once for
+// each group of at most that many.  B19/B20 (the bounded warps, at the
+// end of this file) and B12 (view stack and interlace mode) read theirs
+// from a device array in one launch.
 
 #include "stm_common.cuh"
 
@@ -671,86 +670,206 @@ STM_API int stm_warp_views(const void* img_l, const void* img_r,
 // lo/hi = floor/ceil of the disparity range [-zd, D - zd] times the shift,
 // and select the one matching floor(c) - x: a pixel whose offset lies
 // outside its view's range selects nothing and comes out 0.  So here:
-// B14's value where lo <= floor(c) - x <= hi, else 0 (+0.0: the u8 sample
-// times 0).  Same bound and design as B14 (one thread per view and pixel,
-// the shared `make_lerp` / `lerp_u8`), the range test added.
+// B14's value where lo <= floor(c) - x <= hi, else +0.0 (the value the
+// u8 sample times 0 gave, a lerp being never negative).
+//
+// Bound on the H100: B14's, its output (1080p, 6 views: 28 MB in, 299 MB
+// out, 0.098 ms; 4K, 14 views: 116 MB in, 2.79 GB out, 0.87 ms).  Design
+// (`stm_warp_views_bounded`, B12's view stack without mask and merge): a
+// block takes a segment of up to 1024 pixels of one row and stages both
+// images' rows in shared memory (`wmv_copy_row`); rows too wide for it,
+// and blocks of one view, whose staged bytes would each be read once, read
+// device memory, 4 blocks an SM.  Thread t owns pixels 4t .. 4t + 3 and
+// reads their two disparities once, 16 bytes at a time where the plane's
+// row allows.  The block loops over every view in one launch (over a
+// group of them where one block a segment would fill less than twice the
+// card's block slots: 38 views of 200 rows take 4 groups), shifts and
+// (lo, hi) bounds read from device arrays; a sample is the conversion-free
+// lerp of B12 (`fast_lerp`, `lerp_f`: the same floor, weights and
+// truncation as `make_lerp` / `lerp_u8`, as floats), +0.0 where its offset
+// leaves the range (a staged block skips those gathers).  Each view's two
+// (segment, 3) float32 outputs are staged in shared memory (two buffers,
+// one barrier a view), a thread's 12 values an eye as three 16-byte words,
+// and stored as 16-byte words, one warp instruction 512 contiguous bytes;
+// a segment's tail, and a segment whose first value is not 16-byte
+// aligned, go 4 bytes at a time.
 
-struct WarpBounds {
-  int lo_l[WARP_MAX_VIEWS], hi_l[WARP_MAX_VIEWS];
-  int lo_r[WARP_MAX_VIEWS], hi_r[WARP_MAX_VIEWS];
-};
+#define WVB_TX 256
+#define WVB_PX 4
+#define WVB_SEG (WVB_TX * WVB_PX)
+#define WVB_OBUF (3 * WVB_SEG)        // floats of one eye's staged segment
+static_assert(WVB_TX == WMV_TX, "wmv_copy_row strides by WMV_TX threads");
 
-__device__ __forceinline__ bool in_range(const Lerp& l, int x, int lo,
-                                         int hi) {
-  const int k = l.i0 - x;
-  return k >= lo && k <= hi;
+// A thread's n <= 4 consecutive values of a float plane, 16 bytes at once
+// where they are 4 and aligned; the others 0.
+__device__ __forceinline__ void wvb_load4(const float* p, int n,
+                                          float (&v)[WVB_PX]) {
+  if (n == WVB_PX && ((uintptr_t)p & 15) == 0) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < WVB_PX; ++k) v[k] = k < n ? __ldg(p + k) : 0.0f;
 }
 
-__global__ void __launch_bounds__(WARP_TX)
+// An image warp's three channels at pixel x: the lerp where
+// floor(c) - x lies in [lo, hi], else +0.0.  With SKIP (rows in shared
+// memory) the gathers out of range are skipped; without (rows in device
+// memory) every sample is gathered and +0.0 selected, since a branch
+// around each pixel's gathers keeps them from overlapping those of the
+// thread's other pixels.
+template <bool SKIP>
+__device__ __forceinline__ void wvb_sample(const uint8_t* row, int x, float d,
+                                           float s, int lo, int hi, int W,
+                                           float* o) {
+  const FastLerp l = fast_lerp(int_f(x), d, s, W);
+  const int k = l.i0 - x;
+  const bool keep = k >= lo && k <= hi;
+  if (!SKIP) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) o[ch] = keep ? lerp_f(row, l, ch) : 0.0f;
+  } else if (keep) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) o[ch] = lerp_f(row, l, ch);
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) o[ch] = 0.0f;
+  }
+}
+
+// `nf` staged floats to dst: 16-byte words from an aligned dst, the tail
+// and an unaligned dst 4 bytes at a time.
+__device__ __forceinline__ void wvb_store(float* __restrict__ dst,
+                                          const float* src, int nf) {
+  int i0 = 0;
+  if (((uintptr_t)dst & 15) == 0) {
+    const int words = nf >> 2;
+    for (int i = threadIdx.x; i < words; i += WVB_TX)
+      reinterpret_cast<float4*>(dst)[i] =
+          reinterpret_cast<const float4*>(src)[i];
+    i0 = words << 2;
+  }
+  for (int i = i0 + threadIdx.x; i < nf; i += WVB_TX) dst[i] = src[i];
+}
+
+// Staged, a block's rows and buffers leave room for 3 blocks an SM at
+// 1080p and 4K; unstaged, its 48 KB of buffers for 4 (64 registers).
+template <bool STAGE>
+__global__ void __launch_bounds__(WVB_TX, STAGE ? 3 : 4)
 warp_views_bounded_kernel(const uint8_t* __restrict__ img_l,
                           const uint8_t* __restrict__ img_r,
                           const float* __restrict__ disp_l,
                           const float* __restrict__ disp_r,
-                          WarpShifts shifts, WarpBounds b,
+                          const float* __restrict__ shifts,
+                          const int4* __restrict__ bounds,
                           float* __restrict__ va, float* __restrict__ vb,
-                          int H, int W) {
-  const int x = blockIdx.x * WARP_TX + threadIdx.x;
-  const int y = blockIdx.y;
-  const int v = blockIdx.z;
-  if (x >= W) return;
-  const size_t i = (size_t)y * W + x;
-  const Lerp from_l = make_lerp(x, disp_r[i], shifts.l[v], 1.0f, W);
-  const Lerp from_r = make_lerp(x, disp_l[i], shifts.r[v], 1.0f, W);
-  const bool keep_l = in_range(from_l, x, b.lo_l[v], b.hi_l[v]);
-  const bool keep_r = in_range(from_r, x, b.lo_r[v], b.hi_r[v]);
-  const uint8_t* row_l = img_l + (size_t)y * W * 3;
-  const uint8_t* row_r = img_r + (size_t)y * W * 3;
-  const size_t o = (((size_t)v * H + y) * W + x) * 3;
-  // The samples are read whatever the range test says, as B14 reads them,
-  // and a 0/1 factor masks them: reading them only where kept measured
-  // 1.65x B14's time.
-  const float m_l = keep_l ? 1.0f : 0.0f;
-  const float m_r = keep_r ? 1.0f : 0.0f;
+                          int H, int W, int nv, int vpb) {
+  extern __shared__ __align__(16) uint8_t wvb_sm[];
+  const int y = blockIdx.y, rb = 3 * W;
+  const int seg0 = blockIdx.x * WVB_SEG;
+  const int npx = min(WVB_SEG, W - seg0);
+  const uint8_t* row_l = img_l + (size_t)y * rb;
+  const uint8_t* row_r = img_r + (size_t)y * rb;
+  float* obuf = reinterpret_cast<float*>(wvb_sm);
+  if (STAGE) {
+    const int rp = wmv_row_pad(W);
+    wmv_copy_row(wvb_sm, row_l, rb);
+    wmv_copy_row(wvb_sm + rp, row_r, rb);
+    row_l = wvb_sm;
+    row_r = wvb_sm + rp;
+    obuf = reinterpret_cast<float*>(wvb_sm + 2 * rp);
+    __syncthreads();
+  }
+  const int j0 = WVB_PX * threadIdx.x;
+  const int n = max(0, min(WVB_PX, npx - j0));   // this thread's pixels
+  const size_t i0 = (size_t)y * W + seg0 + j0;
+  float dl[WVB_PX], dr[WVB_PX];
+  wvb_load4(disp_l + i0, n, dl);
+  wvb_load4(disp_r + i0, n, dr);
+  const int nf = 3 * npx;
+  const int v1 = min(nv, (int)(blockIdx.z + 1) * vpb);
+  for (int v = blockIdx.z * vpb; v < v1; ++v) {
+    const float sl = __ldg(shifts + v), sr = __ldg(shifts + nv + v);
+    const int4 b = __ldg(bounds + v);              // lo_l, hi_l, lo_r, hi_r
+    float oa[3 * WVB_PX], ob[3 * WVB_PX];
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    va[o + ch] = __fmul_rn((float)lerp_u8(row_l, from_l, ch), m_l);
-    vb[o + ch] = __fmul_rn((float)lerp_u8(row_r, from_r, ch), m_r);
+    for (int k = 0; k < WVB_PX; ++k) {
+      const int x = seg0 + j0 + k;
+      if (k < n) {
+        wvb_sample<STAGE>(row_l, x, dr[k], sl, b.x, b.y, W, oa + 3 * k);
+        wvb_sample<STAGE>(row_r, x, dl[k], sr, b.z, b.w, W, ob + 3 * k);
+      } else {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) oa[3 * k + ch] = ob[3 * k + ch] = 0.0f;
+      }
+    }
+    // the buffers of view v & 1; the other pair's stores (view v - 1) are
+    // done by every thread before it is written again (view v + 1)
+    float* sa = obuf + (v & 1) * 2 * WVB_OBUF;
+    float* sb = sa + WVB_OBUF;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      reinterpret_cast<float4*>(sa + 3 * j0)[q] =
+          make_float4(oa[4 * q], oa[4 * q + 1], oa[4 * q + 2], oa[4 * q + 3]);
+      reinterpret_cast<float4*>(sb + 3 * j0)[q] =
+          make_float4(ob[4 * q], ob[4 * q + 1], ob[4 * q + 2], ob[4 * q + 3]);
+    }
+    __syncthreads();
+    const size_t o = (((size_t)v * H + y) * W + seg0) * 3;
+    wvb_store(va + o, sa, nf);
+    wvb_store(vb + o, sb, nf);
   }
 }
 
-// As stm_warp_views, plus bounds_l, bounds_r: host arrays of nv (lo, hi)
-// int pairs, the offset range of each view's two warps.
+// img_l, img_r: (H, W, 3) u8; disp_l, disp_r: (H, W) f32; shifts: 2 nv
+// f32 on the device, shifts_l[0 .. nv - 1] then shifts_r; bounds: nv int4
+// (lo_l, hi_l, lo_r, hi_r) on the device, 16-byte aligned, the offset
+// range of each view's two warps (INT_MIN, INT_MAX: unbounded); va, vb:
+// (nv, H, W, 3) f32.  One launch for every view.
 STM_API int stm_warp_views_bounded(const void* img_l, const void* img_r,
                                    const void* disp_l, const void* disp_r,
-                                   const float* shifts_l,
-                                   const float* shifts_r,
-                                   const int* bounds_l, const int* bounds_r,
+                                   const void* shifts, const void* bounds,
                                    void* va, void* vb, int H, int W, int nv,
                                    void* stream) {
-  if (H <= 0 || W <= 0 || nv <= 0 || shifts_l == nullptr ||
-      shifts_r == nullptr || bounds_l == nullptr || bounds_r == nullptr)
+  if (H <= 0 || W <= 0 || nv <= 0 || shifts == nullptr ||
+      bounds == nullptr || ((uintptr_t)bounds & 15) != 0 || H > 65535 ||
+      W >= (1 << 23))
     return (int)cudaErrorInvalidValue;
-  const size_t view = (size_t)H * W * 3;
-  for (int v0 = 0; v0 < nv; v0 += WARP_MAX_VIEWS) {
-    const int n = min(nv - v0, WARP_MAX_VIEWS);
-    WarpShifts s;
-    WarpBounds b;
-    for (int v = 0; v < n; ++v) {
-      const int u = v0 + v;
-      s.l[v] = shifts_l[u];
-      s.r[v] = shifts_r[u];
-      b.lo_l[v] = bounds_l[2 * u];
-      b.hi_l[v] = bounds_l[2 * u + 1];
-      b.lo_r[v] = bounds_r[2 * u];
-      b.hi_r[v] = bounds_r[2 * u + 1];
-    }
-    dim3 grid((W + WARP_TX - 1) / WARP_TX, H, n);
-    warp_views_bounded_kernel<<<grid, WARP_TX, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)img_l, (const uint8_t*)img_r, (const float*)disp_l,
-        (const float*)disp_r, s, b, (float*)va + v0 * view,
-        (float*)vb + v0 * view, H, W);
-    const cudaError_t err = cudaGetLastError();
+  // the views split over blocks where one block a segment and row would
+  // fill less than twice the card's block slots (3 an SM)
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  const int segs = (W + WVB_SEG - 1) / WVB_SEG;
+  const long long blocks = (long long)segs * H;
+  long long groups = (2LL * 3 * sms + blocks - 1) / blocks;
+  groups = groups < nv ? groups : nv;
+  const int vpb = (int)((nv + groups - 1) / groups);
+  dim3 grid(segs, H, (nv + vpb - 1) / vpb);
+  const size_t obufs = 4 * WVB_OBUF * sizeof(float);
+  const size_t staged = 2 * (size_t)wmv_row_pad(W) + obufs;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t *il = (const uint8_t*)img_l, *ir = (const uint8_t*)img_r;
+  const float *dl = (const float*)disp_l, *dr = (const float*)disp_r;
+  const float* sh = (const float*)shifts;
+  const int4* bd = (const int4*)bounds;
+  if (vpb > 1 && staged <= 227 * 1024) {
+    err = stm_smem_cap(warp_views_bounded_kernel<true>, staged);
     if (err != cudaSuccess) return (int)err;
+    warp_views_bounded_kernel<true><<<grid, WVB_TX, staged, st>>>(
+        il, ir, dl, dr, sh, bd, (float*)va, (float*)vb, H, W, nv, vpb);
+  } else {
+    // one view a block (a staged byte would be read once) or rows too
+    // wide for shared memory: the gathers read device memory
+    warp_views_bounded_kernel<false><<<grid, WVB_TX, obufs, st>>>(
+        il, ir, dl, dr, sh, bd, (float*)va, (float*)vb, H, W, nv, vpb);
   }
-  return (int)cudaSuccess;
+  return (int)cudaGetLastError();
 }

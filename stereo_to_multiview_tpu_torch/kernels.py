@@ -61,7 +61,7 @@ _SIGS = {
     "stm_feather": [_P] * 5 + [_I] * 3 + [_F, _P],
     "stm_feather_rmax": [],
     "stm_warp_views": [_P] * 8 + [_I] * 3 + [_P],
-    "stm_warp_views_bounded": [_P] * 10 + [_I] * 3 + [_P],
+    "stm_warp_views_bounded": [_P] * 8 + [_I] * 3 + [_P],
     "stm_cost_dm": [_P] * 6 + [_I] * 12 + [_P],
     "stm_shear_dm": [_P, _P] + [_I] * 5 + [_P],
     "stm_span_sum": [_P] * 4 + [_I] * 7 + [_P],
@@ -158,12 +158,6 @@ def host_f32(values):
     constants into its kernel's arguments (it must outlive the call)."""
     values = [float(v) for v in values]
     return (ctypes.c_float * len(values))(*values)
-
-
-def host_i32(values):
-    """A host int32 array, as `host_f32`."""
-    values = [int(v) for v in values]
-    return (ctypes.c_int * len(values))(*values)
 
 
 def on_cpu(t: torch.Tensor) -> bool:

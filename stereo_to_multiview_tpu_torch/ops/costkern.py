@@ -433,11 +433,14 @@ def ci_adcensus_kern_stacked(img_l: torch.Tensor, img_r: torch.Tensor,
 
 
 def shear_right_dm_plain(vol: torch.Tensor, zero_disp: int) -> torch.Tensor:
-    """Plain version of `shear_right_dm`: one slice copy per plane."""
+    """Plain version of `shear_right_dm`: one slice copy per plane (none
+    where the shift moves the whole row out)."""
     nd, _, w = vol.shape
     out = torch.zeros_like(vol)
     for d in range(nd):
         s = d - zero_disp
+        if abs(s) >= w:
+            continue
         if s >= 0:
             out[d, :, s:] = vol[d, :, :w - s]
         else:

@@ -15,6 +15,8 @@ tensor they launch the kernel or raise.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from stereo_to_multiview_tpu_torch import kernels
@@ -63,11 +65,22 @@ def warp_views_bounded_plain(img_l, img_r, disp_l, disp_r, shifts,
     return va, vb
 
 
+@functools.lru_cache(maxsize=16)
+def _view_args(shifts: tuple, num_disp: int, zero_disp: int,
+               device: torch.device):
+    """B19's per-view arguments on the device: the shifts (shifts_l, then
+    shifts_r, float32) and each view's (lo_l, hi_l, lo_r, hi_r) (int32)."""
+    bl, br = _view_bounds(shifts, num_disp, zero_disp)
+    sl, sr = merge_shifts(shifts)
+    bounds = [v for a, b in zip(bl, br) for v in (*a, *b)]
+    return (torch.tensor(sl + sr, dtype=F32, device=device),
+            torch.tensor(bounds, dtype=torch.int32, device=device))
+
+
 def _launch(what, img_l, img_r, disp_l, disp_r, shifts, num_disp: int,
             zero_disp: int):
-    """The bounded warps of every view in `shifts` on the card (B19's and
-    B20's C entry point)."""
-    bl, br = _view_bounds(shifts, num_disp, zero_disp)
+    """The bounded warps of every view in `shifts` on the card, in one
+    launch (B19's and B20's C entry point)."""
     dev = img_l.device
     h, w = img_l.shape[:2]
     for name, t in (("img_l", img_l), ("img_r", img_r)):
@@ -78,16 +91,15 @@ def _launch(what, img_l, img_r, disp_l, disp_r, shifts, num_disp: int,
         kernels.require(t, name, F32, 2, dev)
         if t.shape != (h, w):
             raise ValueError(f"{what}: {name} is not (H, W)")
-    nv = len(shifts)
-    sl, sr = merge_shifts(shifts)
-    va = torch.empty((nv, h, w, 3), dtype=F32, device=dev)
+    shift_arr, bounds = _view_args(tuple(float(s) for s in shifts), num_disp,
+                                   zero_disp, dev)
+    va = torch.empty((len(shifts), h, w, 3), dtype=F32, device=dev)
     vb = torch.empty_like(va)
     rc = kernels.lib("warp").stm_warp_views_bounded(
         img_l.data_ptr(), img_r.data_ptr(), disp_l.data_ptr(),
-        disp_r.data_ptr(), kernels.host_f32(sl), kernels.host_f32(sr),
-        kernels.host_i32([v for b in bl for v in b]),
-        kernels.host_i32([v for b in br for v in b]), va.data_ptr(),
-        vb.data_ptr(), h, w, nv, kernels.stream_of(va))
+        disp_r.data_ptr(), shift_arr.data_ptr(), bounds.data_ptr(),
+        va.data_ptr(), vb.data_ptr(), h, w, len(shifts),
+        kernels.stream_of(va))
     kernels.check_launch(rc, what)
     return va, vb
 

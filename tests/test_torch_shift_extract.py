@@ -95,6 +95,39 @@ def test_shear_right_dm_plain(dtype, zd):
     assert got.dtype == dtype and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("w", [1, 15, 17])
+def test_shear_right_dm_plain_rows_shorter_than_the_shifts(w):
+    """Rows narrower than the largest shift: the planes shifted past the
+    row are all 0, the others as above."""
+    rng = np.random.default_rng(55)
+    nd, zd = 40, 20
+    vol = torch.from_numpy(rng.integers(1, 250, (nd, 2, w), dtype=np.uint8))
+    got = tck.shear_right_dm(vol, zd)
+    want = torch.zeros_like(vol)
+    for d in range(nd):
+        for x in range(w):
+            if 0 <= x - (d - zd) < w:
+                want[d, :, x] = vol[d, :, x - (d - zd)]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("zd_at", ["0", "D"])
+@pytest.mark.parametrize("w", [17, 448])
+def test_shear_right_dm_matches_jax_shear(w, zd_at, dtype):
+    """B17's plain version against the JAX package's shear (`_shear_right`,
+    Pallas, interpret mode) at zd = 0 (every shift >= 0) and zd = D
+    (every shift < 0), on a row shorter than one 128-lane chunk and on
+    one of 448 columns: equal in every element."""
+    nd = 24
+    zd = 0 if zd_at == "0" else nd
+    rng = np.random.default_rng(56)
+    vol = rng.integers(0, 256, (nd, 8, w)).astype(dtype)
+    got = tck.shear_right_dm(torch.from_numpy(vol), zd)
+    ref = np.asarray(jck._shear_right(jnp.asarray(vol), zd, True))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 @pytest.mark.parametrize("quant", [True, False])
 def test_shift_extract_matches_jax_and_the_direct_path(quant):
     """(16, 448, 24, 12), as the JAX package's own test: the condition

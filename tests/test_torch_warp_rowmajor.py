@@ -97,6 +97,31 @@ def test_warp_views_kern_zeros_outside_the_range(stereo_pair):
         assert np.all(np.abs(g - k)[diff] == 1)
 
 
+@pytest.mark.parametrize("num_views", [8, 40])
+@pytest.mark.parametrize("w", [17, 52])
+def test_warp_views_kern_edge_shapes_match_jax(stereo_pair, num_views, w):
+    """38 views (one launch for all of them on the card) and W = 17 (a row
+    shorter than one 128-lane chunk), on disparities up to twice the
+    range: the zeros at exactly the JAX kernel's subpixels, the others
+    equal or, where its contracted lerp departs, 1 apart; each view equal
+    to B20's pair at its shift."""
+    l, r = (a[:16, :w] for a in stereo_pair)
+    dl, dr = (d[:16, :w] for d in _disparities(stereo_pair, 67, False,
+                                                scale=2.0))
+    shifts = _synth_shifts(num_views)
+    args = [_t(a) for a in (l, r, dl, dr)]
+    got = twarp.dibr_warp_views_kern(*args, shifts, ND, ZD)
+    assert got[0].shape == (len(shifts), 16, w, 3)
+    for g, k in zip(got, _jax_views(l, r, dl, dr, shifts)):
+        g = g.numpy()
+        np.testing.assert_array_equal((g == 0).all(axis=-1),
+                                      (k == 0).all(axis=-1))
+        assert np.all(np.abs(g - k)[g != k] == 1)
+    for v in (0, len(shifts) - 1):
+        a, b = twarp.dibr_warp_pair_kern(*args, shifts[v], ND, ZD)
+        assert torch.equal(a, got[0][v]) and torch.equal(b, got[1][v])
+
+
 def test_warp_pair_kern_matches_jax_and_views(stereo_pair):
     """B20 is B19 with one view: equal to that view of B19, and to the JAX
     pair kernel up to the same departures by 1."""
