@@ -3841,7 +3841,6 @@ def run_path(name, entry, sbs, cfg, n_frames: int, exact: bool = True):
     package, whose wrappers and routes may differ)."""
     import torch
     from stereo_to_multiview_tpu_torch import kernels
-    from stereo_to_multiview_tpu_torch.utils.profiling import StageTimer
 
     sbs_dev = torch.as_tensor(sbs).to(torch.device("cuda"))
     torch.cuda.synchronize()
@@ -3867,22 +3866,18 @@ def run_path(name, entry, sbs, cfg, n_frames: int, exact: bool = True):
             raise SmokeFailure(f"path {name}: {n} launched {launches[n]} "
                                f"times, expected {want}")
 
-    timer = StageTimer()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_frames):
-        out = entry(sbs_dev, cfg, timer=timer)
+        out = entry(sbs_dev, cfg)
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3 / n_frames
-    stages = {k: v / n_frames for k, v in timer.ms().items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"path {name}: {frame_ms:.2f} ms/frame over {n_frames} frames "
           f"(host clock, synchronized); peak device memory {peak_gb:.2f} GB",
           flush=True)
-    print(f"path {name} stages (CUDA events, ms/frame): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
-    return out, dict(launches=launches, frame_ms=frame_ms, stages_ms=stages,
+    return out, dict(launches=launches, frame_ms=frame_ms,
                      peak_memory_gb=peak_gb, first_frame_ms=first_s * 1e3)
 
 

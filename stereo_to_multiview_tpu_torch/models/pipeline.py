@@ -70,8 +70,7 @@ from stereo_to_multiview_tpu_torch.ops.mux import (
 from stereo_to_multiview_tpu_torch.ops.scale import (
     tx_disp_scale, tx_scale_bilinear)
 from stereo_to_multiview_tpu_torch.ops.wta import dc_wta
-from stereo_to_multiview_tpu_torch.utils.profiling import (
-    StageTimer, stage_scope)
+from stereo_to_multiview_tpu_torch.utils.profiling import stage_scope
 
 
 def resolve_device(device=None) -> torch.device:
@@ -153,20 +152,19 @@ def xla_stereo_core(img_l, img_r, arms_l, arms_r, cfg: PipelineConfig):
     return tuple(disps)
 
 
-def raw_disparities(img_l, img_r, cfg: PipelineConfig,
-                    timer: StageTimer | None = None):
+def raw_disparities(img_l, img_r, cfg: PipelineConfig):
     """Stereo matching up to IRV: images -> (disp_l, disp_r) float32
     before the median and bilateral filters, plus the outlier labels
     (u8)."""
-    with stage_scope("ca_cross_arms", timer):
+    with stage_scope("ca_cross_arms"):
         arms_l, arms_r = cross_arms_lr(img_l, img_r, cfg.ucd, cfg.lcd,
                                        cfg.usd, cfg.lsd)
-    with stage_scope("stereo_core", timer):
+    with stage_scope("stereo_core"):
         core = xla_stereo_core if use_xla(cfg) else band_stereo_core_chunked
         disp_l, disp_r = core(img_l, img_r, arms_l, arms_r, cfg)
-    with stage_scope("dr_dcc", timer):
+    with stage_scope("dr_dcc"):
         out_l, out_r = dr_dcc(disp_l, disp_r, cfg.dcc_thresh)
-    with stage_scope("dr_irv", timer):
+    with stage_scope("dr_irv"):
         irv = lambda d, o, a: dr_irv_early_stop(
             d, o, a, cfg.irv_thresh_s, cfg.irv_thresh_h, cfg.num_disp,
             cfg.zero_disp, cfg.usd, cfg.irv_iterations,
@@ -176,15 +174,14 @@ def raw_disparities(img_l, img_r, cfg: PipelineConfig,
     return disp_l, disp_r, out_l, out_r
 
 
-def compute_disparities(img_l, img_r, cfg: PipelineConfig,
-                        timer: StageTimer | None = None):
+def compute_disparities(img_l, img_r, cfg: PipelineConfig):
     """Stereo matching half of the pipeline: images -> refined (disp_l,
     disp_r) float32 plus the outlier labels."""
-    disp_l, disp_r, out_l, out_r = raw_disparities(img_l, img_r, cfg, timer)
+    disp_l, disp_r, out_l, out_r = raw_disparities(img_l, img_r, cfg)
     if cfg.use_median:
-        with stage_scope("filter_median", timer):
+        with stage_scope("filter_median"):
             disp_l, disp_r = filter_median(disp_l), filter_median(disp_r)
-    with stage_scope("filter_bilateral", timer):
+    with stage_scope("filter_bilateral"):
         # the XLA engine's filter at every radius: its own tap order
         filt = filter_bilateral_wide if use_xla(cfg) else filter_bilateral
         blf = lambda d: filt(d, cfg.bilateral_radius,
@@ -210,16 +207,15 @@ def synth_disp_bounds(cfg: PipelineConfig):
 _synth_shifts = synth_shifts
 
 
-def synthesis_masks(disp_l, disp_r, cfg: PipelineConfig,
-                    timer: StageTimer | None = None):
+def synthesis_masks(disp_l, disp_r, cfg: PipelineConfig):
     """The synthesis' masks from the disparities: (mask_l, mask_r) float32
     {0, 1} (occlusion hits B7 and bleed B11 in one launch) and the
     feathered blend weight: G1 on the band engine; on the XLA engine the
     plain torch feather in the JAX package's jitted CPU order
     (`filter_gaussian_lift(..., contract=True)`), which G1 is not."""
-    with stage_scope("dibr_occl", timer):
+    with stage_scope("dibr_occl"):
         mask_l, mask_r = dibr_occl_masks(disp_l, disp_r, cfg.bleed_radius)
-    with stage_scope("dibr_feather", timer):
+    with stage_scope("dibr_feather"):
         if use_xla(cfg):
             feathered = filter_gaussian_lift(op_invertnormf(mask_r),
                                              cfg.feather_radius,
@@ -253,8 +249,8 @@ def xla_views(img_l, img_r, disp_l, disp_r, mask_l, mask_r, feathered,
     return torch.stack(views) if out is None else torch.stack(views, out=out)
 
 
-def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
-                     timer: StageTimer | None = None) -> torch.Tensor:
+def synthesize_views(img_l, img_r, disp_l, disp_r,
+                     cfg: PipelineConfig) -> torch.Tensor:
     """DIBR half: images + disparities -> (V, H, W, 3) u8 view stack.
     View 0 = right source, view V-1 = left source; intermediate view v
     warps L with disp_r at -shift and R with disp_l at 1 - shift,
@@ -262,8 +258,8 @@ def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
     the band engine, the bounded plain-torch warps on the XLA engine.  The
     stack is allocated once; the two sources are copied into it and the
     intermediate views written into it in place."""
-    masks = synthesis_masks(disp_l, disp_r, cfg, timer)
-    with stage_scope("dibr_dbm", timer):
+    masks = synthesis_masks(disp_l, disp_r, cfg)
+    with stage_scope("dibr_dbm"):
         views = torch.empty((cfg.num_views, *img_l.shape), dtype=torch.uint8,
                             device=img_l.device)
         views[0] = img_r
@@ -277,8 +273,8 @@ def synthesize_views(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
     return views
 
 
-def synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
-                         timer: StageTimer | None = None) -> torch.Tensor:
+def synthesize_interlace(img_l, img_r, disp_l, disp_r,
+                         cfg: PipelineConfig) -> torch.Tensor:
     """Views synthesis + lenticular interlace: images + disparities ->
     (num_rows_out, num_cols_out, 3) u8, equal to
     `mux_multiview(synthesize_views(...), ...)`.  On the band engine the
@@ -287,12 +283,12 @@ def synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
     writes no view stack; any number of views, bleed radius and output
     size.  On the XLA engine it is that composition, in plain torch."""
     if use_xla(cfg):
-        views = synthesize_views(img_l, img_r, disp_l, disp_r, cfg, timer)
-        with stage_scope("mux_multiview", timer):
+        views = synthesize_views(img_l, img_r, disp_l, disp_r, cfg)
+        with stage_scope("mux_multiview"):
             return mux_multiview(views, cfg.num_rows_out, cfg.num_cols_out,
                                  cfg.angle, contract=True)
-    masks = synthesis_masks(disp_l, disp_r, cfg, timer)
-    with stage_scope("dibr_dbm", timer):
+    masks = synthesis_masks(disp_l, disp_r, cfg)
+    with stage_scope("dibr_dbm"):
         return warp_merge_interlace(img_l, img_r, disp_l, disp_r, *masks,
                                     cfg.num_views, cfg.num_rows_out,
                                     cfg.num_cols_out, cfg.angle)
@@ -300,29 +296,27 @@ def synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg: PipelineConfig,
 
 def _frame_images(sbs, cfg: PipelineConfig, dev):
     """The SBS frame on `dev`, checked and split into (img_l, img_r)."""
-    sbs = torch.as_tensor(sbs).to(dev)
-    if tuple(sbs.shape) != cfg.sbs_shape or sbs.dtype != torch.uint8:
-        raise ValueError(f"expected a {cfg.sbs_shape} uint8 frame, got "
-                         f"{tuple(sbs.shape)} {sbs.dtype}")
-    return tuple(t.contiguous() for t in demux_sbs(sbs))
+    with stage_scope("frame_in"):
+        sbs = torch.as_tensor(sbs).to(dev)
+        if tuple(sbs.shape) != cfg.sbs_shape or sbs.dtype != torch.uint8:
+            raise ValueError(f"expected a {cfg.sbs_shape} uint8 frame, got "
+                             f"{tuple(sbs.shape)} {sbs.dtype}")
+        return tuple(t.contiguous() for t in demux_sbs(sbs))
 
 
-def process_frame(sbs, cfg: PipelineConfig, device=None,
-                  timer: StageTimer | None = None):
+def process_frame(sbs, cfg: PipelineConfig, device=None):
     """(H, 2W, 3) uint8 SBS frame (numpy array or tensor) -> (disp_l,
     disp_r, interlaced) tensors on `device`: disparities (H, W) float32,
     interlaced (H_out, W_out, 3) uint8."""
     dev = resolve_device(device)
     check_ported(cfg)
     img_l, img_r = _frame_images(sbs, cfg, dev)
-    disp_l, disp_r, _, _ = compute_disparities(img_l, img_r, cfg, timer)
-    interlaced = synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg,
-                                      timer)
+    disp_l, disp_r, _, _ = compute_disparities(img_l, img_r, cfg)
+    interlaced = synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg)
     return disp_l, disp_r, interlaced
 
 
-def process_frame_lowres(sbs, cfg: PipelineConfig, device=None,
-                         timer: StageTimer | None = None):
+def process_frame_lowres(sbs, cfg: PipelineConfig, device=None):
     """`process_frame` with the disparities computed at
     (num_rows_disp, num_cols_disp): the pair is downscaled bilinearly,
     the disparities are upscaled to (H, W) and multiplied by
@@ -333,17 +327,16 @@ def process_frame_lowres(sbs, cfg: PipelineConfig, device=None,
     dev = resolve_device(device)
     check_ported(cfg)
     img_l, img_r = _frame_images(sbs, cfg, dev)
-    with stage_scope("tx_scale", timer):
+    with stage_scope("tx_scale"):
         lo_l = tx_scale_bilinear(img_l, cfg.num_rows_disp, cfg.num_cols_disp)
         lo_r = tx_scale_bilinear(img_r, cfg.num_rows_disp, cfg.num_cols_disp)
     dl, dr, _, _ = compute_disparities(lo_l.contiguous(), lo_r.contiguous(),
-                                       cfg, timer)
-    with stage_scope("tx_scale", timer):
+                                       cfg)
+    with stage_scope("tx_scale"):
         up = lambda d: tx_disp_scale(d, cfg.num_rows, cfg.num_cols,
                                      1.0 / cfg.disp_scale).contiguous()
         disp_l, disp_r = up(dl), up(dr)
-    interlaced = synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg,
-                                      timer)
+    interlaced = synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg)
     return disp_l, disp_r, interlaced
 
 

@@ -14,11 +14,19 @@ meter and the callback see the frame.  `process_frame` reads whether an
 IRV round changed a label back to the host after every round, so the
 host cannot queue a whole frame ahead: depth 2 overlaps the uploads,
 readbacks and decode with the device's work.
+
+While a profiler is on, each step of the loop is a span on the loop's
+thread (`utils.profiling.stage_scope`): `stream.pull` (the wait for the
+next frame), `stream.stage_in` (the host copy into the pinned slot),
+`stream.upload`, `stream.dispatch` (the launch of the frame's stages),
+`stream.readback`, `stream.wait` (the host blocked on a frame's
+completion) and `stream.emit` (the consumer's callback).
 """
 
 from __future__ import annotations
 
 import glob
+import itertools
 import os
 import queue
 import threading
@@ -31,6 +39,7 @@ import torch
 
 from stereo_to_multiview_tpu_torch.config import PipelineConfig
 from stereo_to_multiview_tpu_torch.utils.bmp import read_bmp
+from stereo_to_multiview_tpu_torch.utils.profiling import stage_scope
 from stereo_to_multiview_tpu_torch.utils.timing import FrameMeter
 
 CORNER = 8          # readback="sync" fetches an 8x8 corner
@@ -254,12 +263,14 @@ class _Transfers:
     def upload(self, k: int, sbs: np.ndarray) -> torch.Tensor:
         """Frame into slot k, uploaded on the side stream; the current
         (compute) stream waits for it."""
-        self.host_in[k].numpy()[...] = sbs
-        done = torch.cuda.Event()
-        with torch.cuda.stream(self.side):
-            self.dev_in[k].copy_(self.host_in[k], non_blocking=True)
-            done.record(self.side)
-        torch.cuda.current_stream(self.dev).wait_event(done)
+        with stage_scope("stream.stage_in"):
+            self.host_in[k].numpy()[...] = sbs
+        with stage_scope("stream.upload"):
+            done = torch.cuda.Event()
+            with torch.cuda.stream(self.side):
+                self.dev_in[k].copy_(self.host_in[k], non_blocking=True)
+                done.record(self.side)
+            torch.cuda.current_stream(self.dev).wait_event(done)
         return self.dev_in[k]
 
     def fetch(self, k: int, interlaced: torch.Tensor) -> torch.cuda.Event:
@@ -267,10 +278,11 @@ class _Transfers:
         pinned buffer behind the frame's work; returns its event."""
         src = (interlaced if self.readback == "full"
                else interlaced[:CORNER, :CORNER])
-        self.host_out[k][:src.shape[0], :src.shape[1]].copy_(
-            src, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.dev))
+        with stage_scope("stream.readback"):
+            self.host_out[k][:src.shape[0], :src.shape[1]].copy_(
+                src, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.dev))
         return done
 
 
@@ -328,7 +340,8 @@ def stream(source, cfg: PipelineConfig, lowres: bool = False,
         nonlocal xfer
         t0 = time.perf_counter()
         if not pipelined:
-            return i, t0, fn(sbs, cfg, device=dev), None
+            with stage_scope("stream.dispatch"):
+                return i, t0, fn(sbs, cfg, device=dev), None
         if tuple(sbs.shape) != cfg.sbs_shape or sbs.dtype != np.uint8:
             raise ValueError(f"expected a {cfg.sbs_shape} uint8 frame, got "
                              f"{tuple(sbs.shape)} {sbs.dtype}")
@@ -336,19 +349,22 @@ def stream(source, cfg: PipelineConfig, lowres: bool = False,
             xfer = _Transfers(dev, depth, cfg.sbs_shape, cfg.out_shape,
                               readback)
         k = i % depth
-        out = fn(xfer.upload(k, sbs), cfg, device=dev)
+        frame = xfer.upload(k, sbs)
+        with stage_scope("stream.dispatch"):
+            out = fn(frame, cfg, device=dev)
         return i, t0, out, xfer.fetch(k, out[2])
 
     def _finish(j, t0, out, done):
         """Complete frame j and meter it.  May raise (device errors
         belong to the failure policy)."""
         nonlocal last_done
-        if done is not None:
-            done.synchronize()
-        elif readback == "full":
-            out[2].cpu()
-        else:
-            out[2][:CORNER, :CORNER].cpu()
+        with stage_scope("stream.wait"):
+            if done is not None:
+                done.synchronize()
+            elif readback == "full":
+                out[2].cpu()
+            else:
+                out[2][:CORNER, :CORNER].cpu()
         now = time.perf_counter()
         # depth 1: the time around upload, compute and fetch, so the
         # consumer's time never enters the stats; pipelined: completion
@@ -363,9 +379,15 @@ def stream(source, cfg: PipelineConfig, lowres: bool = False,
 
     def _emit(done):
         if done is not None and on_frame is not None:
-            on_frame(done[0], *done[1])
+            with stage_scope("stream.emit"):
+                on_frame(done[0], *done[1])
 
-    for i, sbs in enumerate(src):
+    frames, end = iter(src), object()
+    for i in itertools.count():
+        with stage_scope("stream.pull"):
+            sbs = next(frames, end)
+        if sbs is end:
+            break
         try:
             inflight.append(_dispatch(i, sbs))
             done = None

@@ -35,6 +35,7 @@ from stereo_to_multiview_tpu_torch import kernels
 from stereo_to_multiview_tpu_torch.ops.chunks import chunk_bounds
 from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
 from stereo_to_multiview_tpu_torch.ops.mux import f32
+from stereo_to_multiview_tpu_torch.utils.profiling import stage_scope
 
 
 def span_sum_inclusive(vol: torch.Tensor, arm_neg: torch.Tensor,
@@ -252,6 +253,22 @@ def irv_round_chunked(disp, outliers, arms, thresh_s: int, thresh_h: float,
             torch.cat([p[1] for p in parts]))
 
 
+def any_changed(changed: torch.Tensor, flag=None) -> bool:
+    """Whether `changed` holds a True, read on the host inside the span
+    `irv.sync`.  On a CUDA device the reduction and its 1-byte copy into
+    the pinned `flag` are queued before the span, which then holds only
+    the host's wait for the stream and its read: it launches no device
+    work, so the caller's stage keeps every launch."""
+    if flag is None:
+        with stage_scope("irv.sync"):
+            return bool(changed.any())
+    flag.copy_(changed.any(), non_blocking=True)
+    stream = torch.cuda.current_stream(changed.device)
+    with stage_scope("irv.sync"):
+        stream.synchronize()
+        return bool(flag)
+
+
 def dr_irv_early_stop(disp: torch.Tensor, outliers: torch.Tensor,
                       arms: torch.Tensor, thresh_s: int, thresh_h: float,
                       num_disp: int, zero_disp: int, usd: int,
@@ -262,12 +279,14 @@ def dr_irv_early_stop(disp: torch.Tensor, outliers: torch.Tensor,
     so every later round is the identity), and give each round after the
     first the dilated frontier of the previous round's changes as its
     `need`.  Bit-equal to `dr_irv`.  Reading whether a label changed
-    costs one device-to-host copy per round.  `rounds_run`, if given,
-    gets the number of rounds appended.  With `row_chunk` every round
-    streams over row chunks (`irv_round_chunked`); the frontier and the
-    stop stay frame-wide."""
+    costs one device-to-host copy and one wait per round (`any_changed`).
+    `rounds_run`, if given, gets the number of rounds appended.  With
+    `row_chunk` every round streams over row chunks (`irv_round_chunked`);
+    the frontier and the stop stay frame-wide."""
     need = None
     done = 0
+    flag = (torch.empty((), dtype=torch.bool, pin_memory=True)
+            if disp.is_cuda else None)
     while done < iterations:
         before = outliers
         if row_chunk:
@@ -282,7 +301,7 @@ def dr_irv_early_stop(disp: torch.Tensor, outliers: torch.Tensor,
         if done == iterations:
             break
         changed = outliers != before
-        if not bool(changed.any()):
+        if not any_changed(changed, flag):
             break
         need = dilate_frontier(changed, usd)
     if rounds_run is not None:

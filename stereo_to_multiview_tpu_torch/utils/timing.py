@@ -1,22 +1,10 @@
-"""Timing instrumentation: a named wall-clock timer, the process CPU
-time, and the streaming frames/s meter.
-
-`timed_block_until_ready` waits for the CUDA device before it stops the
-clock when the function returned CUDA tensors, so the time covers the
-device's work, as the JAX package's waits for its arrays.
-"""
+"""Timing instrumentation: a named wall-clock timer and the streaming
+frames/s meter."""
 
 from __future__ import annotations
 
 import time
 from typing import Any, Dict, List, Optional
-
-import torch
-
-
-def get_cpu_time() -> float:
-    """Process CPU time in seconds."""
-    return time.process_time()
 
 
 class Timer:
@@ -36,25 +24,6 @@ class Timer:
         if self.verbose:
             print(f"[[ {self.name} took: {self.ms:.3f} ms ]]")
         return False
-
-
-def _on_cuda(out) -> bool:
-    if isinstance(out, torch.Tensor):
-        return out.is_cuda
-    if isinstance(out, (tuple, list)):
-        return any(_on_cuda(x) for x in out)
-    return False
-
-
-def timed_block_until_ready(fn, *args, name: str = "stage", verbose=True,
-                            **kw):
-    """(fn(*args, **kw), ms): the wall time of the call, after a CUDA
-    synchronize when it returned CUDA tensors."""
-    with Timer(name, verbose) as t:
-        out = fn(*args, **kw)
-        if _on_cuda(out):
-            torch.cuda.synchronize()
-    return out, t.ms
 
 
 class FrameMeter:

@@ -327,13 +327,10 @@ def test_preview_server():
 
 
 def test_timing_utilities():
-    from stereo_to_multiview_tpu_torch.utils.timing import (
-        FrameMeter, Timer, get_cpu_time, timed_block_until_ready)
-    out, ms = timed_block_until_ready(torch.ones, 3, name="x", verbose=False)
-    assert torch.equal(out, torch.ones(3)) and ms >= 0.0
+    from stereo_to_multiview_tpu_torch.utils.timing import FrameMeter, Timer
     with Timer("t", verbose=False) as t:
         pass
-    assert t.ms >= 0.0 and get_cpu_time() > 0.0
+    assert t.ms >= 0.0
     m = FrameMeter(warmup=1)
     for s in (1.0, 0.5, 0.25):
         m.add(s)
