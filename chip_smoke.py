@@ -13,9 +13,11 @@
    kernel, plain version, and one PyTorch library call where one computes
    the same function.  Also holds the early-stop IRV against the fixed
    rounds and the row-chunked IRV against the whole-frame one, bit for
-   bit, and the lane-major window passes at the band_digits 2 and 1
-   shifts, and the streamed B5 and B9 where their streams meet the
-   frame's edges (37 rows, fewer than a ring holds; reach 0), and the
+   bit, checks that its loop waits on nothing (`set_sync_debug_mode`),
+   times one round under an empty frontier, and the lane-major window
+   passes at the band_digits 2 and 1 shifts, and the streamed B5 and B9
+   where their streams meet the frame's edges (37 rows, fewer than a ring
+   holds; reach 0), and the
    streamed B4 and B6 there and where their row streams and vector paths
    end (a width below one segment, D=126 and D=130, prefixes that wrap,
    ties).  The configuration limits once refused on the card: B2 and B3
@@ -775,6 +777,9 @@ EXACT_LAUNCHES = {
     LOSSY: {"h_pass_sum": 2, "vv_pass": 2},
 }
 for _path, _counts in EXACT_LAUNCHES.items():
+    # every IRV round is queued, settled or not: 5 an eye (a row chunk)
+    _counts["irv_rowspan"] = _counts["irv_vote"] = (
+        20 if _path == UHD4K else 10)
     _counts["cross_arms_eyes"] = 1
     _counts.setdefault("cost_pair", 1)
     _counts["warp_merge_interlace"] = 1
@@ -793,7 +798,8 @@ NOT_ON_PATH[XLA] = (LANE_CORE_WRAPPERS | HSLO_WRAPPERS | DM_WRAPPERS
                     | {"filter_bilateral", "dibr_feather_mask",
                        "warp_merge_interlace"})
 EXACT_LAUNCHES[XLA] = {"cross_arms_eyes": 1, "dr_dcc": 1,
-                       "dibr_occl_masks": 1}
+                       "dibr_occl_masks": 1, "irv_rowspan": 10,
+                       "irv_vote": 10}
 
 # ---- phase 6, sharding over torch.distributed -------------------------
 # Ranks that time-share the one card over gloo (the launch module, one
@@ -1409,27 +1415,64 @@ def check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg):
                 and torch.equal(got[1], fixed[1])):
             raise SmokeFailure(f"IRV over {row_chunk}-row chunks differs "
                                f"from the whole-frame rounds ({name} eye)")
+    # the loop queues every round: no host read, whole-frame or chunked
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        irv.dr_irv_early_stop(dl, ol, arms_l, *irv_args)
+        irv.dr_irv_early_stop(dl, ol, arms_l, *irv_args, row_chunk=row_chunk)
+    except RuntimeError as e:
+        raise SmokeFailure(f"early-stop IRV waits on the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     chunked_ms = time_ms(lambda: irv.dr_irv_early_stop(
         dl, ol, arms_l, *irv_args, row_chunk=row_chunk), 3)
     fixed_ms = time_ms(lambda: irv.dr_irv(dl, ol, arms_l, *irv_args), 3)
     early_ms = time_ms(
         lambda: irv.dr_irv_early_stop(dl, ol, arms_l, *irv_args), 3)
-    flag = fixed_l[1] != ol
-    t0 = time.perf_counter()
-    for _ in range(20):
-        bool(flag.any())
-    read_ms = (time.perf_counter() - t0) * 1e3 / 20
-    chk.irv[chk.suffix.strip() or MAIN] = dict(rounds_left=rounds[0], rounds_right=rounds[1],
-                   of=cfg.irv_iterations, fixed_ms_left=fixed_ms,
-                   early_stop_ms_left=early_ms, changed_read_ms=read_ms,
-                   row_chunk=row_chunk, chunked_ms_left=chunked_ms)
+    empty_ms, empty_queued_ms = time_empty_round(fixed_l, arms_l, cfg)
+    past = [cfg.irv_iterations - r for r in rounds]
+    chk.irv[chk.suffix.strip() or MAIN] = dict(
+        rounds_left=rounds[0], rounds_right=rounds[1],
+        of=cfg.irv_iterations, past_fixpoint_left=past[0],
+        past_fixpoint_right=past[1], fixed_ms_left=fixed_ms,
+        early_stop_ms_left=early_ms, empty_round_ms=empty_ms,
+        empty_round_queued_ms=empty_queued_ms, row_chunk=row_chunk,
+        chunked_ms_left=chunked_ms)
     print(f"early-stop IRV: equal to the {cfg.irv_iterations} fixed rounds "
-          f"bit for bit; rounds run: left {rounds[0]}, right {rounds[1]}; "
-          f"left eye {early_ms:.3f} ms against {fixed_ms:.3f} ms fixed; one "
-          f"`changed` read on an idle device {read_ms:.3f} ms (host clock); "
-          f"over {row_chunk}-row chunks: equal bit for bit, left eye "
-          f"{chunked_ms:.3f} ms", flush=True)
+          f"bit for bit, no host read; rounds up to the fixpoint (tally): "
+          f"left {rounds[0]}, right {rounds[1]}; rounds queued past it: "
+          f"left {past[0]}, right {past[1]}; left eye {early_ms:.3f} ms "
+          f"against {fixed_ms:.3f} ms fixed; over {row_chunk}-row chunks: "
+          f"equal bit for bit, left eye {chunked_ms:.3f} ms; an "
+          f"empty-frontier round on {h}x{w}: {empty_ms:.4f} ms device "
+          f"(CUDA graph), {empty_queued_ms:.4f} ms queued (CUDA events)",
+          flush=True)
     return fixed_l[0], fixed_r[0]
+
+
+def time_empty_round(state, arms, cfg, reps: int = 10):
+    """One round as the early-stop loop queues it past its fixpoint: the
+    frontier of a round that changed no label (`dilate_frontier`, empty)
+    and the round under it (B8 and B9 with an empty `need`), on the
+    state the fixed rounds leave.  Returns its device ms (a CUDA graph of
+    `reps` rounds) and its ms queued from the host (CUDA events around
+    `reps` rounds).  The round must pass its state through."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import irv
+
+    d, o = state
+    args = (cfg.irv_thresh_s, cfg.irv_thresh_h, cfg.num_disp,
+            cfg.zero_disp, cfg.usd)
+
+    def empty_round():
+        need = irv.dilate_frontier(o != o, cfg.usd)
+        return irv.irv_round(d, o, arms, *args, need)
+
+    got = empty_round()
+    if not (torch.equal(got[0], d) and torch.equal(got[1], o)):
+        raise SmokeFailure("IRV: a round under an empty frontier changed "
+                           "its state")
+    return time_graph_ms(empty_round, reps), time_ms(empty_round, reps)
 
 
 def check_vstream_edges(chk, dl, ol, arms, cfg):

@@ -32,7 +32,7 @@ its module names, so each counterpart is easy to find:
                     in one launch: `dc_hslo_wta_lr`); ops.hslo holds
                     its plain version
   ops.irv        -- kernels B8/B9 (an IRV round, `need`-gated) and the
-                    early-stopping round loop
+                    frontier-gated round loop
   ops.filters    -- kernel B10 (bilateral, radius <= 8), median, bleed
   ops.dibr       -- kernels B7 (hits), B11, G1 (the mask feather), B12
                     (warp + merge + interlace in one kernel,

@@ -669,10 +669,11 @@ def dr_irv_band_chunked(disp_l, outl_l, disp_r, outl_r, arms_l, arms_r,
                         cfg, interpret: bool = False):
     """The JAX package's IRV of the band engine under its entry name:
     cfg.irv_iterations rounds of B8 and B9 over row chunks of
-    cfg.irv_row_chunk rows, stopping at the first round that changes no
-    label (`ops.irv.dr_irv_early_stop`, one eye at a time: the JAX entry
-    stacks the eyes along H, which no vote window crosses).  Returns
-    ((disp_l, outl_l), (disp_r, outl_r)); `interpret` has no effect."""
+    cfg.irv_row_chunk rows, each after the first under the frontier of
+    the previous round's changes (`ops.irv.dr_irv_early_stop`, one eye at
+    a time: the JAX entry stacks the eyes along H, which no vote window
+    crosses).  Returns ((disp_l, outl_l), (disp_r, outl_r)); `interpret`
+    has no effect."""
     return tuple(
         dr_irv_early_stop(d, o, a, cfg.irv_thresh_s, cfg.irv_thresh_h,
                           cfg.num_disp, cfg.zero_disp, cfg.usd,

@@ -13,13 +13,15 @@ max_d iff total > thresh_s and (max_d + zero_disp) / total > thresh_h.
 
 A round takes an optional `need` plane: only outliers at need pixels
 vote, every other pixel keeps its disparity and label.  `dr_irv` runs the
-fixed `iterations` rounds; `dr_irv_early_stop`, the pipeline's, stops at
-the first round that changes no label (every later round would be the
-identity) and hands each round the dilated frontier of the previous
-round's changes as its `need`, which is exact: a vote can only change
-when a pixel inside its cross region did.  With a row chunk each round
-streams over chunks of rows with a halo of `usd` rows
-(`irv_round_chunked`), bit-equal to the whole-frame round.
+fixed `iterations` rounds; `dr_irv_early_stop`, the pipeline's, hands
+each round the dilated frontier of the previous round's changes as its
+`need`, which is exact: a vote can only change when a pixel inside its
+cross region did.  After the first round that changes no label the
+frontier is empty and every later round is the identity, at the cost of
+its launches alone, so the loop queues every round without reading the
+device.  With a row chunk each round streams over chunks of rows with a
+halo of `usd` rows (`irv_round_chunked`), bit-equal to the whole-frame
+round.
 
 The wrappers take the plain version only for CPU tensors; on a CUDA
 tensor they launch the kernel or raise.  Arms are clamped to [0, usd] by
@@ -35,7 +37,6 @@ from stereo_to_multiview_tpu_torch import kernels
 from stereo_to_multiview_tpu_torch.ops.chunks import chunk_bounds
 from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
 from stereo_to_multiview_tpu_torch.ops.mux import f32
-from stereo_to_multiview_tpu_torch.utils.profiling import stage_scope
 
 
 def span_sum_inclusive(vol: torch.Tensor, arm_neg: torch.Tensor,
@@ -253,57 +254,38 @@ def irv_round_chunked(disp, outliers, arms, thresh_s: int, thresh_h: float,
             torch.cat([p[1] for p in parts]))
 
 
-def any_changed(changed: torch.Tensor, flag=None) -> bool:
-    """Whether `changed` holds a True, read on the host inside the span
-    `irv.sync`.  On a CUDA device the reduction and its 1-byte copy into
-    the pinned `flag` are queued before the span, which then holds only
-    the host's wait for the stream and its read: it launches no device
-    work, so the caller's stage keeps every launch."""
-    if flag is None:
-        with stage_scope("irv.sync"):
-            return bool(changed.any())
-    flag.copy_(changed.any(), non_blocking=True)
-    stream = torch.cuda.current_stream(changed.device)
-    with stage_scope("irv.sync"):
-        stream.synchronize()
-        return bool(flag)
-
-
 def dr_irv_early_stop(disp: torch.Tensor, outliers: torch.Tensor,
                       arms: torch.Tensor, thresh_s: int, thresh_h: float,
                       num_disp: int, zero_disp: int, usd: int,
                       iterations: int, rounds_run: list | None = None,
                       row_chunk: int = 0):
-    """`dr_irv` with the band engine's round loop: stop after the first
-    round that changes no label (a vote only turns an outlier reliable,
-    so every later round is the identity), and give each round after the
-    first the dilated frontier of the previous round's changes as its
-    `need`.  Bit-equal to `dr_irv`.  Reading whether a label changed
-    costs one device-to-host copy and one wait per round (`any_changed`).
-    `rounds_run`, if given, gets the number of rounds appended.  With
-    `row_chunk` every round streams over row chunks (`irv_round_chunked`);
-    the frontier and the stop stay frame-wide."""
+    """`dr_irv` with the band engine's round loop: each round after the
+    first votes under the dilated frontier of the previous round's
+    changes (its `need`).  Once a round changes no label (a vote only
+    turns an outlier reliable) the frontier is empty and the later rounds
+    pass their state through, so all `iterations` rounds are queued and
+    nothing is read on the host.  Bit-equal to `dr_irv`.  `rounds_run`,
+    if given, gets appended the rounds up to and including the first
+    that changed no label, at most `iterations`: a device tally of the
+    rounds that changed a label, read once after the last round.  With
+    `row_chunk` every round streams over row chunks
+    (`irv_round_chunked`); the frontier stays frame-wide."""
     need = None
-    done = 0
-    flag = (torch.empty((), dtype=torch.bool, pin_memory=True)
-            if disp.is_cuda else None)
-    while done < iterations:
+    tally = (None if rounds_run is None else
+             torch.zeros((), dtype=torch.int32, device=disp.device))
+    for k in range(iterations):
         before = outliers
-        if row_chunk:
-            disp, outliers = irv_round_chunked(
-                disp, outliers, arms, thresh_s, thresh_h, num_disp,
-                zero_disp, usd, need, row_chunk)
-        else:
-            disp, outliers = irv_round(disp, outliers, arms, thresh_s,
-                                       thresh_h, num_disp, zero_disp, usd,
-                                       need)
-        done += 1
-        if done == iterations:
+        disp, outliers = irv_round_chunked(
+            disp, outliers, arms, thresh_s, thresh_h, num_disp, zero_disp,
+            usd, need, row_chunk)
+        if k + 1 == iterations:
             break
         changed = outliers != before
-        if not any_changed(changed, flag):
-            break
+        if tally is not None:
+            tally += changed.any()
         need = dilate_frontier(changed, usd)
     if rounds_run is not None:
-        rounds_run.append(done)
+        # the rounds that change a label come first: once one changes
+        # none, its frontier is empty and so is every later change
+        rounds_run.append(min(iterations, 1 + int(tally)))
     return disp, outliers

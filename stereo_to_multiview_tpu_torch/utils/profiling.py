@@ -13,10 +13,9 @@ otherwise it only checks that no profiler is on.  Two kinds of names:
   a stage groups the device work it launches.
 - host spans: the stream loop's `stream.pull`, `stream.stage_in`,
   `stream.upload`, `stream.dispatch` (around the stages), `stream.readback`,
-  `stream.wait`, `stream.emit` (`models/stream.py`), and IRV's `irv.sync`
-  (`ops/irv.py`), the host's wait for a round's change flag.  A span
-  nested in a stage wraps host work alone: a launch inside it would move
-  out of the stage.
+  `stream.wait`, `stream.emit` (`models/stream.py`).  A span nested in
+  a stage would wrap host work alone: a launch inside it would move out
+  of the stage.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """The program's spans (`utils.profiling.stage_scope`) on the CPU: a tiny
-stream under `torch.profiler` records the stream loop's spans, the
-pipeline's stages and IRV's `irv.sync`, nested as the benchmark reads
-them; with no profiler on no range is opened; IRV's host read gives the
-fixed rounds' disparities and labels bit for bit."""
+stream under `torch.profiler` records the stream loop's spans and the
+pipeline's stages, nested as the benchmark reads them; with no profiler
+on no range is opened; IRV's round loop reads nothing on the host (no
+`irv.sync`, no scalar read) unless asked for its rounds, which it then
+reads once, after the last round, and it gives the fixed rounds'
+disparities and labels bit for bit."""
 
 import json
 
@@ -71,9 +73,8 @@ def test_stream_records_every_span(traced_stream):
     assert names.count("stream.pull") == N_FRAMES + 1   # the last finds
     for n in ("stream.dispatch", "stream.wait", "stream.emit", "frame_in"):
         assert names.count(n) == N_FRAMES, n
-    # each round but the last of each eye reads its change flag
-    assert 0 < names.count("irv.sync") <= N_FRAMES * 2 * (
-        CFG.irv_iterations - 1)
+    # IRV's rounds are queued under the device-side frontier: no read
+    assert "irv.sync" not in names
 
 
 @pytest.mark.parametrize("name", LOOP)
@@ -91,10 +92,12 @@ def test_stages_nest_in_dispatch(traced_stream, name):
 
 
 def test_irv_sync_nests_in_dr_irv(traced_stream):
-    syncs = [e for e in traced_stream if e[1] == "irv.sync"]
-    assert syncs
-    for e in syncs:
-        assert _parents(traced_stream, e) == {"stream.dispatch", "dr_irv"}
+    """No host span nests in `dr_irv`: the host no longer waits there for
+    a round's change flag (`irv.sync` is gone)."""
+    assert [e for e in traced_stream if e[1] == "dr_irv"]
+    for e in traced_stream:
+        assert e[1] != "irv.sync", e
+        assert "dr_irv" not in _parents(traced_stream, e), e
 
 
 def test_no_range_without_a_profiler(monkeypatch):
@@ -116,43 +119,15 @@ def test_stage_scope_passes_exceptions():
             raise ValueError("frame")
 
 
-class _FakeStream:
-    """A CUDA stream's wait, logged, for the CPU."""
-
-    def __init__(self, log):
-        self.log = log
-
-    def synchronize(self):
-        self.log.append("synchronize")
-
-
 @pytest.fixture
 def fake_cuda(monkeypatch):
+    """A log of every wait on a CUDA stream or device, for the CPU."""
     log = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda dev=None: log.append("synchronize"))
     monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev=None: _FakeStream(log))
+                        lambda dev=None: log.append("current_stream"))
     return log
-
-
-@pytest.mark.parametrize("hit", [False, True])
-def test_any_changed_with_a_flag_launches_nothing_in_the_span(
-        fake_cuda, tmp_path, hit):
-    """The device route of IRV's read, with a host flag and a logged
-    stream: the reduction and the flag's copy come before the span, the
-    span holds the wait and the read alone."""
-    changed = torch.zeros((6, 7), dtype=torch.bool)
-    changed[3, 4] = hit
-    flag = torch.empty((), dtype=torch.bool)
-    out = []
-    evs = _traced(lambda: out.append(tirv.any_changed(changed, flag)),
-                  tmp_path)
-    assert out == [hit] and fake_cuda == ["synchronize"]
-    (sync,) = [e for e in evs if e[1] == "irv.sync"]
-    inside = {e[1] for e in evs if e[0] == "cpu_op"
-              and sync[2] <= e[2] and e[3] <= sync[3]}
-    assert not inside & {"aten::any", "aten::copy_"}, inside
-    before = {e[1] for e in evs if e[0] == "cpu_op" and e[3] <= sync[2]}
-    assert {"aten::any", "aten::copy_"} <= before
 
 
 def _irv_case(share, seed):
@@ -164,18 +139,78 @@ def _irv_case(share, seed):
     return disp, outl, arms
 
 
+IRV_ARGS = (5, 0.4, 8, 4, 4, 5)     # thresholds, D, zero_disp, usd, rounds
+
+
+def _first_still_round(disp, outl, arms, iterations):
+    """The first of `iterations` plain rounds that changes no label
+    (`iterations` if each does): where a loop that read a change flag
+    after every round stopped."""
+    for k in range(1, iterations + 1):
+        disp, new = tirv.irv_round(disp, outl, arms, *IRV_ARGS[:5])
+        if torch.equal(new, outl):
+            return k
+        outl = new
+    return iterations
+
+
 @pytest.mark.parametrize("share,row_chunk", [(0.3, 0), (0.6, 16), (0.05, 0)])
-def test_irv_read_with_a_flag_is_bit_equal_to_dr_irv(fake_cuda, monkeypatch,
-                                                     share, row_chunk):
-    """dr_irv_early_stop with every round's read through the device route
-    (a host flag, a logged stream) equals the fixed rounds bit for bit."""
-    read = tirv.any_changed
-    monkeypatch.setattr(tirv, "any_changed", lambda changed, flag: read(
-        changed, torch.empty((), dtype=torch.bool)))
+def test_irv_read_with_a_flag_is_bit_equal_to_dr_irv(fake_cuda, share,
+                                                     row_chunk):
+    """dr_irv_early_stop without `rounds_run` waits on no stream or device
+    (the change flag and its read are gone) and equals the fixed rounds
+    bit for bit, whole-frame and over row chunks."""
     disp, outl, arms = _irv_case(share, 17)
-    args = (disp, outl, arms, 5, 0.4, 8, 4, 4, 5)
+    args = (disp, outl, arms, *IRV_ARGS)
     fixed = tirv.dr_irv(*args)
-    rounds = []
-    early = tirv.dr_irv_early_stop(*args, rounds, row_chunk=row_chunk)
+    early = tirv.dr_irv_early_stop(*args, row_chunk=row_chunk)
+    assert fake_cuda == []
     assert torch.equal(fixed[0], early[0]) and torch.equal(fixed[1], early[1])
-    assert fake_cuda.count("synchronize") == min(rounds[0], 4)
+
+
+SCALAR_READS = {"aten::item", "aten::_local_scalar_dense"}
+
+
+@pytest.mark.parametrize("share,seed,still", [(0.05, 17, 2), (0.6, 17, 5)],
+                         ids=["converges", "does-not-converge"])
+def test_irv_loop_queues_every_round_without_a_read(tmp_path, share, seed,
+                                                    still):
+    """Under the profiler the round loop holds no `irv.sync` range and no
+    scalar read, and runs every round (one vote each), whether its labels
+    settle before the last round or not."""
+    disp, outl, arms = _irv_case(share, seed)
+    assert _first_still_round(disp, outl, arms, IRV_ARGS[-1]) == still
+    evs = _traced(lambda: tirv.dr_irv_early_stop(disp, outl, arms,
+                                                 *IRV_ARGS), tmp_path)
+    names = [e[1] for e in evs]
+    assert "irv.sync" not in names
+    assert not SCALAR_READS & set(names)
+    assert names.count("aten::argmax") == IRV_ARGS[-1]
+
+
+@pytest.mark.parametrize("row_chunk", [0, 16])
+def test_irv_rounds_run_is_read_once_after_the_last_round(tmp_path,
+                                                          row_chunk):
+    """With `rounds_run` the loop reads its device tally once, after the
+    last round's vote, and appends the rounds up to and including the
+    first that changed no label: 1 at the fixpoint, 3 where the labels
+    settle in round 3."""
+    still = torch.zeros((20, 30), dtype=torch.uint8)
+    fixpoint = (torch.zeros((20, 30)), still,
+                torch.full((4, 20, 30), 3, dtype=torch.int32))
+    for (disp, outl, arms), want in ((fixpoint, 1),
+                                     (_irv_case(0.3, 2), 3)):
+        assert _first_still_round(disp, outl, arms, IRV_ARGS[-1]) == want
+        rounds = []
+        evs = _traced(lambda: rounds.append(tirv.dr_irv_early_stop(
+            disp, outl, arms, *IRV_ARGS, rounds, row_chunk=row_chunk)),
+            tmp_path)
+        early = rounds.pop()
+        assert rounds == [want]
+        fixed = tirv.dr_irv(disp, outl, arms, *IRV_ARGS)
+        assert torch.equal(fixed[0], early[0])
+        assert torch.equal(fixed[1], early[1])
+        reads = [e for e in evs if e[1] == "aten::_local_scalar_dense"]
+        votes = [e for e in evs if e[1] == "aten::argmax"]
+        assert len(reads) == 1 and len(votes) >= IRV_ARGS[-1]
+        assert reads[0][2] >= max(v[3] for v in votes)
