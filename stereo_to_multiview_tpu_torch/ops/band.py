@@ -37,6 +37,7 @@ from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
 from stereo_to_multiview_tpu_torch.ops.hslokern import dc_hslo_wta_lr
 from stereo_to_multiview_tpu_torch.ops.irv import dr_irv_early_stop, vote_rule
 from stereo_to_multiview_tpu_torch.ops.mux import f32, mux_average
+from stereo_to_multiview_tpu_torch.utils.profiling import stage_scope
 
 _HALO = 64
 
@@ -295,13 +296,13 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
     independent of the chunking.
 
     cfg.use_hslo puts the horizontal scanline optimisation (kernel B13,
-    both eyes of a chunk in one launch) between the aggregation and the
-    WTA, its penalties scaled into the aggregate's cost units; rows are
-    independent in it, so chunking stays exact.  cfg.band_qscale sets
-    the cost's scale (int16 costs above 127.5) and the shifts;
-    cfg.band_lossy_wta rounds the WTA's inputs to bf16 (not read under
-    use_hslo, as in the JAX package).  Returns
-    (disp_l, disp_r) float32 (H, W)."""
+    both eyes of a chunk in one launch, inside the span `dc_hslo`)
+    between the aggregation and the WTA, its penalties scaled into the
+    aggregate's cost units; rows are independent in it, so chunking
+    stays exact.  cfg.band_qscale sets the cost's scale (int16 costs
+    above 127.5) and the shifts; cfg.band_lossy_wta rounds the WTA's
+    inputs to bf16 (not read under use_hslo, as in the JAX package).
+    Returns (disp_l, disp_r) float32 (H, W)."""
     h, w = img_l.shape[:2]
     usd = cfg.usd
     if usd > _HALO:
@@ -327,9 +328,10 @@ def band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg):
                                      cfg.band_digits, cfg.band_qscale)
                     for cost, arms in ((cost_l, arms_l), (cost_r, arms_r))]
             del pair, cost_l, cost_r
-            disps = dc_hslo_wta_lr(*vols, gray_l[sl], gray_r[sl], nd, zd,
-                                   cfg.hslo_T, cfg.hslo_H1 * kappa,
-                                   cfg.hslo_H2 * kappa)
+            with stage_scope("dc_hslo"):
+                disps = dc_hslo_wta_lr(*vols, gray_l[sl], gray_r[sl], nd,
+                                       zd, cfg.hslo_T, cfg.hslo_H1 * kappa,
+                                       cfg.hslo_H2 * kappa)
             del vols
         else:
             disps = [band_aggregate_q(cost, arms[:, sl], usd, zd,

@@ -4,7 +4,9 @@ pipeline's stages, nested as the benchmark reads them; with no profiler
 on no range is opened; IRV's round loop reads nothing on the host (no
 `irv.sync`, no scalar read) unless asked for its rounds, which it then
 reads once, after the last round, and it gives the fixed rounds'
-disparities and labels bit for bit."""
+disparities and labels bit for bit.  On the scanline route the scanline
+optimisation's work falls in its `dc_hslo` span inside `stereo_core`,
+once a frame and eye pair."""
 
 import json
 
@@ -12,8 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from stereo_to_multiview_tpu_torch import kernels
 from stereo_to_multiview_tpu_torch.config import PipelineConfig
+from stereo_to_multiview_tpu_torch.models import pipeline as tpipe
 from stereo_to_multiview_tpu_torch.models import stream as tstream
+from stereo_to_multiview_tpu_torch.ops import hslokern
 from stereo_to_multiview_tpu_torch.ops import irv as tirv
 from stereo_to_multiview_tpu_torch.utils import profiling
 
@@ -23,6 +28,9 @@ CFG = PipelineConfig(num_rows=24, num_cols=32, num_rows_out=24,
                      num_cols_out=32, num_disp=4, zero_disp=2, usd=4, lsd=2,
                      num_views=2, irv_iterations=3, bilateral_radius=2,
                      feather_radius=2)
+# the scanline route with the median, to an output twice the input's size
+HSLO = CFG.replace(use_hslo=True, use_median=True, num_rows_out=48,
+                   num_cols_out=64, hslo_H1=8.0, hslo_H2=24.0)
 N_FRAMES = 3
 LOOP = ("stream.pull", "stream.dispatch", "stream.wait", "stream.emit")
 STAGES = ("frame_in", "ca_cross_arms", "stereo_core", "dr_dcc", "dr_irv",
@@ -214,3 +222,41 @@ def test_irv_rounds_run_is_read_once_after_the_last_round(tmp_path,
         votes = [e for e in evs if e[1] == "aten::argmax"]
         assert len(reads) == 1 and len(votes) >= IRV_ARGS[-1]
         assert reads[0][2] >= max(v[3] for v in votes)
+
+
+@pytest.mark.parametrize("cfg", [HSLO, CFG], ids=["hslo", "wta"])
+def test_scanline_work_falls_in_dc_hslo_inside_the_core(tmp_path, cfg):
+    """With use_hslo the scanline optimisation's work (its WTA's argmin,
+    the only one in the core then) lies in one `dc_hslo` range nested in
+    `stereo_core`; without it no `dc_hslo` range is opened."""
+    sbs = _frames()[0]
+    evs = _traced(lambda: tpipe.process_frame(sbs, cfg, device="cpu"),
+                  tmp_path)
+    spans = [e for e in evs if e[1] == "dc_hslo"]
+    if not cfg.use_hslo:
+        assert spans == []
+        return
+    assert len(spans) == 1
+    assert _parents(evs, spans[0]) == {"stereo_core"}
+    argmins = [e for e in evs if e[1] == "aten::argmin"
+               and "stereo_core" in _parents(evs, e)]
+    assert argmins
+    assert all("dc_hslo" in _parents(evs, e) for e in argmins)
+    assert "filter_median" in [e[1] for e in evs]
+
+
+@pytest.mark.parametrize("cfg,calls", [(HSLO, [2] * N_FRAMES), (CFG, [])],
+                         ids=["hslo", "wta"])
+def test_b13_is_one_counted_launch_a_frame(monkeypatch, cfg, calls):
+    """The launch counter the benchmark reads (`kernels.wrappers()`) holds
+    B13's wrapper, which a frame of the scanline route calls once with
+    both eyes' volumes (one launch on the card), and the other route
+    never."""
+    wrapper = kernels.wrappers()["dc_hslo_wta_eyes"]
+    assert wrapper is hslokern.dc_hslo_wta_eyes
+    seen = []
+    monkeypatch.setattr(hslokern, "dc_hslo_wta_eyes", lambda vols, *a:
+                        seen.append(len(vols)) or wrapper(vols, *a))
+    tstream.stream(iter(_frames()), cfg, prefetch=0, verbose=False,
+                   device="cpu")
+    assert seen == calls
