@@ -17,7 +17,11 @@
    times one round under an empty frontier, and the lane-major window
    passes at the band_digits 2 and 1 shifts, and the streamed B5 and B9
    where their streams meet the frame's edges (37 rows, fewer than a ring
-   holds; reach 0), and the
+   holds; reach 0), B5 also where its staged path gives way to its
+   register path (D = 130 and 126, a base one element off 16 bytes,
+   reach 108), at reach 64 and on fewer rows than a stage holds, its
+   `vv_pass.staged` count and its launch plan in C against
+   `band.vv_stages`, and the
    streamed B4 and B6 there and where their row streams and vector paths
    end (a width below one segment, D=126 and D=130, prefixes that wrap,
    ties).  The configuration limits once refused on the card: B2 and B3
@@ -114,8 +118,9 @@
    equal the lane-major core at band_digits=2 in every pixel of both
    eyes.  For each, launch counts are zeroed just before one run and read
    just after: every kernel of the path must have launched, and the
-   kernels the path replaces must not; the path's interlaced frame must
-   equal the plain chain (plain masks, feather, view stack and
+   kernels the path replaces must not, and every B5 launch must have
+   taken its staged path (`vv_pass.staged`); the path's interlaced frame
+   must equal the plain chain (plain masks, feather, view stack and
    `mux_multiview`) computed on the card from its disparities; then a
    few runs are timed with CUDA events.
 4. Checks the outputs: shapes, dtypes, finite disparities in range, and
@@ -184,6 +189,10 @@ and a 4K chunk, B16's one-eye modes and edges, B18a-c's edges,
 and in 540-row chunks, 4K) split by CUDA events into the torch census (a
 package whose B16 takes census codes), B16, B18a-c, the chunks' glue and
 the relayout copies.
+`--vpass-checks [--package-root DIR]` does the same for B5 alone: at the
+presets' shapes (the 1080p frame, a 680x3840 chunk of the 4K preset,
+the lowres preset's 540x960) and its edges, timed: the way to time two
+commits' B5 in turns.
 `--runtime-checks` runs phase 5 alone, `--shard-checks` phase 6 alone.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
@@ -298,6 +307,22 @@ for _suffix in (AT_SHORT, AT_REACH0):
     for _name in ("B5 vv_pass (passes 2+3)", "B9 irv_vote",
                   "B9 irv_vote (need)"):
         KERNELS[_name + _suffix] = KERNELS[_name]
+# B5 where its staged path (input rows by tensor copies into a ring of
+# stages) gives way to its register path (D % 4 != 0, a base off 16
+# bytes, a reach past what a slot ring holds) and where a stage is only
+# partly filled (fewer rows than a stage holds), and at a reach the
+# presets do not take (64: one block an SM)
+AT_VP_D130 = " (37x1001, D=130: register path)"
+AT_VP_D126 = " (200x1001, D=126: register path)"
+AT_VP_OFF = " (200x1001, base one element off 16 bytes: register path)"
+AT_VP_REACH64 = " (200x1001, reach 64)"
+AT_VP_REACH108 = " (200x1001, reach 108: register path)"
+AT_VP_FEW = " (9x1001, H < a stage's 16 rows)"
+VP_EDGES = (AT_VP_D130, AT_VP_D126, AT_VP_OFF, AT_VP_REACH64, AT_VP_REACH108,
+            AT_VP_FEW)
+for _suffix in VP_EDGES:
+    KERNELS["B5 vv_pass (passes 2+3)" + _suffix] = KERNELS[
+        "B5 vv_pass (passes 2+3)"]
 # the streamed horizontal passes where their row streams meet the frame's
 # edges and their vector paths end: the crops above (1001 columns, no
 # multiple of a segment), a width below one segment, the left-eye view of
@@ -786,6 +811,10 @@ for _path, _counts in EXACT_LAUNCHES.items():
     _counts["dibr_feather_mask"] = 1
     _counts["dr_dcc"] = 1
     _counts["dibr_occl_masks"] = 1
+# every B5 launch of every preset and dial path takes the staged path
+# (`vv_pass.staged`): D = 128 or 64, reach 34, buffers of torch.empty
+EXACT_STAGED = {_path: _counts["vv_pass"]
+                for _path, _counts in EXACT_LAUNCHES.items()}
 # the XLA engine (engine="xla"): B1's arms, B7's labels, B8/B9 in the IRV
 # rounds and the fused occlusion stage; the band core (B2-B6, B13), the
 # band bilateral B10, the feather G1 and B12 do not launch (its cost,
@@ -1475,30 +1504,29 @@ def time_empty_round(state, arms, cfg, reps: int = 10):
     return time_graph_ms(empty_round, reps), time_ms(empty_round, reps)
 
 
-def check_vstream_edges(chk, dl, ol, arms, cfg):
+def check_vstream_edges(chk, dl, ol, arms, cfg, b9=True):
     """B5 and B9 (full and gated) where their column streams meet the
     frame's edges: on a 37-row crop of the frame's middle rows (fewer rows
     than a ring of 2 * usd + 2: the rings prime against windows clipped at
     both ends, and the arms reach past the crop) and on a 200-row crop at
     reach 0 (no lag, empty B5 windows).  B5 takes a pass-1-sized random
-    volume, B9 the crop's raw disparities, labels and arms."""
+    volume, B9 (with `b9`) the crop's raw disparities, labels and arms."""
     import torch
     from stereo_to_multiview_tpu_torch.ops import band, irv
     from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
 
     nd, zd = cfg.num_disp, cfg.zero_disp
     s2, s3 = band.agg_rescale_shifts(cfg.usd)[1:]
-    gen = torch.Generator(device=dl.device).manual_seed(5)
-    y0 = dl.shape[0] // 2
+    gen = torch.Generator(device=arms.device).manual_seed(5)
+    y0 = arms.shape[1] // 2
     for suffix, rows, usd in ((AT_SHORT, 37, cfg.usd), (AT_REACH0, 200, 0)):
         chk.suffix = suffix
         rs, cs = slice(y0, y0 + rows), slice(0, 1001)
-        d, o = dl[rs, cs].contiguous(), ol[rs, cs].contiguous()
         a = arms[:, rs, cs].contiguous()
-        h, w = d.shape
+        h, w = a.shape[1:]
         hw, hwd = h * w, h * w * nd
         vol = torch.randint(0, 17_600, (h, w, nd), generator=gen,
-                            device=dl.device, dtype=torch.int32)
+                            device=arms.device, dtype=torch.int32)
         ud = (a[UP], a[DOWN])
         chk.record("B5 vv_pass (passes 2+3)",
                    band.vv_pass(vol, *ud, s2, s3, usd),
@@ -1507,6 +1535,9 @@ def check_vstream_edges(chk, dl, ol, arms, cfg):
                    lambda: band.vv_pass_plain(vol, *ud, s2, s3, usd),
                    nbytes=hwd * 4 + 2 * hw * 4 + hwd * 4, ops=2 * 4 * hwd)
         del vol
+        if not b9:
+            continue
+        d, o = dl[rs, cs].contiguous(), ol[rs, cs].contiguous()
         cnt = irv.irv_rowspan(d, o, a[LEFT], a[RIGHT], nd, zd, usd)
         vote = (cfg.irv_thresh_s, cfg.irv_thresh_h, zd, usd)
         record_full_vote(chk, cnt, d, o, ud, vote, usd)
@@ -1520,6 +1551,153 @@ def check_vstream_edges(chk, dl, ol, arms, cfg):
         print(f"  {suffix.strip()}: the gated vote reads {shares[2]:.4f} "
               f"of the spans", flush=True)
     chk.suffix = ""
+
+
+def check_vpass_plan():
+    """B5's launch plan in C (`stm_vv_stages`) against its mirror
+    `band.vv_stages`, by which `vv_pass.staged` counts, over D, reach and
+    alignment; skipped for a package without them."""
+    from stereo_to_multiview_tpu_torch import kernels
+    from stereo_to_multiview_tpu_torch.ops import band
+    lib = kernels.lib("vpass")
+    if not hasattr(band, "vv_stages") or not hasattr(lib, "stm_vv_stages"):
+        print("  B5 plan: the package has no staged path", flush=True)
+        return
+    bad = [(nd, reach, al, lib.stm_vv_stages(nd, reach, al),
+            band.vv_stages(nd, reach, bool(al)))
+           for nd in (1, 4, 30, 32, 64, 96, 126, 128, 130, 132, 256, 1024)
+           for reach in (0, 1, 17, 34, 64, 104, 105, 108, 112, 113, 200)
+           for al in (0, 1)
+           if lib.stm_vv_stages(nd, reach, al)
+           != band.vv_stages(nd, reach, bool(al))]
+    if bad:
+        raise SmokeFailure(f"B5 plan: stm_vv_stages != band.vv_stages at "
+                           f"(D, reach, aligned, C, mirror) {bad[:5]}")
+    print("  B5 plan: stm_vv_stages == band.vv_stages at 264 "
+          "(D, reach, aligned)", flush=True)
+
+
+def check_vpass_edges(chk, arms, cfg):
+    """B5 (`VP_EDGES`) where its staged path gives way to its register
+    path and where a stage is partly filled, each on a crop of the frame's
+    middle rows with random volumes and, at reach 64 and 108, random arms
+    beyond [0, reach]; `vv_pass.staged` must count the staged launches
+    alone (`band.vv_stages`).  Then the plan of every (D, reach)."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import band
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN
+
+    check_vpass_plan()
+    s2, s3 = band.agg_rescale_shifts(cfg.usd)[1:]
+    dev = arms.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    y0 = arms.shape[1] // 2
+    for suffix, rows, nd, usd, offset in (
+            (AT_VP_D130, 37, 130, cfg.usd, 0),
+            (AT_VP_D126, 200, 126, cfg.usd, 0),
+            (AT_VP_OFF, 200, cfg.num_disp, cfg.usd, 1),
+            (AT_VP_REACH64, 200, cfg.num_disp, 64, 0),
+            (AT_VP_REACH108, 200, cfg.num_disp, 108, 0),
+            (AT_VP_FEW, 9, cfg.num_disp, cfg.usd, 0)):
+        chk.suffix = suffix
+        w = 1001
+        n = rows * w * nd
+        flat = torch.randint(0, 17_600, (n + offset,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        vol = flat[offset:].view(rows, w, nd)
+        if usd > cfg.usd:
+            ud = tuple(torch.randint(-2, usd + 3, (rows, w), generator=gen,
+                                     device=dev, dtype=torch.int32)
+                       for _ in range(2))
+        else:
+            ud = tuple(arms[k, y0:y0 + rows, :w].contiguous()
+                       for k in (UP, DOWN))
+        before = getattr(band.vv_pass, "staged", None)
+        got = band.vv_pass(vol, *ud, s2, s3, usd)
+        if before is not None:
+            want = band.vv_stages(nd, usd, nd % 4 == 0
+                                  and vol.data_ptr() % 16 == 0) > 0
+            if band.vv_pass.staged - before != int(want):
+                raise SmokeFailure(f"B5{suffix}: vv_pass.staged counted "
+                                   f"{band.vv_pass.staged - before}, "
+                                   f"expected {int(want)}")
+        hw, hwd = rows * w, rows * w * nd
+        chk.record("B5 vv_pass (passes 2+3)", got,
+                   band.vv_pass_plain(vol, *ud, s2, s3, usd),
+                   lambda: band.vv_pass(vol, *ud, s2, s3, usd),
+                   lambda: band.vv_pass_plain(vol, *ud, s2, s3, usd),
+                   nbytes=hwd * 4 + 2 * hw * 4 + hwd * 4, ops=2 * 4 * hwd)
+        del flat, vol, got
+    chk.suffix = ""
+
+
+def vpass_checks(root: str) -> int:
+    """`--vpass-checks [--package-root DIR]`: B5 alone, on the package
+    under DIR, against `vv_pass_plain` bit for bit and timed: at the
+    shapes of the presets' calls (the 1080p frame, a 680x3840 row chunk of
+    the 4K preset, the lowres preset's 540x960 at D=64), with the 1080p
+    frame's, the 4K frame's and the scaled frame's arms and random volumes
+    of pass 1's range, then at its edges (`check_vstream_edges`' crops,
+    `check_vpass_edges`).  The way to time two commits' B5 in turns.
+    Exit 1 if one fails."""
+    import torch
+    sys.path.insert(0, root)
+    from stereo_to_multiview_tpu_torch import config, kernels
+    from stereo_to_multiview_tpu_torch.models import pipeline
+    from stereo_to_multiview_tpu_torch.ops import band, cross
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN
+    from stereo_to_multiview_tpu_torch.ops.scale import tx_scale_bilinear
+
+    print(f"gpu: {gpu_line()}", flush=True)
+    print_ptxas(kernels.build_kernels())
+    dev = torch.device("cuda")
+    chk = KernelChecks(reps=20)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cfg, cfg4k, lcfg = (config.HD1080_D128, config.UHD4K_16V,
+                        config.HD1080_LOWRES)
+
+    def eyes(c):
+        sbs = torch.from_numpy(stereo_sbs(c.num_rows, c.num_cols)).to(dev)
+        return [t.contiguous() for t in pipeline.demux_sbs(sbs)]
+
+    def one(suffix, img, c):
+        chk.suffix = suffix
+        arms = cross.cross_arms(img, c.ucd, c.lcd, c.usd, c.lsd)
+        h, w = img.shape[:2]
+        nd = c.num_disp
+        vol = torch.randint(0, 17_600, (h, w, nd), generator=gen,
+                            device=dev, dtype=torch.int32)
+        s2, s3 = band.agg_rescale_shifts(c.usd, c.band_digits)[1:]
+        ud = (arms[UP], arms[DOWN])
+        hw, hwd = h * w, h * w * nd
+        chk.record("B5 vv_pass (passes 2+3)",
+                   band.vv_pass(vol, *ud, s2, s3, c.usd),
+                   band.vv_pass_plain(vol, *ud, s2, s3, c.usd),
+                   lambda: band.vv_pass(vol, *ud, s2, s3, c.usd),
+                   lambda: band.vv_pass_plain(vol, *ud, s2, s3, c.usd),
+                   nbytes=hwd * 4 + 2 * hw * 4 + hwd * 4, ops=2 * 4 * hwd)
+        chk.suffix = ""
+        return arms
+
+    try:
+        img_l, _ = eyes(cfg)
+        arms = one("", img_l, cfg)
+        rows = band.chunk_bounds(cfg4k.num_rows, cfg4k.band_row_chunk,
+                                 2 * cfg4k.usd)[0]
+        one(AT_4K, eyes(cfg4k)[0][:rows].contiguous(), cfg4k)
+        one(AT_LOWRES, tx_scale_bilinear(img_l, lcfg.num_rows_disp,
+                                         lcfg.num_cols_disp).contiguous(),
+            lcfg)
+        torch.cuda.empty_cache()
+        check_vstream_edges(chk, None, None, arms, cfg, b9=False)
+        if hasattr(band.vv_pass, "staged"):
+            check_vpass_edges(chk, arms, cfg)
+        print(f"B5: vv_pass.staged {getattr(band.vv_pass, 'staged', None)} "
+              f"of {band.vv_pass.launches} launches", flush=True)
+    except (SmokeFailure, RuntimeError, ValueError) as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def check_irv_rounds(chk, dl, ol, arms, cfg):
@@ -3908,6 +4086,11 @@ def run_path(name, entry, sbs, cfg, n_frames: int, exact: bool = True):
         if launches[n] != want:
             raise SmokeFailure(f"path {name}: {n} launched {launches[n]} "
                                f"times, expected {want}")
+    staged = getattr(kernels.wrappers().get("vv_pass"), "staged", None)
+    print(f"path {name}: vv_pass.staged {staged}", flush=True)
+    if exact and name in EXACT_STAGED and staged != EXACT_STAGED[name]:
+        raise SmokeFailure(f"path {name}: vv_pass.staged {staged}, "
+                           f"expected {EXACT_STAGED[name]}")
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -3920,8 +4103,9 @@ def run_path(name, entry, sbs, cfg, n_frames: int, exact: bool = True):
     print(f"path {name}: {frame_ms:.2f} ms/frame over {n_frames} frames "
           f"(host clock, synchronized); peak device memory {peak_gb:.2f} GB",
           flush=True)
-    return out, dict(launches=launches, frame_ms=frame_ms,
-                     peak_memory_gb=peak_gb, first_frame_ms=first_s * 1e3)
+    return out, dict(launches=launches, vv_pass_staged=staged,
+                     frame_ms=frame_ms, peak_memory_gb=peak_gb,
+                     first_frame_ms=first_s * 1e3)
 
 
 def check_outputs(name, out, cfg, disp_bounds):
@@ -4752,6 +4936,7 @@ def stream_checks(root: str) -> int:
         torch.cuda.empty_cache()
         check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
+        check_vpass_edges(chk, arms_l, cfg)
         check_rowspan_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_hstream_edges(chk, img_l, img_r, cfg)
         check_band_dials(chk, img_l, img_r, arms_l, cfg)
@@ -4988,6 +5173,10 @@ def main() -> int:
                          "against their plain versions, drive "
                          "dr_irv_band_lr and band_stereo_core_dm, and "
                          "print no result line")
+    ap.add_argument("--vpass-checks", action="store_true",
+                    help="only hold B5 against its plain version at the "
+                         "presets' shapes and its edges, timed, and print "
+                         "no result line")
     ap.add_argument("--runtime-checks", action="store_true",
                     help="only run the stream driver, the XLA engine and "
                          "the apps (phase 5) and print no result line")
@@ -4997,7 +5186,8 @@ def main() -> int:
                          "no result line")
     ap.add_argument("--package-root", default=HERE,
                     help="with --frames, --stream-checks, "
-                         "--synth-checks or --band-checks: the checkout "
+                         "--synth-checks, --band-checks or "
+                         "--vpass-checks: the checkout "
                          "whose package runs (default: this one)")
     args = ap.parse_args()
     try:
@@ -5016,6 +5206,8 @@ def main() -> int:
         return synth_checks(os.path.abspath(args.package_root))
     if args.band_checks:
         return band_checks(os.path.abspath(args.package_root))
+    if args.vpass_checks:
+        return vpass_checks(os.path.abspath(args.package_root))
     if args.runtime_checks:
         return only_runtime_checks()
     if args.shard_checks:
@@ -5060,6 +5252,7 @@ def main() -> int:
         check_cost_d130(chk, img_l, img_r, cfg)
         bl, br = check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
+        check_vpass_edges(chk, arms_l, cfg)
         check_rowspan_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_hstream_edges(chk, img_l, img_r, cfg)
         torch.cuda.empty_cache()

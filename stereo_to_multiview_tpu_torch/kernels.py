@@ -49,6 +49,7 @@ _SIGS = {
     "stm_hslo_wta": [_P] * 7 + [_I] * 6 + [_F, _P, _P, _P],
     "stm_hslo_scratch": [_I] * 4,
     "stm_vv_pass": [_P] * 4 + [_I] * 6 + [_P],
+    "stm_vv_stages": [_I] * 3,
     "stm_dcc": [_P] * 4 + [_I, _I, _F, _I, _P],
     "stm_irv_rowspan": [_P] * 7 + [_I] * 5 + [_P],
     "stm_irv_vote": [_P] * 9 + [_I] * 6 + [_F, _P],
@@ -187,11 +188,18 @@ def require(t: torch.Tensor, name: str, dtype, ndim: int, device,
         raise ValueError(f"{name}: must be contiguous")
 
 
-def kernel_wrapper(fn):
-    """Register a kernel wrapper and give it a launch counter."""
-    fn.launches = 0
-    _wrappers[fn.__name__] = fn
-    return fn
+def kernel_wrapper(fn=None, *, counters=()):
+    """Register a kernel wrapper and give it a launch counter `launches`
+    and the further plain int `counters` it names (as
+    `@kernel_wrapper(counters=("staged",))`), all zeroed by
+    `reset_launch_counts`."""
+    def register(fn):
+        fn.counters = ("launches", *counters)
+        for name in fn.counters:
+            setattr(fn, name, 0)
+        _wrappers[fn.__name__] = fn
+        return fn
+    return register if fn is None else register(fn)
 
 
 def wrappers() -> dict:
@@ -200,4 +208,5 @@ def wrappers() -> dict:
 
 def reset_launch_counts():
     for fn in _wrappers.values():
-        fn.launches = 0
+        for name in fn.counters:
+            setattr(fn, name, 0)

@@ -169,13 +169,70 @@ def h_pass_sum(vol: torch.Tensor, arm_neg: torch.Tensor,
     return out
 
 
-@kernels.kernel_wrapper
+# B5's launch (csrc/vpass.cu `vp_plan`): shared memory of a block and of
+# an SM, the part an SM holds back for each block, the bytes of the
+# stages' barriers, rows of a register batch and of a stage, stages at
+# most, rows of a column's slot ring
+VV_SMEM_BLOCK, VV_SMEM_SM, VV_BLOCK_RESERVED = 227 * 1024, 228 * 1024, 1024
+VV_BARS, VV_STEP, VV_ROWS, VV_KMAX, VV_SLOTS = 128, 8, 16, 8, 256
+
+
+def vv_plan(nd: int, reach: int, aligned: bool):
+    """B5's launch at D = nd, as `vp_plan` in csrc/vpass.cu makes it:
+    (K, N, TD, threads), or None where no launch fits.  K: the stages of
+    the staged path, whose input rows come by tensor copies, K batches of
+    VV_ROWS rows in flight; 0 for the register path.  N: the ring slots, a
+    multiple of the path's batch of rows.  TD threads over d for each of
+    threads // TD columns; each thread holds 2 N u32 ring slots, so long
+    reaches take fewer threads.  `aligned`: D % 4 == 0 and the volume's
+    base 16-byte aligned (a tensor copy's rows and strides are 16-byte
+    multiples).  K is as many stages (at most VV_KMAX) as fit beside the
+    rings, the barriers and the columns' slot rings in half an SM's shared
+    memory (two blocks an SM), else in a whole block's, and as a slot ring
+    of VV_SLOTS rows allows (the rows of K + 3 batches and both lags);
+    fewer than two take the register path."""
+    for staged in ((True, False) if aligned else (False,)):
+        step = VV_ROWS if staged else VV_STEP
+        n = -(-(2 * reach + 2) // step) * step
+        per_thread = 8 * n
+        t = 128
+        while t > 32 and t * per_thread > VV_SMEM_BLOCK:
+            t //= 2
+        if t * per_thread > VV_SMEM_BLOCK:
+            continue
+        td = min(-(-nd // 32) * 32, t)
+        threads = td * (t // td)
+        if not staged:
+            return 0, n, td, threads
+        rings = threads * per_thread
+        stage = VV_ROWS * threads * 4
+        fixed = VV_BARS + threads // td * (VV_SLOTS + VV_ROWS) * 16
+        k = (VV_SMEM_SM // 2 - VV_BLOCK_RESERVED - fixed - rings) // stage
+        if k < 2:
+            k = (VV_SMEM_BLOCK - fixed - rings) // stage
+        k = min(k, VV_KMAX, (VV_SLOTS - 2 * reach) // VV_ROWS - 3)
+        if k >= 2:
+            return k, n, td, threads
+    return None
+
+
+def vv_stages(nd: int, reach: int, aligned: bool) -> int:
+    """The stages K of B5's staged path at D = nd (`vv_plan`), 0 where it
+    takes its register path, -1 where no launch fits: the path
+    `vv_pass.staged` counts.  Mirrors `stm_vv_stages` in csrc/vpass.cu."""
+    plan = vv_plan(nd, reach, aligned)
+    return -1 if plan is None else plan[0]
+
+
+@kernels.kernel_wrapper(counters=("staged",))
 def vv_pass(vol: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
             s2: int, s3: int, max_arm: int) -> torch.Tensor:
     """Passes 2 and 3: two vertical window sums of an (H, W, D) int32
     volume over [y - UP, y + DOWN), rescaled by s2 then s3.  Kernel B5
     (csrc/vpass.cu), one launch: each column streams down the frame once
-    through two prefix rings."""
+    through two prefix rings, its input rows brought into shared memory by
+    tensor copies (`vv_pass.staged` counts those launches: `vv_stages`)
+    or, where the rows or the reach do not allow them, by register loads."""
     if kernels.on_cpu(vol):
         return vv_pass_plain(vol, up, down, s2, s3, max_arm)
     kernels.require(vol, "vol", torch.int32, 3, vol.device)
@@ -190,6 +247,8 @@ def vv_pass(vol: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
         w, nd, max_arm, s2, s3, kernels.stream_of(out))
     kernels.check_launch(rc, "vv_pass")
     vv_pass.launches += 1
+    if vv_stages(nd, max_arm, nd % 4 == 0 and vol.data_ptr() % 16 == 0) > 0:
+        vv_pass.staged += 1
     return out
 
 
