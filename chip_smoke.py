@@ -852,14 +852,15 @@ NCCL1 = "halo_process_frame HD1080_D128 NCCL world of one"
 _HALO_BAND = {"cross_arms_eyes", "cost_pair", "shear_right", "h_pass_sum",
               "vv_pass", "h_pass_wta", "dr_dcc", "irv_rowspan", "irv_vote",
               "filter_bilateral", "dibr_occl", "dibr_bleed_mask",
-              "dibr_feather_mask", "warp_views"}
-_HALO_NOT = {"dibr_occl_masks", "warp_merge_interlace", "warp_merge_views"}
+              "dibr_feather_mask", "warp_merge_views"}
+_HALO_NOT = {"dibr_occl_masks", "warp_merge_interlace", "warp_views"}
 _DISP_CORE = {"cross_arms_eyes", "h_pass_sum", "vv_pass"}
 SHARD_LAUNCHES = {
     HALO2: (_HALO_BAND, _HALO_NOT),
     HALO4: (_HALO_BAND, _HALO_NOT),
     HALO4K_ROW: (_HALO_BAND, _HALO_NOT),
-    HALO4K_2D: (_HALO_BAND - {"warp_views"}, _HALO_NOT | {"warp_views"}),
+    HALO4K_2D: (_HALO_BAND - {"warp_merge_views"},
+                _HALO_NOT | {"warp_merge_views"}),
     HALO_HSLO: (_HALO_BAND - {"h_pass_wta"} | {"dc_hslo_wta_eyes"},
                 _HALO_NOT | {"h_pass_wta"}),
     DISP4: (_DISP_CORE, {"cost_pair", "h_pass_wta"}),
@@ -871,7 +872,7 @@ SHARD_LAUNCHES = {
     XLA_HALO: ({"cross_arms_eyes", "dr_dcc", "irv_rowspan", "irv_vote",
                 "dibr_occl", "dibr_bleed_mask"},
                {"cost_pair", "filter_bilateral", "dibr_feather_mask",
-                "warp_views"}),
+                "warp_merge_views", "warp_views"}),
     NCCL1: (_HALO_BAND, _HALO_NOT),
 }
 SHARD_LAUNCHES[XLA_SHARDED] = SHARD_LAUNCHES[XLA_HALO]
@@ -891,8 +892,6 @@ B1_HALO.update({
 for _suffix in B1_HALO:
     _w, _s, _r, _ = KERNELS["B1 cross_arms"]
     KERNELS["B1 cross_arms" + _suffix] = (_w, _s, _r, HALO2)
-# B14 returns to a path (the halo path's views): its launches there
-KERNELS["B14 warp_views"] = (*KERNELS["B14 warp_views"][:3], HALO2)
 
 
 class SmokeFailure(Exception):

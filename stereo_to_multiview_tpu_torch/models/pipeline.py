@@ -33,6 +33,11 @@ engine.
 `process_frame_lowres` computes the disparities on a downscaled pair and
 scales them back up before the synthesis.
 
+This module is the one place that maps cfg.engine to a stage's function:
+`stereo_core`, `bilateral`, `feather`, `intermediate_views` and the
+interlace of `synthesize_interlace`.  The sharded paths (`parallel/`)
+call these stages on their shards.
+
 The band engine's stereo core has quantized cost, exact integer
 aggregation and a first-min WTA; the kernels' plain versions follow the
 JAX package's XLA-engine functions, which its tests hold equal to its
@@ -152,16 +157,20 @@ def xla_stereo_core(img_l, img_r, arms_l, arms_r, cfg: PipelineConfig):
     return tuple(disps)
 
 
-def raw_disparities(img_l, img_r, cfg: PipelineConfig):
-    """Stereo matching up to IRV: images -> (disp_l, disp_r) float32
-    before the median and bilateral filters, plus the outlier labels
-    (u8)."""
-    with stage_scope("ca_cross_arms"):
-        arms_l, arms_r = cross_arms_lr(img_l, img_r, cfg.ucd, cfg.lcd,
-                                       cfg.usd, cfg.lsd)
-    with stage_scope("stereo_core"):
-        core = xla_stereo_core if use_xla(cfg) else band_stereo_core_chunked
-        disp_l, disp_r = core(img_l, img_r, arms_l, arms_r, cfg)
+def stereo_core(img_l, img_r, arms_l, arms_r, cfg: PipelineConfig):
+    """Cost init, aggregation, [scanline optimisation] and WTA on the
+    given arms -> (disp_l, disp_r) float32: the band engine's core
+    (B2-B6, B13 with use_hslo, over cfg.band_row_chunk row chunks) or the
+    XLA engine's (plain torch)."""
+    core = xla_stereo_core if use_xla(cfg) else band_stereo_core_chunked
+    return core(img_l, img_r, arms_l, arms_r, cfg)
+
+
+def refine_disparities(disp_l, disp_r, arms_l, arms_r,
+                       cfg: PipelineConfig):
+    """The stereo core's disparities -> (disp_l, disp_r, out_l, out_r):
+    the left-right labels (B7), then IRV on the given arms (B8/B9 a
+    round, stopping at the fixpoint); the same on both engines."""
     with stage_scope("dr_dcc"):
         out_l, out_r = dr_dcc(disp_l, disp_r, cfg.dcc_thresh)
     with stage_scope("dr_irv"):
@@ -174,6 +183,28 @@ def raw_disparities(img_l, img_r, cfg: PipelineConfig):
     return disp_l, disp_r, out_l, out_r
 
 
+def raw_disparities(img_l, img_r, cfg: PipelineConfig):
+    """Stereo matching up to IRV: images -> (disp_l, disp_r) float32
+    before the median and bilateral filters, plus the outlier labels
+    (u8)."""
+    with stage_scope("ca_cross_arms"):
+        arms_l, arms_r = cross_arms_lr(img_l, img_r, cfg.ucd, cfg.lcd,
+                                       cfg.usd, cfg.lsd)
+    with stage_scope("stereo_core"):
+        disp_l, disp_r = stereo_core(img_l, img_r, arms_l, arms_r, cfg)
+    return refine_disparities(disp_l, disp_r, arms_l, arms_r, cfg)
+
+
+def bilateral(disp, cfg: PipelineConfig):
+    """The bilateral filter of one (H, W) float32 disparity map: B10 on
+    the band engine (`filter_bilateral`, which hands radii above 8 to
+    the XLA filter); the XLA engine's filter, in its own tap order, at
+    every radius."""
+    filt = filter_bilateral_wide if use_xla(cfg) else filter_bilateral
+    return filt(disp, cfg.bilateral_radius, cfg.bilateral_sigma_color,
+                cfg.bilateral_sigma_spatial)
+
+
 def compute_disparities(img_l, img_r, cfg: PipelineConfig):
     """Stereo matching half of the pipeline: images -> refined (disp_l,
     disp_r) float32 plus the outlier labels."""
@@ -182,12 +213,7 @@ def compute_disparities(img_l, img_r, cfg: PipelineConfig):
         with stage_scope("filter_median"):
             disp_l, disp_r = filter_median(disp_l), filter_median(disp_r)
     with stage_scope("filter_bilateral"):
-        # the XLA engine's filter at every radius: its own tap order
-        filt = filter_bilateral_wide if use_xla(cfg) else filter_bilateral
-        blf = lambda d: filt(d, cfg.bilateral_radius,
-                             cfg.bilateral_sigma_color,
-                             cfg.bilateral_sigma_spatial)
-        disp_l, disp_r = blf(disp_l), blf(disp_r)
+        disp_l, disp_r = bilateral(disp_l, cfg), bilateral(disp_r, cfg)
     return disp_l, disp_r, out_l, out_r
 
 
@@ -207,38 +233,47 @@ def synth_disp_bounds(cfg: PipelineConfig):
 _synth_shifts = synth_shifts
 
 
+def feather(mask_r, cfg: PipelineConfig):
+    """The feathered blend weight of the right mask: G1 on the band
+    engine; on the XLA engine the plain torch feather in the JAX
+    package's jitted CPU order (`filter_gaussian_lift(...,
+    contract=True)`), which G1 is not."""
+    if use_xla(cfg):
+        return filter_gaussian_lift(op_invertnormf(mask_r),
+                                    cfg.feather_radius, cfg.feather_sigma,
+                                    contract=True)
+    return dibr_feather_mask(mask_r, cfg.feather_radius, cfg.feather_sigma)
+
+
 def synthesis_masks(disp_l, disp_r, cfg: PipelineConfig):
     """The synthesis' masks from the disparities: (mask_l, mask_r) float32
     {0, 1} (occlusion hits B7 and bleed B11 in one launch) and the
-    feathered blend weight: G1 on the band engine; on the XLA engine the
-    plain torch feather in the JAX package's jitted CPU order
-    (`filter_gaussian_lift(..., contract=True)`), which G1 is not."""
+    feathered blend weight (`feather`)."""
     with stage_scope("dibr_occl"):
         mask_l, mask_r = dibr_occl_masks(disp_l, disp_r, cfg.bleed_radius)
     with stage_scope("dibr_feather"):
-        if use_xla(cfg):
-            feathered = filter_gaussian_lift(op_invertnormf(mask_r),
-                                             cfg.feather_radius,
-                                             cfg.feather_sigma,
-                                             contract=True)
-        else:
-            feathered = dibr_feather_mask(mask_r, cfg.feather_radius,
-                                          cfg.feather_sigma)
+        feathered = feather(mask_r, cfg)
     return mask_l, mask_r, feathered
 
 
-def xla_views(img_l, img_r, disp_l, disp_r, mask_l, mask_r, feathered,
-              cfg: PipelineConfig, out=None) -> torch.Tensor:
-    """The XLA engine's intermediate views, (nv, H, W, 3) u8: for each
-    shift, the left image warped with disp_r at -shift and the right one
-    with disp_l at 1 - shift (bounded warps, `dibr_backward_warp`),
-    merged with the feathered mask; plain torch, each lerp's second term
-    added by a fused multiply-add as in the JAX package's jitted
-    frame.  Written into `out`, (nv, H, W, 3), when given."""
-    nd_s, zd_s = synth_disp_bounds(cfg)
-    shifts = synth_shifts(cfg.num_views)
+def intermediate_views(img_l, img_r, disp_l, disp_r, masks, shifts,
+                       cfg: PipelineConfig, out=None) -> torch.Tensor:
+    """The views at `shifts`, (len(shifts), H, W, 3) u8: for each shift,
+    the left image warped with disp_r at -shift (masked by mask_r) and
+    the right one with disp_l at 1 - shift (masked by mask_l), merged
+    with the feathered weight; `masks` is (mask_l, mask_r, feathered).
+    The band engine runs B12's view stack (every view in one launch);
+    the XLA engine its bounded warps (`dibr_backward_warp`) in plain
+    torch, each lerp's second term added by a fused multiply-add as in
+    the JAX package's jitted frame.  Written into `out`, (len(shifts),
+    H, W, 3), when given."""
+    if not use_xla(cfg):
+        return warp_merge_views(img_l, img_r, disp_l, disp_r, *masks,
+                                shifts, out=out)
     if not shifts:
         return img_l.new_empty((0, *img_l.shape)) if out is None else out
+    mask_l, mask_r, feathered = masks
+    nd_s, zd_s = synth_disp_bounds(cfg)
     views = [
         mux_merge_ab(
             dibr_backward_warp(img_l, mask_r, disp_r, -s, nd_s, zd_s, True),
@@ -254,22 +289,18 @@ def synthesize_views(img_l, img_r, disp_l, disp_r,
     """DIBR half: images + disparities -> (V, H, W, 3) u8 view stack.
     View 0 = right source, view V-1 = left source; intermediate view v
     warps L with disp_r at -shift and R with disp_l at 1 - shift,
-    shift = 1 - v/(V-1), and merges them with the feathered mask: B12 on
-    the band engine, the bounded plain-torch warps on the XLA engine.  The
-    stack is allocated once; the two sources are copied into it and the
-    intermediate views written into it in place."""
+    shift = 1 - v/(V-1), and merges them with the feathered mask
+    (`intermediate_views`).  The stack is allocated once; the two sources
+    are copied into it and the intermediate views written into it in
+    place."""
     masks = synthesis_masks(disp_l, disp_r, cfg)
     with stage_scope("dibr_dbm"):
         views = torch.empty((cfg.num_views, *img_l.shape), dtype=torch.uint8,
                             device=img_l.device)
         views[0] = img_r
         views[-1] = img_l
-        mids = views[1:-1]
-        if use_xla(cfg):
-            xla_views(img_l, img_r, disp_l, disp_r, *masks, cfg, out=mids)
-        else:
-            warp_merge_views(img_l, img_r, disp_l, disp_r, *masks,
-                             synth_shifts(cfg.num_views), out=mids)
+        intermediate_views(img_l, img_r, disp_l, disp_r, masks,
+                           synth_shifts(cfg.num_views), cfg, out=views[1:-1])
     return views
 
 

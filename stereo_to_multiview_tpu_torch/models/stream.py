@@ -10,10 +10,10 @@ flight: each frame is copied into one of a ring of pinned host buffers
 and uploaded by a non-blocking copy on a side stream, which the compute
 stream waits for with an event; the result is read back by a
 non-blocking copy into pinned memory, completed by an event before the
-meter and the callback see the frame.  `process_frame` reads whether an
-IRV round changed a label back to the host after every round, so the
-host cannot queue a whole frame ahead: depth 2 overlaps the uploads,
-readbacks and decode with the device's work.
+meter and the callback see the frame.  `process_frame` reads nothing
+back to the host between IRV rounds (each round is queued under the
+device-side frontier), so the host queues a whole frame ahead: depth 2
+overlaps the uploads, readbacks and decode with the device's work.
 
 While a profiler is on, each step of the loop is a span on the loop's
 thread (`utils.profiling.stage_scope`): `stream.pull` (the wait for the

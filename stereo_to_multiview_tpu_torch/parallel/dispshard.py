@@ -27,18 +27,15 @@ import torch
 
 from stereo_to_multiview_tpu_torch.config import PipelineConfig
 from stereo_to_multiview_tpu_torch.models.pipeline import (
-    _frame_images, check_ported, resolve_device, synthesize_interlace,
-    use_xla)
+    _frame_images, bilateral, check_ported, refine_disparities,
+    resolve_device, synthesize_interlace, use_xla)
 from stereo_to_multiview_tpu_torch.ops.band import (
     agg_cost_scale, band_aggregate_q, quantize_cost)
 from stereo_to_multiview_tpu_torch.ops.cost import ci_adcensus
 from stereo_to_multiview_tpu_torch.ops.cross import (
     cross_aggregate, cross_arms_lr)
-from stereo_to_multiview_tpu_torch.ops.dcc import dr_dcc
-from stereo_to_multiview_tpu_torch.ops.filters import filter_bilateral_wide
 from stereo_to_multiview_tpu_torch.ops.hslo import dc_hslo
 from stereo_to_multiview_tpu_torch.ops.hslokern import dc_hslo_wta_kern
-from stereo_to_multiview_tpu_torch.ops.irv import dr_irv_early_stop
 from stereo_to_multiview_tpu_torch.ops.mux import mux_average
 from stereo_to_multiview_tpu_torch.ops.wta import dc_wta
 from stereo_to_multiview_tpu_torch.parallel.mesh import (
@@ -155,25 +152,18 @@ def disp_sharded_disparities(mesh: Mesh, cfg: PipelineConfig,
 
 def replicated_tail(img_l, img_r, disp_l, disp_r, arms_l, arms_r,
                     cfg: PipelineConfig):
-    """Everything after the stereo core, on one rank, on the XLA engine's
-    ops as the JAX package's disparity-sharded frame runs it: labels (B7),
-    IRV (B8/B9; fixed rounds, or their bit-equal early stop), the XLA
-    bilateral filter, the XLA engine's synthesis and interlace.  No
-    median, as in the JAX package.  Returns (disp_l, disp_r,
+    """Everything after the stereo core, on one rank, as the JAX package's
+    disparity-sharded frame runs it: the pipeline's stages on the XLA
+    engine and without the median, that is the labels and IRV
+    (`refine_disparities`: B7, B8/B9), the XLA bilateral filter and the
+    XLA engine's synthesis and interlace.  Returns (disp_l, disp_r,
     interlaced)."""
-    out_l, out_r = dr_dcc(disp_l, disp_r, cfg.dcc_thresh)
-    irv = lambda d, o, a: dr_irv_early_stop(
-        d, o, a, cfg.irv_thresh_s, cfg.irv_thresh_h, cfg.num_disp,
-        cfg.zero_disp, cfg.usd, cfg.irv_iterations,
-        row_chunk=cfg.irv_row_chunk)[0]
-    disp_l, disp_r = irv(disp_l, out_l, arms_l), irv(disp_r, out_r, arms_r)
-    blf = lambda d: filter_bilateral_wide(
-        d, cfg.bilateral_radius, cfg.bilateral_sigma_color,
-        cfg.bilateral_sigma_spatial)
-    disp_l, disp_r = blf(disp_l), blf(disp_r)
-    interlaced = synthesize_interlace(img_l, img_r, disp_l, disp_r,
-                                      cfg.replace(engine="xla"))
-    return disp_l, disp_r, interlaced
+    cfg = cfg.replace(engine="xla", use_median=False)
+    disp_l, disp_r, _, _ = refine_disparities(disp_l, disp_r, arms_l,
+                                              arms_r, cfg)
+    disp_l, disp_r = bilateral(disp_l, cfg), bilateral(disp_r, cfg)
+    return disp_l, disp_r, synthesize_interlace(img_l, img_r, disp_l,
+                                                disp_r, cfg)
 
 
 def disp_sharded_process_frame(mesh: Mesh, cfg: PipelineConfig,

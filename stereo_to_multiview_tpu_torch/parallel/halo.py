@@ -3,9 +3,11 @@
 Strategy B of the JAX package (its parallel/halo.py): shard the frame's
 row axis across the ranks of a mesh and exchange exactly the stencil
 halos each stage needs.  Every rank runs the port's kernels on its
-shard: B1 in its halo-shard mode, the band engine's stereo core (B2-B6,
-B13 with use_hslo) or the XLA engine's, B7, B8/B9 a round at a time,
-B10, B7's hits and B11, G1, and B14 for the views.
+shard: B1 in its halo-shard mode, then the pipeline's stage functions
+of cfg.engine (`models.pipeline`: `stereo_core`, `bilateral`, `feather`,
+`intermediate_views`) with B7's labels, B8/B9 a round at a time, B7's
+hits and B11 between them; on the band engine the views are B12's view
+stack, every view in one launch.
 
 Halo widths (those of the JAX package, each checked against the stage's
 stencil):
@@ -38,20 +40,17 @@ import torch
 
 from stereo_to_multiview_tpu_torch.config import PipelineConfig
 from stereo_to_multiview_tpu_torch.models.pipeline import (
-    check_ported, resolve_device, use_xla, xla_stereo_core, xla_views)
-from stereo_to_multiview_tpu_torch.ops.band import band_stereo_core_chunked
+    bilateral, check_ported, feather, intermediate_views, resolve_device,
+    stereo_core)
+from stereo_to_multiview_tpu_torch.ops.cross import cross_arms_lr
+from stereo_to_multiview_tpu_torch.ops.dcc import dr_dcc
 from stereo_to_multiview_tpu_torch.ops.demux import demux_sbs
 from stereo_to_multiview_tpu_torch.ops.dibr import (
-    dibr_backward_warp_dyn, dibr_feather_mask, op_invertnormf,
-    synth_shifts, warp_views)
-from stereo_to_multiview_tpu_torch.ops.filters import (
-    filter_bilateral_wide, filter_gaussian_lift, filter_median)
-from stereo_to_multiview_tpu_torch.ops.irvkern import irv_round_kern
+    dibr_backward_warp_dyn, dibr_bleed_mask, dibr_occl, synth_shifts)
+from stereo_to_multiview_tpu_torch.ops.filters import filter_median
+from stereo_to_multiview_tpu_torch.ops.irv import irv_round
 from stereo_to_multiview_tpu_torch.ops.mux import (
     mux_merge_ab, mux_multiview_rows, mux_view_pattern)
-from stereo_to_multiview_tpu_torch.ops.postkern import (
-    cross_arms_kern_lr, dcc_occl_kern, filter_bilateral_kern,
-    filter_bleed_mask_kern)
 from stereo_to_multiview_tpu_torch.ops.scale import (
     lerp_axis, lerp_gather, lerp_taps)
 from stereo_to_multiview_tpu_torch.parallel.mesh import (
@@ -170,12 +169,19 @@ class _RowPlan:
             raise ValueError(
                 f"shard height {rows_loc} smaller than the largest halo "
                 f"{max_halo}; use fewer devices or a taller frame")
-        self.xla = use_xla(cfg)
-        if not self.xla and cfg.usd > 64:
-            raise ValueError("band engine requires usd <= 64 (256-wide "
-                             "kernel windows); set engine='xla' for larger "
-                             "arms")
         check_ported(cfg)
+        # the XLA engine's plain torch contracts multiply-adds as its
+        # jitted frame does
+        self.contract = cfg.engine == "xla"
+        # the bounds of the JAX package's kernels on this path: B1 and the
+        # IRV round take usd <= 64, B7 a disparity reach <= 128
+        if cfg.usd > 64:
+            raise ValueError(
+                "usd must be <= 64 (256-wide kernel windows)" if self.contract
+                else "band engine requires usd <= 64 (256-wide kernel "
+                "windows); set engine='xla' for larger arms")
+        if max(cfg.zero_disp, cfg.num_disp - cfg.zero_disp) > 128:
+            raise ValueError("disparity reach exceeds 128 columns")
 
     def row0(self) -> int:
         """The shard's first row in the frame."""
@@ -193,18 +199,15 @@ def _shard_disparities(plan: _RowPlan, img_l, img_r, median: bool):
 
     ext_l = halo_exchange(img_l, h_img, h_img, mesh, axis)
     ext_r = halo_exchange(img_r, h_img, h_img, mesh, axis)
-    arms_l, arms_r = cross_arms_kern_lr(
-        ext_l, ext_r, cfg.ucd, cfg.lcd, usd, cfg.lsd,
-        row_offset=row0 - h_img, global_h=cfg.num_rows)
+    arms_l, arms_r = cross_arms_lr(ext_l, ext_r, cfg.ucd, cfg.lcd, usd,
+                                   cfg.lsd, row0 - h_img, cfg.num_rows)
     # the stereo core of either engine on the extended rows: exact integer
     # aggregation (the band engine; the XLA engine at xla_agg_qscale > 0)
     # makes each row's result independent of the shard's origin
-    core = xla_stereo_core if plan.xla else band_stereo_core_chunked
-    disp_l, disp_r = core(ext_l, ext_r, arms_l, arms_r, cfg)
+    disp_l, disp_r = stereo_core(ext_l, ext_r, arms_l, arms_r, cfg)
     sl = slice(h_img, h_img + rows_loc)
     disp_l, disp_r = disp_l[sl].contiguous(), disp_r[sl].contiguous()
-    out_l, out_r = dcc_occl_kern(disp_l, disp_r, cfg.dcc_thresh,
-                                 with_labels=True, num_disp=nd, zero_disp=zd)
+    out_l, out_r = dr_dcc(disp_l, disp_r, cfg.dcc_thresh)
 
     # IRV: fixed rounds, the disparity and label halos exchanged every
     # round; halo rows outside the frame are outliers, which never vote
@@ -218,9 +221,8 @@ def _shard_disparities(plan: _RowPlan, img_l, img_r, median: bool):
             dx = halo_exchange(disp, usd, usd, mesh, axis, edge="zero")
             ox = halo_exchange(outl, usd, usd, mesh, axis, edge="zero")
             ox = torch.where(valid, ox, torch.ones_like(ox))
-            dx, ox = irv_round_kern(dx, ox, arms[:, irv_rows],
-                                    cfg.irv_thresh_s, cfg.irv_thresh_h, nd,
-                                    zd, usd)
+            dx, ox = irv_round(dx, ox, arms[:, irv_rows], cfg.irv_thresh_s,
+                               cfg.irv_thresh_h, nd, zd, usd)
             disp = dx[usd:usd + rows_loc].contiguous()
             outl = ox[usd:usd + rows_loc].contiguous()
         return disp, outl
@@ -232,66 +234,39 @@ def _shard_disparities(plan: _RowPlan, img_l, img_r, median: bool):
     if median:
         disp_l, disp_r = (_halo_filter(filter_median, d, 1, mesh, axis)
                           for d in (disp_l, disp_r))
-    rb = cfg.bilateral_radius
-    if not plan.xla and rb <= 8:
-        blf = lambda d: filter_bilateral_kern(
-            d, rb, cfg.bilateral_sigma_color, cfg.bilateral_sigma_spatial,
-            nd)
-    else:
-        # the XLA filter: the band engine's above radius 8, the XLA
-        # engine's at every radius
-        blf = lambda d: filter_bilateral_wide(
-            d, rb, cfg.bilateral_sigma_color, cfg.bilateral_sigma_spatial)
-    disp_l = _halo_filter(blf, disp_l, rb, mesh, axis).contiguous()
-    disp_r = _halo_filter(blf, disp_r, rb, mesh, axis).contiguous()
-    return disp_l, disp_r, out_l, out_r
+    blf = lambda d: _halo_filter(lambda e: bilateral(e, cfg), d,
+                                 cfg.bilateral_radius, mesh,
+                                 axis).contiguous()
+    return blf(disp_l), blf(disp_r), out_l, out_r
 
 
 def _shard_masks(plan: _RowPlan, disp_l, disp_r):
     """(mask_l, mask_r, feathered) of a shard: B7's hits (row-local), the
-    bleed (B11) on them with the bleed edge's halo, the feather (G1 on
-    the band engine, the XLA engine's contracted filter otherwise) with a
-    clamp halo."""
+    bleed (B11) on them with the bleed edge's halo, the pipeline's
+    `feather` with a clamp halo."""
     cfg, mesh, axis = plan.cfg, plan.mesh, plan.row_axis
-    occl_l, occl_r = dcc_occl_kern(disp_l, disp_r, with_labels=False,
-                                   num_disp=cfg.num_disp,
-                                   zero_disp=cfg.zero_disp)
     rbl = cfg.bleed_radius
-    ext = [halo_exchange(o, rbl, rbl, mesh, axis, edge="bleed")
-           for o in (occl_l, occl_r)]
-    mask_l, mask_r = (m[rbl:m.shape[0] - rbl].contiguous()
-                      for m in filter_bleed_mask_kern(*ext, rbl))
-    fr, sigma = cfg.feather_radius, cfg.feather_sigma
-    if plan.xla:
-        fth = lambda m: filter_gaussian_lift(op_invertnormf(m), fr, sigma,
-                                             contract=True)
-    else:
-        fth = lambda m: dibr_feather_mask(m, fr, sigma)
-    feathered = _halo_filter(fth, mask_r, fr, mesh, axis).contiguous()
+    mask_l, mask_r = (
+        _halo_filter(lambda e: dibr_bleed_mask(e, rbl), o, rbl, mesh, axis,
+                     edge="bleed").contiguous()
+        for o in dibr_occl(disp_l, disp_r))
+    feathered = _halo_filter(lambda m: feather(m, cfg), mask_r,
+                             cfg.feather_radius, mesh, axis).contiguous()
     return mask_l, mask_r, feathered
 
 
 def _shard_views(plan: _RowPlan, img_l, img_r, disp_l, disp_r, masks):
     """The shard's (V, rows, W, 3) u8 view stack: the right image, the
-    intermediate views, the left image.  The band engine warps with B14
-    and merges in torch, the same values as B12's; the XLA engine's are
-    its bounded, contracted warps."""
+    pipeline's `intermediate_views` (B12's view stack on the band engine,
+    every view in one launch; the XLA engine's bounded, contracted
+    warps), the left image."""
     cfg = plan.cfg
-    if plan.xla:
-        mids = xla_views(img_l, img_r, disp_l, disp_r, *masks, cfg)
-    else:
-        mask_l, mask_r, feathered = masks
-        shifts = synth_shifts(cfg.num_views)
-        mids = img_l.new_empty((0, *img_l.shape))
-        if shifts:
-            va, vb = warp_views(img_l, img_r, disp_l, disp_r, shifts)
-            ml, mr = mask_l[:, :, None], mask_r[:, :, None]
-            mids = torch.stack([
-                mux_merge_ab((va[j] * mr).to(U8), (vb[j] * ml).to(U8),
-                             feathered)
-                for j in range(len(shifts))])
-            del va, vb
-    return torch.cat([img_r[None], mids, img_l[None]])
+    views = torch.empty((cfg.num_views, *img_l.shape), dtype=U8,
+                        device=img_l.device)
+    views[0], views[-1] = img_r, img_l
+    intermediate_views(img_l, img_r, disp_l, disp_r, masks,
+                       synth_shifts(cfg.num_views), cfg, out=views[1:-1])
+    return views
 
 
 def _resampled_interlace(plan: _RowPlan, views):
@@ -309,12 +284,12 @@ def _resampled_interlace(plan: _RowPlan, views):
         vr = halo_exchange(vr, plan.rs_lo, plan.rs_hi, mesh, plan.row_axis,
                            edge="zero")
     ext_v = vr.movedim(0, 1).to(F32)
-    sampled = lerp_axis(ext_v, 2, cfg.num_cols_out, plan.xla)
+    sampled = lerp_axis(ext_v, 2, cfg.num_cols_out, plan.contract)
     i0, i1, w = lerp_taps(cfg.num_rows_out, cfg.num_rows, dev)
     sl = slice(idx * plan.ho_loc, (idx + 1) * plan.ho_loc)
     first = idx * plan.rows_loc - plan.rs_lo
     sampled = lerp_gather(sampled, 1, i0[sl] - first, i1[sl] - first, w[sl],
-                          plan.xla).to(U8)
+                          plan.contract).to(U8)
     vid = mux_view_pattern(v, plan.ho_loc, cfg.num_cols_out, cfg.angle, dev,
                            idx * plan.ho_loc)
     return torch.gather(sampled, 0, vid[None])[0]
@@ -345,9 +320,9 @@ def _view_axis_interlace(plan: _RowPlan, img_l, img_r, disp_l, disp_r,
             shift = float(np.float32(1.0)
                           - np.float32(vg) / np.float32(v - 1.0))
             a = dibr_backward_warp_dyn(img_l, mask_r, disp_r, -shift, nd, zd,
-                                       plan.xla)
+                                       plan.contract)
             b = dibr_backward_warp_dyn(img_r, mask_l, disp_l, 1.0 - shift,
-                                       nd, zd, plan.xla)
+                                       nd, zd, plan.contract)
             view = mux_merge_ab(a, b, feathered)
         partial += torch.where(pattern == vg, view.to(torch.int32), 0)
     return all_reduce_sum(partial, mesh, plan.view_axis).to(U8)

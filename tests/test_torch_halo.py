@@ -187,7 +187,8 @@ def test_halo_process_frame_resampled_matches_single(ranks, name):
 @pytest.mark.parametrize("name", ["band", "band_2"])
 def test_halo_band_engine_exact(ranks, name):
     """The band engine (B1's halo-shard mode, B2-B6, B7, B8/B9 a round at
-    a time, B10, B7's hits, B11, G1, B14) over four and two shards."""
+    a time, B10, B7's hits, B11, G1, B12's view stack) over four and two
+    shards."""
     _equal(ranks[name], _single(name))
 
 
