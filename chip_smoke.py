@@ -21,7 +21,10 @@
    register path (D = 130 and 126, a base one element off 16 bytes,
    reach 108), at reach 64 and on fewer rows than a stage holds, its
    `vv_pass.staged` count and its launch plan in C against
-   `band.vv_stages`, and the
+   `band.vv_stages`, B9 where its staged path meets its edges (D=130,
+   reach 127, a volume 4 bytes off 16) and where it gives way to its
+   register path (D=1023 at reach 50), its `irv_vote.staged` count, and
+   the
    streamed B4 and B6 there and where their row streams and vector paths
    end (a width below one segment, D=126 and D=130, prefixes that wrap,
    ties).  The configuration limits once refused on the card: B2 and B3
@@ -118,8 +121,9 @@
    equal the lane-major core at band_digits=2 in every pixel of both
    eyes.  For each, launch counts are zeroed just before one run and read
    just after: every kernel of the path must have launched, and the
-   kernels the path replaces must not, and every B5 launch must have
-   taken its staged path (`vv_pass.staged`); the path's interlaced frame
+   kernels the path replaces must not, and every B5 and B9 launch must
+   have taken its staged path (`vv_pass.staged`, `irv_vote.staged`); the
+   path's interlaced frame
    must equal the plain chain (plain masks, feather, view stack and
    `mux_multiview`) computed on the card from its disparities; then a
    few runs are timed with CUDA events.
@@ -193,6 +197,11 @@ the relayout copies.
 presets' shapes (the 1080p frame, a 680x3840 chunk of the 4K preset,
 the lowres preset's 540x960) and its edges, timed: the way to time two
 commits' B5 in turns.
+`--irv-checks [--package-root DIR]` does the same for B9 alone: full and
+gated on the 1080p frame, a 1152x3840 IRV chunk of the 4K preset and the
+lowres preset's 540x960, then at its edges (37 rows, reach 0 and 127,
+D=130, a volume 4 bytes off 16, and the register path at D=1023 and
+reach 50), timed: the way to time two commits' B9 in turns.
 `--runtime-checks` runs phase 5 alone, `--shard-checks` phase 6 alone.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
@@ -306,6 +315,21 @@ AT_REACH0 = " (200x1001, reach 0)"
 for _suffix in (AT_SHORT, AT_REACH0):
     for _name in ("B5 vv_pass (passes 2+3)", "B9 irv_vote",
                   "B9 irv_vote (need)"):
+        KERNELS[_name + _suffix] = KERNELS[_name]
+# B9 where its staged path meets its edges: two groups of bins a lane
+# (D=130: the staged kernel built for two), reach 127 (one block an SM, three
+# columns a strip), and full only, the whole frame's spans in a volume
+# whose base lies 4 bytes past a 16-byte bound (the strip's first bytes
+# copied by hand); and where it gives way to its register path (D=1023 at
+# reach 50: the rings leave no room for two stages)
+AT_V_D130 = " (37x1001, D=130)"
+AT_V_REACH127 = " (200x1001, reach 127)"
+AT_V_OFF = " (base 4 bytes off 16)"
+AT_V_REG = " (200x301, D=1023, reach 50: register path)"
+VOTE_EDGES = (AT_V_D130, AT_V_REACH127, AT_V_OFF, AT_V_REG)
+for _suffix in VOTE_EDGES:
+    for _name in ("B9 irv_vote",) + (("B9 irv_vote (need)",)
+                                     if _suffix != AT_V_OFF else ()):
         KERNELS[_name + _suffix] = KERNELS[_name]
 # B5 where its staged path (input rows by tensor copies into a ring of
 # stages) gives way to its register path (D % 4 != 0, a base off 16
@@ -1693,6 +1717,160 @@ def vpass_checks(root: str) -> int:
             check_vpass_edges(chk, arms, cfg)
         print(f"B5: vv_pass.staged {getattr(band.vv_pass, 'staged', None)} "
               f"of {band.vv_pass.launches} launches", flush=True)
+    except (SmokeFailure, RuntimeError, ValueError) as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def check_vote_edges(chk, dl, ol, arms, cfg, suffixes=VOTE_EDGES):
+    """B9, full and gated, where its staged path meets its edges (the
+    `suffixes`: VOTE_EDGES, and with --irv-checks AT_SHORT and AT_REACH0
+    too): crops of the frame's middle rows with their raw disparities,
+    labels and arms (random arms in [-2, reach + 2] above the preset's
+    reach; at D=130 the disparities reach bins 2 .. 129), and, full only,
+    the whole frame's spans copied to a volume 4 bytes past a 16-byte
+    bound.  `irv_vote.staged` must count every launch but those of
+    AT_V_REG (the register path)."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import irv
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+
+    h, w = dl.shape
+    y0 = h // 2
+    gen = torch.Generator(device=dl.device).manual_seed(11)
+    # (first row, rows, columns, num_disp and zero_disp or None, reach)
+    cases = {AT_SHORT: (y0, 37, 1001, None, cfg.usd),
+             AT_REACH0: (y0, 200, 1001, None, 0),
+             AT_V_D130: (y0, 37, 1001, (130, 66), cfg.usd),
+             AT_V_REACH127: (y0, 200, 1001, None, 127),
+             AT_V_OFF: (0, h, w, None, cfg.usd),
+             AT_V_REG: (y0, 200, 301, (1023, 64), 50)}
+    for suffix in suffixes:
+        r0, rows, cols, bins, usd = cases[suffix]
+        chk.suffix = suffix
+        c = cfg.replace(num_disp=bins[0], zero_disp=bins[1]) if bins else cfg
+        rs, cs = slice(r0, r0 + rows), slice(0, cols)
+        d, o = dl[rs, cs].contiguous(), ol[rs, cs].contiguous()
+        a = arms[:, rs, cs].contiguous()
+        if usd > cfg.usd:
+            a = torch.randint(-2, usd + 3, a.shape, generator=gen,
+                              device=d.device, dtype=torch.int32)
+        cnt = irv.irv_rowspan(d, o, a[LEFT], a[RIGHT], c.num_disp,
+                              c.zero_disp, usd)
+        if suffix == AT_V_OFF:
+            flat = torch.empty(cnt.numel() + 32, dtype=torch.uint8,
+                               device=d.device)
+            skip = (4 - flat.data_ptr()) % 16
+            cnt = flat[skip:skip + cnt.numel()].view(cnt.shape).copy_(cnt)
+            if cnt.data_ptr() % 16 != 4:
+                raise SmokeFailure("B9: the volume is not 4 bytes off 16")
+        launches = irv.irv_vote.launches
+        staged = getattr(irv.irv_vote, "staged", None)
+        vote = (c.irv_thresh_s, c.irv_thresh_h, c.zero_disp, usd)
+        record_full_vote(chk, cnt, d, o, (a[UP], a[DOWN]), vote, usd)
+        del cnt
+        if suffix != AT_V_OFF:
+            # a frontier around a sparse subset of the crop's outliers
+            ys = torch.arange(rows, device=d.device)[:, None]
+            xs = torch.arange(cols, device=d.device)[None, :]
+            need = irv.dilate_frontier((o != 0) & (ys % 11 == 0)
+                                       & (xs % 53 == 0), usd)
+            shares = record_gated_irv(chk, d, o, need, a, c, usd, b8=False)
+            print(f"  {suffix.strip()}: the gated vote reads "
+                  f"{shares[2]:.4f} of the spans", flush=True)
+        if staged is not None:
+            want = (irv.irv_vote.launches - launches) * int(
+                suffix != AT_V_REG)
+            if irv.irv_vote.staged - staged != want:
+                raise SmokeFailure(f"B9{suffix}: irv_vote.staged counted "
+                                   f"{irv.irv_vote.staged - staged}, "
+                                   f"expected {want}")
+    chk.suffix = ""
+
+
+def record_vote_rounds(chk, img_l, img_r, cfg):
+    """B9 on the left eye of a frame at cfg (its raw disparities and labels
+    from the kernels): round 1, where every outlier votes, and round 2
+    under the frontier of round 1's changes (or, where it changed no
+    label, one around a sparse subset of the outliers).  Returns the eye's
+    raw disparities, labels and arms."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import cross, dcc, irv
+    from stereo_to_multiview_tpu_torch.ops.band import (
+        band_stereo_core_chunked)
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN, LEFT, RIGHT
+
+    arm_args = (cfg.ucd, cfg.lcd, cfg.usd, cfg.lsd)
+    arms_l, arms_r = (cross.cross_arms(t, *arm_args) for t in (img_l, img_r))
+    dl, dr = band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg)
+    ol = dcc.dr_dcc(dl, dr, cfg.dcc_thresh)[0]
+    del dr, arms_r
+    nd, zd, usd = cfg.num_disp, cfg.zero_disp, cfg.usd
+    ud = (arms_l[UP], arms_l[DOWN])
+    vote = (cfg.irv_thresh_s, cfg.irv_thresh_h, zd, usd)
+    cnt = irv.irv_rowspan(dl, ol, arms_l[LEFT], arms_l[RIGHT], nd, zd, usd)
+    record_full_vote(chk, cnt, dl, ol, ud, vote, usd)
+    d1, o1 = irv.irv_vote(cnt, dl, ol, *ud, *vote)
+    del cnt
+    changed = o1 != ol
+    if not bool(changed.any()):
+        ys = torch.arange(dl.shape[0], device=dl.device)[:, None]
+        xs = torch.arange(dl.shape[1], device=dl.device)[None, :]
+        changed = (ol != 0) & (ys % 97 == 0) & (xs % 89 == 0)
+    need = irv.dilate_frontier(changed, usd)
+    shares = record_gated_irv(chk, d1, o1, need, arms_l, cfg, usd, b8=False)
+    print(f"  B9{chk.suffix}: round 2's need covers "
+          f"{float(need.float().mean()):.4f} of the pixels; the votes read "
+          f"{shares[2]:.4f} of the spans", flush=True)
+    return dl, ol, arms_l
+
+
+def irv_checks(root: str) -> int:
+    """`--irv-checks [--package-root DIR]`: B9 alone, on the package under
+    DIR, against `irv_vote_plain` bit for bit and timed: full and gated
+    (round 2 of the frame) on the 1080p frame, on the 4K preset's first
+    1152x3840 IRV chunk and at the lowres preset's 540x960, D=64, then at
+    its edges (`check_vote_edges` with AT_SHORT and AT_REACH0: 37 rows,
+    reach 0, D=130, reach 127, a volume 4 bytes off 16, and the register
+    path at D=1023, reach 50).  The way to time
+    two commits' B9 in turns.  Exit 1 if one fails."""
+    import torch
+    sys.path.insert(0, root)
+    from stereo_to_multiview_tpu_torch import config, kernels
+    from stereo_to_multiview_tpu_torch.models import pipeline
+    from stereo_to_multiview_tpu_torch.ops import band, irv
+    from stereo_to_multiview_tpu_torch.ops.scale import tx_scale_bilinear
+
+    print(f"gpu: {gpu_line()}", flush=True)
+    print_ptxas(kernels.build_kernels())
+    dev = torch.device("cuda")
+    chk = KernelChecks(reps=20)
+    cfg, cfg4k, lcfg = (config.HD1080_D128, config.UHD4K_16V,
+                        config.HD1080_LOWRES)
+
+    def eyes(c):
+        sbs = torch.from_numpy(stereo_sbs(c.num_rows, c.num_cols)).to(dev)
+        return [t.contiguous() for t in pipeline.demux_sbs(sbs)]
+
+    try:
+        img_l, img_r = eyes(cfg)
+        dl, ol, arms = record_vote_rounds(chk, img_l, img_r, cfg)
+        rows = band.chunk_bounds(cfg4k.num_rows, cfg4k.irv_row_chunk,
+                                 cfg4k.usd)[0]
+        chk.suffix = AT_4K
+        record_vote_rounds(chk, *(t[:rows].contiguous()
+                                  for t in eyes(cfg4k)), cfg4k)
+        chk.suffix = AT_LOWRES
+        record_vote_rounds(chk, *(tx_scale_bilinear(
+            t, lcfg.num_rows_disp, lcfg.num_cols_disp).contiguous()
+            for t in (img_l, img_r)), lcfg)
+        chk.suffix = ""
+        torch.cuda.empty_cache()
+        check_vote_edges(chk, dl, ol, arms, cfg,
+                         (AT_SHORT, AT_REACH0) + VOTE_EDGES)
+        print(f"B9: irv_vote.staged {getattr(irv.irv_vote, 'staged', None)} "
+              f"of {irv.irv_vote.launches} launches", flush=True)
     except (SmokeFailure, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4090,6 +4268,13 @@ def run_path(name, entry, sbs, cfg, n_frames: int, exact: bool = True):
     if exact and name in EXACT_STAGED and staged != EXACT_STAGED[name]:
         raise SmokeFailure(f"path {name}: vv_pass.staged {staged}, "
                            f"expected {EXACT_STAGED[name]}")
+    # every B9 launch of every path takes its staged path
+    irv_staged = getattr(kernels.wrappers().get("irv_vote"), "staged", None)
+    print(f"path {name}: irv_vote.staged {irv_staged}", flush=True)
+    if exact and irv_staged is not None and (irv_staged
+                                             != launches["irv_vote"]):
+        raise SmokeFailure(f"path {name}: irv_vote.staged {irv_staged}, "
+                           f"expected {launches['irv_vote']}")
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -4103,6 +4288,7 @@ def run_path(name, entry, sbs, cfg, n_frames: int, exact: bool = True):
           f"(host clock, synchronized); peak device memory {peak_gb:.2f} GB",
           flush=True)
     return out, dict(launches=launches, vv_pass_staged=staged,
+                     irv_vote_staged=irv_staged,
                      frame_ms=frame_ms, peak_memory_gb=peak_gb,
                      first_frame_ms=first_s * 1e3)
 
@@ -4935,6 +5121,7 @@ def stream_checks(root: str) -> int:
         torch.cuda.empty_cache()
         check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
+        check_vote_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_vpass_edges(chk, arms_l, cfg)
         check_rowspan_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_hstream_edges(chk, img_l, img_r, cfg)
@@ -5176,6 +5363,10 @@ def main() -> int:
                     help="only hold B5 against its plain version at the "
                          "presets' shapes and its edges, timed, and print "
                          "no result line")
+    ap.add_argument("--irv-checks", action="store_true",
+                    help="only hold B9 against its plain version at the "
+                         "presets' shapes and its edges, timed, and print "
+                         "no result line")
     ap.add_argument("--runtime-checks", action="store_true",
                     help="only run the stream driver, the XLA engine and "
                          "the apps (phase 5) and print no result line")
@@ -5185,8 +5376,8 @@ def main() -> int:
                          "no result line")
     ap.add_argument("--package-root", default=HERE,
                     help="with --frames, --stream-checks, "
-                         "--synth-checks, --band-checks or "
-                         "--vpass-checks: the checkout "
+                         "--synth-checks, --band-checks, "
+                         "--vpass-checks or --irv-checks: the checkout "
                          "whose package runs (default: this one)")
     args = ap.parse_args()
     try:
@@ -5207,6 +5398,8 @@ def main() -> int:
         return band_checks(os.path.abspath(args.package_root))
     if args.vpass_checks:
         return vpass_checks(os.path.abspath(args.package_root))
+    if args.irv_checks:
+        return irv_checks(os.path.abspath(args.package_root))
     if args.runtime_checks:
         return only_runtime_checks()
     if args.shard_checks:
@@ -5251,6 +5444,7 @@ def main() -> int:
         check_cost_d130(chk, img_l, img_r, cfg)
         bl, br = check_disp_kernels(chk, img_l, img_r, arms_l, arms_r, cfg)
         check_vstream_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
+        check_vote_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_vpass_edges(chk, arms_l, cfg)
         check_rowspan_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_hstream_edges(chk, img_l, img_r, cfg)

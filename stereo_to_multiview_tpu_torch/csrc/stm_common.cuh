@@ -122,6 +122,18 @@ __device__ __forceinline__ void stm_tensor_load_3d(void* dst, const void* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes from src into dst (both 16-byte aligned, bytes
+// a multiple of 16) by a bulk copy (`cp.async.bulk`, no tensor map),
+// completing on bar as stm_tensor_load_3d's copies do.
+__device__ __forceinline__ void stm_bulk_load(void* dst, const void* src,
+                                              unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(stm_smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(stm_smem_addr(bar))
+      : "memory");
+}
+
 // Returns once the barrier's phase of the given parity has completed.
 __device__ __forceinline__ void stm_bar_wait(uint64_t* bar,
                                              unsigned parity) {

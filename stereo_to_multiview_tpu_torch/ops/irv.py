@@ -30,6 +30,8 @@ kernel and plain version alike (cross arms never exceed usd).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -59,6 +61,14 @@ def span_sum_inclusive(vol: torch.Tensor, arm_neg: torch.Tensor,
 
 
 TILE = 64        # rows of a vote tile (the live map's grain)
+
+
+@functools.lru_cache(maxsize=None)
+def _vote_staged(num_disp: int, usd: int) -> bool:
+    """Whether B9 at B = num_disp bins and reach usd takes its staged
+    path: the plan its launch makes (`stm_irv_vote_stages`, csrc/irv.cu),
+    which depends on B and the reach alone."""
+    return kernels.lib("irv").stm_irv_vote_stages(num_disp, usd) > 0
 
 
 def irv_rowspan_plain(disp, outliers, left, right, num_disp: int,
@@ -155,7 +165,7 @@ def irv_rowspan(disp: torch.Tensor, outliers: torch.Tensor,
     return cnt
 
 
-@kernels.kernel_wrapper
+@kernels.kernel_wrapper(counters=("staged",))
 def irv_vote(cnt: torch.Tensor, disp: torch.Tensor, outliers: torch.Tensor,
              up: torch.Tensor, down: torch.Tensor, thresh_s: int,
              thresh_h: float, zero_disp: int, usd: int, need=None):
@@ -163,7 +173,10 @@ def irv_vote(cnt: torch.Tensor, disp: torch.Tensor, outliers: torch.Tensor,
     after the round.  With a `need` plane (bool or u8) the vote is
     applied at need pixels only; every other pixel keeps its disparity
     and label.  Kernel B9 (csrc/irv.cu): each column streams only the
-    span rows within reach of a pixel that votes."""
+    span rows within reach of a pixel that votes, brought into shared
+    memory by bulk copies for a strip of columns (`irv_vote.staged` counts
+    those launches) or, where no two stages fit beside the rings, by
+    register loads."""
     if kernels.on_cpu(cnt):
         return irv_vote_plain(cnt, disp, outliers, up, down, thresh_s,
                               thresh_h, zero_disp, usd, need)
@@ -190,6 +203,8 @@ def irv_vote(cnt: torch.Tensor, disp: torch.Tensor, outliers: torch.Tensor,
         thresh_s, float(f32(thresh_h)), kernels.stream_of(disp_out))
     kernels.check_launch(rc, "irv_vote")
     irv_vote.launches += 1
+    if _vote_staged(cnt.shape[2] - 1, usd):
+        irv_vote.staged += 1
     return disp_out, out_out
 
 

@@ -324,3 +324,315 @@ def test_irv_rowspan_stream_byte_prefixes_wrap():
     ref = _plain(disp, outl, arms, nd, zd, reach)
     assert int(ref.max()) == 255 and (writes == 1).all()
     np.testing.assert_array_equal(got, ref)
+
+
+# ---- B9's staged stream ---------------------------------------------------
+
+VOTE_ROWS, VOTE_SEG = 8, 256    # irv.cu IRV_ROWS, IRV_SSEG
+
+
+def vote_segment(h, tile=TILE):
+    """irv_segment: rows of a staged block's segment at H = h, whole
+    tiles, about equal, at most VOTE_SEG."""
+    nseg = -(-h // VOTE_SEG)
+    return -(-(-(-h // nseg)) // tile) * tile
+
+
+def strip_runs(live, x0, n, y0, y1, reach, tile=TILE):
+    """irv_runs: the runs [a, b) of columns x0 .. x0 + n - 1 in the rows
+    [y0, y1): the tiles' first and last voting rows over the columns, a
+    tile joining the run while the rows between voters are at most
+    2 * reach."""
+    found, a, b = [], -1, -1
+    for t in range(y0 // tile, -(-y1 // tile)):
+        codes = [int(live[t, x]) for x in range(x0, x0 + n)]
+        last = max(c >> 8 for c in codes)
+        if last == 0:
+            continue
+        first = min((c & 0xFF) if c else 0xFF for c in codes)
+        f, l = t * tile + first - 1, t * tile + last
+        if a >= 0 and f - b > 2 * reach:
+            found.append((a, b))
+            a = -1
+        if a < 0:
+            a = f
+        b = l
+    if a >= 0:
+        found.append((a, b))
+    return found
+
+
+def _funnel(lo, hi, sh):
+    """__funnelshift_r of u64 arrays holding u32 words."""
+    return ((hi << np.uint64(32) | lo) >> np.uint64(sh)) & U32
+
+
+def _le_words(buf):
+    """The little-endian u32 words of a byte buffer (a multiple of 4)."""
+    return buf.view("<u4").astype(np.uint64)
+
+
+def emulate_irv_vote_staged(cnt, disp, outl, up, down, thresh_s, thresh_h,
+                            zd, reach, strip, stages, need=None, seg=None,
+                            tile=TILE, base_off=0, seed=0):
+    """irv_vote_kernel's staged path, block by block: a strip of `strip`
+    columns and a segment of `seg` rows, the strip's runs, the producer's
+    row copies into a ring of `stages` stages of VOTE_ROWS rows (each row
+    the strip's bytes rounded out to 16-byte bounds inside the volume: one
+    bulk copy, the volume's first or last bytes by hand), issued as soon
+    as the consumers release a stage, and each consumer's pushes from the
+    stage (its words realigned by a funnel shift), its ring of N slots
+    restarted at each run, and its votes.  The volume lies in a memory
+    buffer `base_off` bytes past a 16-byte bound, between random bytes;
+    the stages start random.  `seg` defaults to the kernel's segment at
+    H.  Returns (disp, outl) after the vote and the
+    number of bytes the bulk copies read."""
+    h, w, c = cnt.shape
+    nb = c - 1
+    gb = -(-nb // 4)
+    gj = -(-gb // 32)
+    s_cols, k_st = strip, stages
+    seg = seg or vote_segment(h)
+    n_slots = -(-(2 * reach + 2 + VOTE_ROWS) // VOTE_ROWS) * VOTE_ROWS
+    rb = (s_cols * c + 30) // 16 * 16
+    rng = np.random.default_rng(seed)
+    total = h * w * c
+    base = 64 + base_off
+    mem = rng.integers(0, 256, base + total + 64, dtype=np.uint8)
+    mem[base:base + total] = cnt.reshape(-1)
+    vlo, vhi = -(-base // 16) * 16, (base + total) // 16 * 16
+    f32 = np.float32
+    disp_out, outl_out = disp.copy(), outl.copy()
+    voter = outl != 0
+    if need is not None:
+        voter = voter & (need != 0)
+    live = live_map(voter, tile)
+    lanes = np.arange(32 * gj)
+    left = nb - 4 * lanes
+    mask = np.where(lanes >= gb, 0,
+                    np.where(left >= 4, 0xFFFFFFFF,
+                             (1 << (8 * np.clip(left, 0, 3))) - 1)
+                    ).astype(np.uint64)
+    bins = 4 * lanes[:, None] + np.arange(4)[None, :]    # (lanes, 4)
+    copied = 0
+
+    def produce(stage, stamp, bt, i0, r1, x0, n_cols):
+        """Lane k of the producer: row i0 + k's copy into stage bt % K."""
+        nonlocal copied
+        sl = bt % k_st
+        for k in range(VOTE_ROWS):
+            i = i0 + k
+            if i >= r1:
+                continue
+            s0 = base + (i * w + x0) * c
+            e0 = s0 + n_cols * c
+            lo, hi = s0 // 16 * 16, -(-e0 // 16) * 16
+            b0, b1 = max(lo, vlo), min(hi, vhi)
+            if b1 <= b0:
+                b0 = b1 = e0                   # every byte by hand
+            row = stage[sl, k]
+            if b1 > b0:                        # the bulk copy
+                assert b0 % 16 == 0 and (b1 - b0) % 16 == 0
+                assert vlo <= b0 and b1 <= vhi and b1 - lo <= rb
+                row[b0 - lo:b1 - lo] = mem[b0:b1]
+                stamp[sl, k, b0 - lo:b1 - lo] = bt
+                copied += b1 - b0
+            for q in list(range(s0, b0)) + list(range(max(b1, s0), e0)):
+                assert base <= q < base + total
+                row[q - lo] = mem[q]
+                stamp[sl, k, q - lo] = bt
+
+    for x0 in range(0, w, s_cols):
+        n_cols = min(s_cols, w - x0)
+        for y0 in range(0, h, seg):
+            runs = strip_runs(live, x0, n_cols, y0, min(y0 + seg, h), reach,
+                              tile)
+            batches = [(a, b, i0) for a, b in runs
+                       for i0 in range(max(a - reach, 0), b + reach,
+                                       VOTE_ROWS)]
+            stage = rng.integers(0, 256, (k_st, VOTE_ROWS, rb),
+                                 dtype=np.uint8)
+            stamp = np.full((k_st, VOTE_ROWS, rb), -1)
+            for bt in range(min(k_st, len(batches))):     # K ahead
+                a, b, i0 = batches[bt]
+                produce(stage, stamp, bt, i0, min(b + reach, h), x0, n_cols)
+            cols = {x: {} for x in range(x0, x0 + n_cols)}
+            for bt, (a, b, i0) in enumerate(batches):
+                r0, r1 = max(a - reach, 0), min(b + reach, h)
+                sl = bt % k_st
+                for x, st in cols.items():
+                    if i0 == r0:                   # a run's start
+                        st.update(ring=np.zeros((n_slots, 32 * gj, 2),
+                                                np.uint64),
+                                  ringt=np.zeros(n_slots, np.uint64),
+                                  acc=np.zeros((32 * gj, 2), np.uint64),
+                                  acct=0, w=n_slots - 1)   # P[0]
+                    for k in range(VOTE_ROWS):
+                        i = i0 + k
+                        st["w"] = (st["w"] + 1) % n_slots
+                        if i < r1:
+                            off = (base + (i * w + x0) * c) % 16 \
+                                + (x - x0) * c
+                            nw = (((off & 3) + nb - 1) >> 2) + 1
+                            assert (stamp[sl, k, off:off + c] == bt).all()
+                            row = stage[sl, k]
+                            idx = (off >> 2) + np.arange(32 * gj + 1)
+                            assert 4 * ((off >> 2) + nw) <= rb
+                            wd = np.zeros(32 * gj + 1, np.uint64)
+                            have = np.arange(32 * gj + 1) < nw
+                            wd[have] = _le_words(row[:rb])[idx[have]]
+                            v = _funnel(wd[:-1], wd[1:], 8 * (off & 3)) & mask
+                            lo_pair = (v & 0xFF) | ((v >> 8) & 0xFF) << 16
+                            hi_pair = ((v >> 16) & 0xFF) | (v >> 24) << 16
+                            st["acc"][:, 0] = (st["acc"][:, 0] + lo_pair) & U32
+                            st["acc"][:, 1] = (st["acc"][:, 1] + hi_pair) & U32
+                            st["acct"] = (st["acct"] + int(row[off + nb])) \
+                                & 0xFFFFFFFF
+                        st["ring"][st["w"]] = st["acc"]
+                        st["ringt"][st["w"]] = st["acct"]
+                # every consumer released the stage: the producer refills it
+                if bt + k_st < len(batches):
+                    a2, b2, i2 = batches[bt + k_st]
+                    produce(stage, stamp, bt + k_st, i2, min(b2 + reach, h),
+                            x0, n_cols)
+                for x, st in cols.items():         # the batch's votes
+                    i_new = i0 + VOTE_ROWS
+                    for k in range(VOTE_ROWS):
+                        y = i0 + k - reach
+                        if not (a <= y < b and voter[y, x]):
+                            continue
+                        au = min(max(int(up[y, x]), 0), reach)
+                        ad = min(max(int(down[y, x]), 0), reach)
+                        hi_r, lo_r = min(y + ad + 1, h), max(y - au, 0)
+                        assert lo_r >= r0 and hi_r <= i_new
+                        assert i_new - lo_r < n_slots
+                        s_hi = (st["w"] - (i_new - hi_r)) % n_slots
+                        s_lo = (st["w"] - (i_new - lo_r)) % n_slots
+                        d = (st["ring"][s_hi] - st["ring"][s_lo]) & U32
+                        cnts = np.stack([d[:, 0] & 0xFFFF, d[:, 0] >> 16,
+                                         d[:, 1] & 0xFFFF, d[:, 1] >> 16], 1)
+                        keys = np.where(mask[:, None] != 0,
+                                        cnts << np.uint64(16)
+                                        | (0xFFFF - bins).astype(np.uint64),
+                                        0)
+                        kmax = int(keys.max())
+                        tot = int(st["ringt"][s_hi] - st["ringt"][s_lo]) \
+                            & 0xFFFFFFFF
+                        m = kmax >> 16
+                        max_d = (0xFFFF - (kmax & 0xFFFF) - zd if m > 0
+                                 else int(disp[y, x]))
+                        ratio = f32(max_d + zd) / f32(max(tot, 1))
+                        if tot > thresh_s and ratio > f32(thresh_h):
+                            disp_out[y, x] = f32(max_d)
+                            outl_out[y, x] = 0
+    return disp_out, outl_out, copied
+
+
+def _vote_inputs(h, w, nd, zd, reach, seed):
+    rng = np.random.default_rng(seed)
+    disp = rng.integers(-zd - 3, nd - zd + 3, (h, w)).astype(np.float32)
+    disp += rng.choice(np.array([0, 0.25, -0.75], np.float32), (h, w))
+    outl = (rng.random((h, w)) < 0.4).astype(np.uint8)
+    disp[:, : max(1, w // 2)] = np.float32(rng.integers(1, nd - zd))
+    arms = rng.integers(-1, reach + 2, (4, h, w)).astype(np.int32)
+    ys, xs = np.arange(h)[:, None], np.arange(w)[None, :]
+    # a frontier: dead columns and dead 16-row bands, so that runs restart
+    need = ((rng.random((h, w)) < 0.3) & (xs % 5 != 2)
+            & ((ys // 16) % 3 == 0))
+    return disp, outl, arms, need
+
+
+STAGED_CASES = [  # (H, W, num_disp, zero_disp, reach, strip, K, tile, seg,
+    #                base_off, gated); strip and K as the kernel's plan gives
+    #                them at W < 240 (1, 8), 1080p (5, 2), D = 130 (4, 6),
+    #                reach 127 (3, 7), or others
+    (37, 10, 128, 64, 34, 1, 8, TILE, None, 0, False),  # a narrow frame
+    (45, 12, 128, 64, 34, 5, 2, TILE, None, 4, True),  # 1080p's strip, K
+    (75, 9, 128, 64, 34, 4, 3, 8, 24, 4, True),     # runs restart, base + 4
+    (70, 11, 128, 64, 34, 1, 8, 8, None, 4, True),
+    (30, 7, 64, 32, 0, 3, 2, 8, 16, 4, False),      # reach 0
+    (21, 6, 130, 64, 5, 4, 2, 8, 16, 0, True),      # B = 130: two groups
+    (21, 5, 130, 66, 34, 4, 6, TILE, None, 4, False),
+    (22, 5, 128, 64, 127, 3, 7, TILE, None, 4, False),  # reach 127
+    (41, 13, 22, 8, 6, 4, 2, 8, 24, 4, True),       # B + 1 = 23
+    (3, 2, 2, 0, 1, 2, 2, 8, 16, 4, False),         # B + 1 = 3: by hand
+]
+
+
+@pytest.mark.parametrize(
+    "h,w,nd,zd,reach,strip,k_st,tile,seg,base_off,gated", STAGED_CASES)
+def test_irv_vote_staged_stream_matches_plain(h, w, nd, zd, reach, strip,
+                                              k_st, tile, seg, base_off,
+                                              gated):
+    """The staged vote equals `irv_vote_plain`, with the volume off a
+    16-byte bound or not, every consumed byte copied for its batch (no
+    stage reused early), and under `need` with every span the gated B8
+    may skip holding 255: the strip's runs push spans no vote of their
+    column reads, whose prefixes cancel."""
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN
+    disp, outl, arms, need = _vote_inputs(h, w, nd, zd, reach,
+                                          seed=h * 7 + w + 100 * gated)
+    ta = torch.from_numpy(arms)
+    t_d, t_o = torch.from_numpy(disp), torch.from_numpy(outl)
+    cnt = tirv.irv_rowspan_plain(t_d, t_o, ta[LEFT], ta[RIGHT], nd, zd,
+                                 reach).numpy()
+    thresh_s, thresh_h = 1, 0.05
+    need_t = torch.from_numpy(need) if gated else None
+    ref = tirv.irv_vote_plain(torch.from_numpy(cnt), t_d, t_o, ta[UP],
+                              ta[DOWN], thresh_s, thresh_h, zd, reach,
+                              need_t)
+    fed = cnt
+    if gated:
+        allowed = rowspan_mirror((outl != 0) & need, reach, tile)
+        assert allowed.any() and not allowed.all()
+        fed = np.where(allowed[:, :, None], cnt, np.uint8(255))
+    got_d, got_o, copied = emulate_irv_vote_staged(
+        fed, disp, outl, arms[UP], arms[DOWN], thresh_s, thresh_h, zd,
+        reach, strip, k_st, need if gated else None, seg, tile, base_off,
+        seed=h + w)
+    np.testing.assert_array_equal(got_d, ref[0].numpy())
+    np.testing.assert_array_equal(got_o, ref[1].numpy())
+    if h > 3 and reach > 0:
+        assert (got_o != outl).any()          # some votes accept
+    assert copied > 0 or h * w * (nd + 1) < 32
+
+
+def test_irv_vote_staged_copy_slip_fails():
+    """A consumer that takes its pixel one byte off (the realignment
+    missing the row's offset in its 16 bytes) must fail the replay: the
+    exact comparison above can see a wrong byte."""
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN
+    h, w, nd, zd, reach = 30, 6, 128, 64, 5
+    disp, outl, arms, _ = _vote_inputs(h, w, nd, zd, reach, seed=3)
+    ta = torch.from_numpy(arms)
+    cnt = tirv.irv_rowspan_plain(torch.from_numpy(disp),
+                                 torch.from_numpy(outl), ta[LEFT], ta[RIGHT],
+                                 nd, zd, reach).numpy()
+    ref = tirv.irv_vote_plain(torch.from_numpy(cnt), torch.from_numpy(disp),
+                              torch.from_numpy(outl), ta[UP], ta[DOWN], 1,
+                              0.05, zd, reach)
+    # the volume shifted by one byte stands for a consumer reading at the
+    # wrong offset
+    slipped = np.roll(cnt.reshape(-1), 1).reshape(cnt.shape)
+    got_d, got_o, _ = emulate_irv_vote_staged(
+        slipped, disp, outl, arms[UP], arms[DOWN], 1, 0.05, zd, reach,
+        strip=4, stages=2, base_off=4)
+    assert not (np.array_equal(got_d, ref[0].numpy())
+                and np.array_equal(got_o, ref[1].numpy()))
+
+
+def test_irv_vote_staged_counter():
+    """`irv_vote.staged` is a counter beside `irv_vote.launches`, zeroed
+    by `reset_launch_counts`; the plain version on the CPU counts
+    neither."""
+    from stereo_to_multiview_tpu_torch import kernels
+    from stereo_to_multiview_tpu_torch.ops.cross import UP, DOWN
+    disp, outl, arms, _ = _vote_inputs(9, 7, 16, 8, 3, seed=5)
+    ta = torch.from_numpy(arms)
+    t_d, t_o = torch.from_numpy(disp), torch.from_numpy(outl)
+    cnt = tirv.irv_rowspan_plain(t_d, t_o, ta[LEFT], ta[RIGHT], 16, 8, 3)
+    tirv.irv_vote.staged = 2
+    kernels.reset_launch_counts()
+    assert tirv.irv_vote.staged == 0 and tirv.irv_vote.launches == 0
+    tirv.irv_vote(cnt, t_d, t_o, ta[UP], ta[DOWN], 1, 0.05, 8, 3)
+    assert tirv.irv_vote.staged == 0 and tirv.irv_vote.launches == 0

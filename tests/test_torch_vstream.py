@@ -25,7 +25,7 @@ from stereo_to_multiview_tpu_torch.ops import irv as tirv
 
 torch.set_num_threads(1)
 
-IRV_TILE, IRV_SEG, IRV_STEP = 64, 256, 8     # irv.cu (B + 1 <= 257)
+IRV_TILE, IRV_SEG, IRV_STEP = 64, 256, 4     # irv.cu
 
 
 def _slot(w, back, n):
