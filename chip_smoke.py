@@ -287,6 +287,33 @@ KERNELS = {
     "G1 dibr_feather": ("dibr_feather_mask", _SRC + "feather.cu",
                         _TPU + "filters.py:35", MAIN),
 }
+# G2, the lowres path's rescales (XLA glue given a kernel): both eyes
+# down to 540x960 and both disparities back up to 1080p, each in one
+# launch; then at a non-integer ratio, at a 1-row and a 1-column output
+# and between 2160x3840 and 1080x1920
+G2D = "G2 tx_scale_bilinear_lr (both eyes, 1080p to 540x960)"
+G2U = "G2 tx_disp_scale_lr (both eyes, 540x960 to 1080p)"
+KERNELS[G2D] = ("tx_scale_bilinear_lr", _SRC + "scale.cu",
+                _TPU + "scale.py:76", LOWRES)
+KERNELS[G2U] = ("tx_disp_scale_lr", _SRC + "scale.cu", _TPU + "scale.py:91",
+                LOWRES)
+# suffix -> (the input: the 1080p pair or its 2160x3840 tiling, the output
+# rows and columns)
+G2D_EDGES = {" (1080p to 400x750: non-integer ratio)": ("1080p", 400, 750),
+             " (1080p to 1x960: one row)": ("1080p", 1, 960),
+             " (1080p to 540x1: one column)": ("1080p", 540, 1),
+             " (2160x3840 to 1080x1920)": ("2160x3840", 1080, 1920)}
+# suffix -> (the input: the 540x960 disparities or their 1080p upscale,
+# the output rows and columns)
+G2U_EDGES = {" (540x960 to 1000x1700: non-integer ratio)": ("low", 1000,
+                                                            1700),
+             " (540x960 to 1x1920: one row)": ("low", 1, 1920),
+             " (540x960 to 1080x1: one column)": ("low", 1080, 1),
+             " (1080x1920 to 2160x3840)": ("1080p", 2160, 3840)}
+for _suffix in G2D_EDGES:
+    KERNELS[G2D[:G2D.index(" (")] + _suffix] = KERNELS[G2D]
+for _suffix in G2U_EDGES:
+    KERNELS[G2U[:G2U.index(" (")] + _suffix] = KERNELS[G2U]
 # the third path gives B1-B10 other shapes (540x960, D=64, zero_disp=32)
 # and the synthesis kernels upscaled disparities of twice the range: each
 # is held against its plain version there too, under its own entry
@@ -798,9 +825,13 @@ HSLO_WRAPPERS = {"dc_hslo_wta_eyes", "dc_hslo_wta"}
 VIEW_WRAPPERS = {"warp_merge_views", "warp_views"}
 UNFUSED_OCCL = {"dibr_occl", "dibr_bleed_mask"}
 SYNTH_SIDE = VIEW_WRAPPERS | UNFUSED_OCCL
+# the rescales (G2) run on the lowres path alone
+G2_WRAPPERS = {"tx_scale_bilinear_lr", "tx_disp_scale_lr"}
 NOT_ON_PATH = {
-    MAIN: SYNTH_SIDE | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
-    HSLO4K: {"h_pass_wta"} | SYNTH_SIDE | DM_WRAPPERS | SIDE_WRAPPERS,
+    MAIN: (SYNTH_SIDE | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS
+           | G2_WRAPPERS),
+    HSLO4K: ({"h_pass_wta"} | SYNTH_SIDE | DM_WRAPPERS | SIDE_WRAPPERS
+             | G2_WRAPPERS),
     LOWRES: SYNTH_SIDE | HSLO_WRAPPERS | DM_WRAPPERS | SIDE_WRAPPERS,
 }
 for _path in (DIGITS2, DIGITS1, UHD4K, QSCALE510, LOSSY):
@@ -817,7 +848,8 @@ for _path in (DIGITS2, DIGITS1, UHD4K, QSCALE510, LOSSY):
 EXACT_LAUNCHES = {
     MAIN: {"h_pass_sum": 2, "vv_pass": 2},
     HSLO4K: {"h_pass_sum": 4, "vv_pass": 2, "dc_hslo_wta_eyes": 1},
-    LOWRES: {"h_pass_sum": 2, "vv_pass": 2},
+    LOWRES: {"h_pass_sum": 2, "vv_pass": 2, "tx_scale_bilinear_lr": 1,
+             "tx_disp_scale_lr": 1},
     DIGITS2: {"h_pass_sum": 2, "vv_pass": 2},
     DIGITS1: {"h_pass_sum": 2, "vv_pass": 2},
     UHD4K: {"h_pass_sum": 8, "vv_pass": 8,      # 4 row chunks x 2 eyes
@@ -847,7 +879,7 @@ EXACT_STAGED = {_path: _counts["vv_pass"]
 # Pallas kernel)
 XLA = "HD1080_D128 engine=xla"
 NOT_ON_PATH[XLA] = (LANE_CORE_WRAPPERS | HSLO_WRAPPERS | DM_WRAPPERS
-                    | SIDE_WRAPPERS | SYNTH_SIDE
+                    | SIDE_WRAPPERS | SYNTH_SIDE | G2_WRAPPERS
                     | {"filter_bilateral", "dibr_feather_mask",
                        "warp_merge_interlace"})
 EXACT_LAUNCHES[XLA] = {"cross_arms_eyes": 1, "dr_dcc": 1,
@@ -2478,6 +2510,87 @@ def record_feather(chk, name, mask_r, radius: int, sigma: float):
                nbytes=2 * hw * 4, ops=2 * (2 * radius + 1) * 2 * hw,
                ops_rate=PEAK_FP32_NOFMA_PER_S)
     return got
+
+
+# float32 operations an output subpixel of a rescale: three lerps of four
+# (1 - w, two products, the sum)
+G2_OPS = 12
+
+
+def g2_input_pixels(h: int, w: int, rows: int, cols: int) -> int:
+    """Input pixels a rescale of (h, w) to (rows, cols) reads: the rows
+    and columns its taps name (both taps of every output, as the plain
+    version gathers them; every pixel at 2:1, two rows for one output
+    row)."""
+    from stereo_to_multiview_tpu_torch.ops.scale import lerp_taps
+
+    def named(n_out, n_in):
+        i0, i1, _ = lerp_taps(n_out, n_in, "cpu")
+        return len(set(i0.tolist()) | set(i1.tolist()))
+
+    if (h, w) == (rows, cols):
+        return h * w
+    return named(rows, h) * named(cols, w)
+
+
+def record_tx_scale(chk, name, img_l, img_r, rows: int, cols: int):
+    """One G2 downscale entry: both eyes' (H, W, 3) u8 images to (rows,
+    cols) in one launch against the plain rescale of each.  Bound: the
+    input pixels the taps name read and each output written once.
+    Returns the kernel's images."""
+    from stereo_to_multiview_tpu_torch.ops import scale
+    h, w, c = img_l.shape
+    got = scale.tx_scale_bilinear_lr(img_l, img_r, rows, cols)
+    plain = lambda: tuple(scale.tx_scale_bilinear(t, rows, cols)
+                          for t in (img_l, img_r))
+    chk.record(name, got, plain(),
+               lambda: scale.tx_scale_bilinear_lr(img_l, img_r, rows, cols),
+               plain, nbytes=2 * c * (g2_input_pixels(h, w, rows, cols)
+                                      + rows * cols),
+               ops=2 * c * rows * cols * G2_OPS, graph=True, events=True)
+    return got
+
+
+def record_disp_scale(chk, name, disp_l, disp_r, rows: int, cols: int,
+                      disp_scale: float):
+    """One G2 upscale entry: both eyes' (H, W) float32 disparities to
+    (rows, cols) times disp_scale in one launch against the plain rescale
+    of each, in every bit.  Bound: the input pixels the taps name read
+    and each output written once (the lerps and the product: G2_OPS + 1
+    operations an output).  Returns the kernel's disparities."""
+    from stereo_to_multiview_tpu_torch.ops import scale
+    h, w = disp_l.shape
+    args = (rows, cols, disp_scale)
+    got = scale.tx_disp_scale_lr(disp_l, disp_r, *args)
+    plain = lambda: tuple(scale.tx_disp_scale(d, *args)
+                          for d in (disp_l, disp_r))
+    chk.record(name, got, plain(),
+               lambda: scale.tx_disp_scale_lr(disp_l, disp_r, *args), plain,
+               nbytes=2 * 4 * (g2_input_pixels(h, w, rows, cols)
+                               + rows * cols),
+               ops=2 * rows * cols * (G2_OPS + 1), graph=True,
+               events=True, bits=True)
+    return got
+
+
+def check_scale_edges(chk, img_l, img_r, dl, dr, bl, br, disp_scale: float):
+    """G2 beyond the lowres preset's shapes (`G2D_EDGES`, `G2U_EDGES`):
+    the 1080p pair down to a non-integer ratio, one row and one column,
+    its 2160x3840 tiling down to 1080p; the 540x960 disparities `dl`, `dr`
+    up to a non-integer ratio, one row and one column, their 1080p upscale
+    `bl`, `br` up to 2160x3840."""
+    import torch
+    for suffix, (src, rows, cols) in G2D_EDGES.items():
+        eyes = (img_l, img_r) if src == "1080p" else tuple(
+            t.repeat(2, 2, 1).contiguous() for t in (img_l, img_r))
+        record_tx_scale(chk, G2D[:G2D.index(" (")] + suffix, *eyes, rows,
+                        cols)
+        del eyes
+    for suffix, (src, rows, cols) in G2U_EDGES.items():
+        eyes = (dl, dr) if src == "low" else (bl, br)
+        record_disp_scale(chk, G2U[:G2U.index(" (")] + suffix, *eyes, rows,
+                          cols, disp_scale)
+    torch.cuda.empty_cache()
 
 
 def interlace_ops(h: int, w: int, num_views: int, rows: int, cols: int,
@@ -5521,19 +5634,22 @@ def main() -> int:
         # process_frame_lowres stages it: the pair scaled to 540x960 and
         # D=64 up to the bilateral filter, then the disparities scaled
         # back to 1080p (and doubled) for the synthesis
-        from stereo_to_multiview_tpu_torch.ops.scale import (
-            tx_disp_scale, tx_scale_bilinear)
+        # (the rescales by G2, held against their plain versions there
+        # and at their edges)
         lcfg = config.HD1080_LOWRES
-        low_l, low_r = (tx_scale_bilinear(t, lcfg.num_rows_disp,
-                                          lcfg.num_cols_disp).contiguous()
-                        for t in (img_l, img_r))
+        low_l, low_r = record_tx_scale(chk, G2D, img_l, img_r,
+                                       lcfg.num_rows_disp, lcfg.num_cols_disp)
         chk.suffix = AT_LOWRES
         arms_l, arms_r = check_core_kernels(chk, low_l, low_r, lcfg,
                                             hslo=False)
-        bl, br = (tx_disp_scale(d, lcfg.num_rows, lcfg.num_cols,
-                                1.0 / lcfg.disp_scale).contiguous()
-                  for d in check_disp_kernels(chk, low_l, low_r, arms_l,
-                                              arms_r, lcfg))
+        dl, dr = check_disp_kernels(chk, low_l, low_r, arms_l, arms_r, lcfg)
+        chk.suffix = ""
+        bl, br = record_disp_scale(chk, G2U, dl, dr, lcfg.num_rows,
+                                   lcfg.num_cols, 1.0 / lcfg.disp_scale)
+        check_scale_edges(chk, img_l, img_r, dl, dr, bl, br,
+                          1.0 / lcfg.disp_scale)
+        del dl, dr
+        chk.suffix = AT_LOWRES
         check_synth_kernels(chk, img_l, img_r, bl, br, lcfg, b14=False)
         chk.suffix = ""
         kres = chk.results

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = ("arms", "cost", "shear", "hpass", "vpass", "hslo", "occl", "irv",
            "bilateral", "warp", "cost_dm", "band_dm", "vvdm", "span",
-           "shear_dm", "feather")
+           "shear_dm", "feather", "scale")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -62,6 +62,8 @@ _SIGS = {
     "stm_warp_merge_interlace": [_P] * 15 + [_I] * 6 + [_F, _P],
     "stm_feather": [_P] * 5 + [_I] * 3 + [_F, _P],
     "stm_feather_rmax": [],
+    "stm_tx_scale_u8": [_P] * 4 + [_I] * 5 + [_P],
+    "stm_tx_disp_scale": [_P] * 4 + [_I] * 4 + [_F, _P],
     "stm_warp_views": [_P] * 8 + [_I] * 3 + [_P],
     "stm_warp_views_bounded": [_P] * 8 + [_I] * 3 + [_P],
     "stm_cost_dm": [_P] * 6 + [_I] * 12 + [_P],

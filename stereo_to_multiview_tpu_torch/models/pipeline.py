@@ -31,7 +31,8 @@ contract them), so a frame equals JAX's.  `engine="auto"` is the band
 engine.
 
 `process_frame_lowres` computes the disparities on a downscaled pair and
-scales them back up before the synthesis.
+scales them back up before the synthesis, each rescale of both eyes one
+launch (G2, `csrc/scale.cu`).
 
 This module is the one place that maps cfg.engine to a stage's function:
 `stereo_core`, `bilateral`, `feather`, `intermediate_views` and the
@@ -73,7 +74,7 @@ from stereo_to_multiview_tpu_torch.ops.irv import dr_irv_early_stop
 from stereo_to_multiview_tpu_torch.ops.mux import (
     f32, mux_average, mux_merge_ab, mux_multiview)
 from stereo_to_multiview_tpu_torch.ops.scale import (
-    tx_disp_scale, tx_scale_bilinear)
+    tx_disp_scale_lr, tx_scale_bilinear_lr)
 from stereo_to_multiview_tpu_torch.ops.wta import dc_wta
 from stereo_to_multiview_tpu_torch.utils.profiling import stage_scope
 
@@ -352,21 +353,21 @@ def process_frame_lowres(sbs, cfg: PipelineConfig, device=None):
     (num_rows_disp, num_cols_disp): the pair is downscaled bilinearly,
     the disparities are upscaled to (H, W) and multiplied by
     1 / disp_scale, and the synthesis runs at full resolution (the
-    disparity values then span `synth_disp_bounds(cfg)`)."""
+    disparity values then span `synth_disp_bounds(cfg)`).  Both rescales
+    take both eyes in one launch (G2)."""
     if not cfg.lowres:
         raise ValueError("cfg must set num_rows_disp/num_cols_disp")
     dev = resolve_device(device)
     check_ported(cfg)
     img_l, img_r = _frame_images(sbs, cfg, dev)
     with stage_scope("tx_scale"):
-        lo_l = tx_scale_bilinear(img_l, cfg.num_rows_disp, cfg.num_cols_disp)
-        lo_r = tx_scale_bilinear(img_r, cfg.num_rows_disp, cfg.num_cols_disp)
-    dl, dr, _, _ = compute_disparities(lo_l.contiguous(), lo_r.contiguous(),
-                                       cfg)
+        lo_l, lo_r = tx_scale_bilinear_lr(img_l, img_r, cfg.num_rows_disp,
+                                          cfg.num_cols_disp)
+    dl, dr, _, _ = compute_disparities(lo_l, lo_r, cfg)
     with stage_scope("tx_scale"):
-        up = lambda d: tx_disp_scale(d, cfg.num_rows, cfg.num_cols,
-                                     1.0 / cfg.disp_scale).contiguous()
-        disp_l, disp_r = up(dl), up(dr)
+        disp_l, disp_r = tx_disp_scale_lr(dl.contiguous(), dr.contiguous(),
+                                          cfg.num_rows, cfg.num_cols,
+                                          1.0 / cfg.disp_scale)
     interlaced = synthesize_interlace(img_l, img_r, disp_l, disp_r, cfg)
     return disp_l, disp_r, interlaced
 
