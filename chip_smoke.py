@@ -13,8 +13,13 @@
    kernel, plain version, and one PyTorch library call where one computes
    the same function.  Also holds the early-stop IRV against the fixed
    rounds and the row-chunked IRV against the whole-frame one, bit for
-   bit, checks that its loop waits on nothing (`set_sync_debug_mode`),
-   times one round under an empty frontier, and the lane-major window
+   bit, checks that its loop waits on nothing (`set_sync_debug_mode`)
+   and runs G3 for its frontier and no torch max-pool (`torch.profiler`),
+   times one round under an empty frontier, G3 (the frontier between
+   IRV rounds) against `dilate_frontier` at the 1080p, 540x960 and 4K
+   frames, after each round of the 1080p frame and at its edges (1-row,
+   1-column and 1x1 frames, widths off 16, usd 0 to 127, no change, every
+   pixel, each corner, planes one byte off 16), and the lane-major window
    passes at the band_digits 2 and 1 shifts, and the streamed B5 and B9
    where their streams meet the frame's edges (37 rows, fewer than a ring
    holds; reach 0), B5 also where its staged path gives way to its
@@ -197,11 +202,12 @@ the relayout copies.
 presets' shapes (the 1080p frame, a 680x3840 chunk of the 4K preset,
 the lowres preset's 540x960) and its edges, timed: the way to time two
 commits' B5 in turns.
-`--irv-checks [--package-root DIR]` does the same for B9 alone: full and
-gated on the 1080p frame, a 1152x3840 IRV chunk of the 4K preset and the
-lowres preset's 540x960, then at its edges (37 rows, reach 0 and 127,
-D=130, a volume 4 bytes off 16, and the register path at D=1023 and
-reach 50), timed: the way to time two commits' B9 in turns.
+`--irv-checks [--package-root DIR]` does the same for B9 and G3 alone:
+B9 full and gated on the 1080p frame, a 1152x3840 IRV chunk of the 4K
+preset and the lowres preset's 540x960, then at its edges (37 rows, reach
+0 and 127, D=130, a volume 4 bytes off 16, and the register path at
+D=1023 and reach 50), G3 at 1080p, 540x960 and its edges, timed: the way
+to time two commits' B9 in turns (a package without G3 skips it).
 `--runtime-checks` runs phase 5 alone, `--shard-checks` phase 6 alone.
 
 Prints the card's name and power limit, per-stage and per-kernel times,
@@ -799,6 +805,29 @@ for _k in range(1, IRV_ROUNDS + 1):
     for _name in (("B8 irv_rowspan", "B9 irv_vote") if _k == 1 else
                   ("B8 irv_rowspan (need)", "B9 irv_vote (need)")):
         KERNELS[_name + irv_round_suffix(_k)] = KERNELS[_name]
+# G3, the frontier between IRV rounds (XLA glue given a kernel): on the
+# left eye's labels before and after round 1 at the main and lowres
+# paths' shapes and on the 4K preset's whole frame (its frontier is
+# frame-wide), after each of rounds 1-4 of the early-stop loop on the
+# 1080p frame, and at its edges: frames of 1 x 1, 1 x 45 and 45 x 1
+# pixels, 37x1001 (byte loads) and 200x1008 (16-byte loads, partial
+# tiles) at usd 0, 1, 7, 8, 34 and 127, each on no change, every pixel
+# changed, one change at each corner and sparse changes; and planes one
+# byte off 16 (byte loads on a 16-byte row)
+G3 = "G3 irv_frontier"
+_G3_SRC = ("irv_frontier", _SRC + "irv.cu", _TPU + "band.py:1238")
+KERNELS[G3] = (*_G3_SRC, MAIN)
+KERNELS[G3 + AT_LOWRES] = (*_G3_SRC, LOWRES)
+G3_4K = " (UHD4K_16V frame, 2160x3840)"
+KERNELS[G3 + G3_4K] = (*_G3_SRC, UHD4K)
+for _k in range(1, IRV_ROUNDS):
+    KERNELS[G3 + irv_round_suffix(_k)] = KERNELS[G3]
+G3_EDGES = {f" ({_h}x{_w}, usd {_usd})": (_h, _w, _usd)
+            for _h, _w in ((1, 1), (1, 45), (45, 1), (37, 1001), (200, 1008))
+            for _usd in (0, 1, 7, 8, 34, 127)}
+G3_OFF16 = " (200x1008, usd 34, planes one byte off 16)"
+for _suffix in (*G3_EDGES, G3_OFF16):
+    KERNELS[G3 + _suffix] = KERNELS[G3]
 # B10 at the radii 0, 1 and 8 beside the main path's 7, on a 37-row crop,
 # on fractional values over +-1000 (range-weight indices past the table:
 # the direct expression) and where |a - s| falls on integers and one ulp
@@ -867,14 +896,16 @@ for _path, _counts in EXACT_LAUNCHES.items():
     _counts["dibr_feather_mask"] = 1
     _counts["dr_dcc"] = 1
     _counts["dibr_occl_masks"] = 1
+    # G3 after each round but the last, an eye (frame-wide at 4K too)
+    _counts["irv_frontier"] = 8
 # every B5 launch of every preset and dial path takes the staged path
 # (`vv_pass.staged`): D = 128 or 64, reach 34, buffers of torch.empty
 EXACT_STAGED = {_path: _counts["vv_pass"]
                 for _path, _counts in EXACT_LAUNCHES.items()}
-# the XLA engine (engine="xla"): B1's arms, B7's labels, B8/B9 in the IRV
-# rounds and the fused occlusion stage; the band core (B2-B6, B13), the
-# band bilateral B10, the feather G1 and B12 do not launch (its cost,
-# aggregation, WTA, XLA-order bilateral, feather, bounded warps and
+# the XLA engine (engine="xla"): B1's arms, B7's labels, B8/B9 and G3 in
+# the IRV rounds and the fused occlusion stage; the band core (B2-B6,
+# B13), the band bilateral B10, the feather G1 and B12 do not launch (its
+# cost, aggregation, WTA, XLA-order bilateral, feather, bounded warps and
 # interlace are plain torch, as the JAX package computes them outside any
 # Pallas kernel)
 XLA = "HD1080_D128 engine=xla"
@@ -884,7 +915,7 @@ NOT_ON_PATH[XLA] = (LANE_CORE_WRAPPERS | HSLO_WRAPPERS | DM_WRAPPERS
                        "warp_merge_interlace"})
 EXACT_LAUNCHES[XLA] = {"cross_arms_eyes": 1, "dr_dcc": 1,
                        "dibr_occl_masks": 1, "irv_rowspan": 10,
-                       "irv_vote": 10}
+                       "irv_vote": 10, "irv_frontier": 8}
 
 # ---- phase 6, sharding over torch.distributed -------------------------
 # Ranks that time-share the one card over gloo (the launch module, one
@@ -1447,6 +1478,8 @@ def check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg):
     # round 2 under the real frontier of round 1's changes
     d1, o1 = irv.irv_vote(cnt, dl, ol, *ud, *vote)
     del cnt
+    if chk.suffix in ("", AT_LOWRES):   # the 4K frontier is frame-wide
+        record_frontier(chk, G3, [(ol, o1)], usd)
     changed = o1 != ol
     if bool(changed.any()):
         print("  IRV round 2: the frontier of round 1's changes", flush=True)
@@ -1508,6 +1541,9 @@ def check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg):
         raise SmokeFailure(f"early-stop IRV waits on the device: {e}")
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    if not chk.suffix and hasattr(irv, "irv_frontier"):
+        print(f"early-stop IRV: device operations "
+              f"{check_loop_kernels(dl, ol, arms_l, irv_args)}", flush=True)
     chunked_ms = time_ms(lambda: irv.dr_irv_early_stop(
         dl, ol, arms_l, *irv_args, row_chunk=row_chunk), 3)
     fixed_ms = time_ms(lambda: irv.dr_irv(dl, ol, arms_l, *irv_args), 3)
@@ -1534,9 +1570,103 @@ def check_irv(chk, dl, dr, labels, arms_l, arms_r, cfg):
     return fixed_l[0], fixed_r[0]
 
 
+def frontier_of(before, after, usd: int):
+    """The next round's `need` as the package's early-stop loop makes it:
+    G3 (`irv_frontier`) where the package has it (an older checkout's,
+    checked with --package-root, may not), else `dilate_frontier`."""
+    from stereo_to_multiview_tpu_torch.ops import irv
+    if hasattr(irv, "irv_frontier"):
+        return irv.irv_frontier(before, after, usd)
+    return irv.dilate_frontier(after != before, usd)
+
+
+def record_frontier(chk, name, pairs, usd: int):
+    """One G3 entry: `irv_frontier` on each (before, after) pair of label
+    planes against `dilate_frontier(after != before)` on the card, bit
+    for bit; timed on the first pair from a CUDA graph (device time)
+    beside its CUDA-event time.  Bound: both planes read and the need
+    plane written once.  Records nothing for a package without G3."""
+    from stereo_to_multiview_tpu_torch.ops import irv
+    if not hasattr(irv, "irv_frontier"):
+        return
+    b0, a0 = pairs[0]
+    chk.record(name, tuple(irv.irv_frontier(b, a, usd) for b, a in pairs),
+               tuple(irv.dilate_frontier(a != b, usd) for b, a in pairs),
+               lambda: irv.irv_frontier(b0, a0, usd),
+               lambda: irv.dilate_frontier(a0 != b0, usd),
+               nbytes=3 * b0.numel(), ops=0, graph=True, events=True)
+
+
+def check_frontier_edges(chk, dev):
+    """G3 at its edges (`G3_EDGES`, `G3_OFF16`): label planes drawn from a
+    seed, each entry on sparse changes (the timed pair), no change, every
+    pixel changed and one change at each corner."""
+    import torch
+    gen = torch.Generator().manual_seed(3)
+
+    def pairs(h, w):
+        before = torch.randint(0, 2, (h, w), generator=gen,
+                               dtype=torch.uint8)
+        sparse = torch.rand((h, w), generator=gen) < 0.002
+        sparse[h // 2, w // 2] = True
+        changes = [sparse, torch.zeros_like(sparse),
+                   torch.ones_like(sparse)]
+        for y, x in ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1)):
+            corner = torch.zeros_like(sparse)
+            corner[y, x] = True
+            changes.append(corner)
+        return [(before.to(dev), torch.where(c, before ^ 1, before).to(dev))
+                for c in changes]
+
+    def off16(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:]
+        return out.view(t.shape).copy_(t)
+
+    for suffix, (h, w, usd) in G3_EDGES.items():
+        record_frontier(chk, G3 + suffix, pairs(h, w), usd)
+    record_frontier(chk, G3 + G3_OFF16,
+                    [(off16(b), off16(a)) for b, a in pairs(200, 1008)], 34)
+
+
+def record_frontier_4k(chk, img_l, img_r, arms_l, arms_r, cfg):
+    """G3 on the 4K preset's whole frame, as its early-stop loop runs it
+    (rounds over row chunks, the frontier frame-wide): the left eye's
+    labels before and after round 1."""
+    from stereo_to_multiview_tpu_torch.ops import dcc, irv
+    from stereo_to_multiview_tpu_torch.ops.band import (
+        band_stereo_core_chunked)
+    dl, dr = band_stereo_core_chunked(img_l, img_r, arms_l, arms_r, cfg)
+    ol = dcc.dr_dcc(dl, dr, cfg.dcc_thresh)[0]
+    del dr
+    o1 = irv.irv_round_chunked(dl, ol, arms_l, cfg.irv_thresh_s,
+                               cfg.irv_thresh_h, cfg.num_disp, cfg.zero_disp,
+                               cfg.usd, row_chunk=cfg.irv_row_chunk)[1]
+    record_frontier(chk, G3 + G3_4K, [(ol, o1)], cfg.usd)
+
+
+def check_loop_kernels(d, o, arms, irv_args):
+    """The device kernels of one early-stop IRV call (`torch.profiler`):
+    G3 for every frontier, no torch max-pool (the frontier's former
+    chain).  Returns their names."""
+    import torch
+    from stereo_to_multiview_tpu_torch.ops import irv
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        irv.dr_irv_early_stop(d, o, arms, *irv_args)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()})
+    if not any("irv_frontier_kernel" in n for n in names):
+        raise SmokeFailure(f"early-stop IRV: no G3 launch among its device "
+                           f"operations {names}")
+    if any("max_pool" in n for n in names):
+        raise SmokeFailure(f"early-stop IRV: a max-pool ran on the device: "
+                           f"{names}")
+    return names
+
+
 def time_empty_round(state, arms, cfg, reps: int = 10):
     """One round as the early-stop loop queues it past its fixpoint: the
-    frontier of a round that changed no label (`dilate_frontier`, empty)
+    frontier of a round that changed no label (G3 on equal planes)
     and the round under it (B8 and B9 with an empty `need`), on the
     state the fixed rounds leave.  Returns its device ms (a CUDA graph of
     `reps` rounds) and its ms queued from the host (CUDA events around
@@ -1549,7 +1679,7 @@ def time_empty_round(state, arms, cfg, reps: int = 10):
             cfg.zero_disp, cfg.usd)
 
     def empty_round():
-        need = irv.dilate_frontier(o != o, cfg.usd)
+        need = frontier_of(o, o, cfg.usd)
         return irv.irv_round(d, o, arms, *args, need)
 
     got = empty_round()
@@ -1845,6 +1975,8 @@ def record_vote_rounds(chk, img_l, img_r, cfg):
     record_full_vote(chk, cnt, dl, ol, ud, vote, usd)
     d1, o1 = irv.irv_vote(cnt, dl, ol, *ud, *vote)
     del cnt
+    if chk.suffix in ("", AT_LOWRES):
+        record_frontier(chk, G3, [(ol, o1)], usd)
     changed = o1 != ol
     if not bool(changed.any()):
         ys = torch.arange(dl.shape[0], device=dl.device)[:, None]
@@ -1859,14 +1991,16 @@ def record_vote_rounds(chk, img_l, img_r, cfg):
 
 
 def irv_checks(root: str) -> int:
-    """`--irv-checks [--package-root DIR]`: B9 alone, on the package under
-    DIR, against `irv_vote_plain` bit for bit and timed: full and gated
-    (round 2 of the frame) on the 1080p frame, on the 4K preset's first
-    1152x3840 IRV chunk and at the lowres preset's 540x960, D=64, then at
-    its edges (`check_vote_edges` with AT_SHORT and AT_REACH0: 37 rows,
-    reach 0, D=130, reach 127, a volume 4 bytes off 16, and the register
-    path at D=1023, reach 50).  The way to time
-    two commits' B9 in turns.  Exit 1 if one fails."""
+    """`--irv-checks [--package-root DIR]`: B9 and G3 alone, on the
+    package under DIR, against `irv_vote_plain` and `dilate_frontier` bit
+    for bit and timed: B9 full and gated (round 2 of the frame) on the
+    1080p frame, on the 4K preset's first 1152x3840 IRV chunk and at the
+    lowres preset's 540x960, D=64, then at its edges (`check_vote_edges`
+    with AT_SHORT and AT_REACH0: 37 rows, reach 0, D=130, reach 127, a
+    volume 4 bytes off 16, and the register path at D=1023, reach 50); G3
+    on round 1's labels at 1080p and 540x960 and at its edges
+    (`check_frontier_edges`; skipped on a package without it).  The way
+    to time two commits' B9 in turns.  Exit 1 if one fails."""
     import torch
     sys.path.insert(0, root)
     from stereo_to_multiview_tpu_torch import config, kernels
@@ -1901,6 +2035,7 @@ def irv_checks(root: str) -> int:
         torch.cuda.empty_cache()
         check_vote_edges(chk, dl, ol, arms, cfg,
                          (AT_SHORT, AT_REACH0) + VOTE_EDGES)
+        check_frontier_edges(chk, dev)
         print(f"B9: irv_vote.staged {getattr(irv.irv_vote, 'staged', None)} "
               f"of {irv.irv_vote.launches} launches", flush=True)
     except (SmokeFailure, RuntimeError, ValueError) as e:
@@ -1913,7 +2048,8 @@ def check_irv_rounds(chk, dl, ol, arms, cfg):
     """B8 and B9 in every round of the pipeline's early-stop loop on the
     left eye's raw disparities and labels: round 1 full, each later round
     under the frontier of the round before (`dr_irv_early_stop`'s own
-    `need`).  The rounds' outcome must equal `dr_irv_early_stop`.  Returns
+    `need`, from G3, which is held against `dilate_frontier` after each
+    round).  The rounds' outcome must equal `dr_irv_early_stop`.  Returns
     the shares of each gated round."""
     import torch
     from stereo_to_multiview_tpu_torch.ops import irv
@@ -1941,11 +2077,14 @@ def check_irv_rounds(chk, dl, ol, arms, cfg):
                   f"least {live:.4f}", flush=True)
         d1, o1 = irv.irv_round(d, o, arms, *vote[:2], nd, zd, usd, need)
         done += 1
-        changed = o1 != o
+        more = done < cfg.irv_iterations and bool((o1 != o).any())
+        if more:
+            chk.suffix = irv_round_suffix(done)
+            record_frontier(chk, G3, [(o, o1)], usd)
+            need = frontier_of(o, o1, usd)
         d, o = d1, o1
-        if done == cfg.irv_iterations or not bool(changed.any()):
+        if not more:
             break
-        need = irv.dilate_frontier(changed, usd)
     chk.suffix = ""
     if done != IRV_ROUNDS:
         raise SmokeFailure(f"IRV rounds: the frame ran {done} rounds, the "
@@ -1958,8 +2097,8 @@ def check_irv_rounds(chk, dl, ol, arms, cfg):
         raise SmokeFailure("IRV rounds: the recorded rounds differ from "
                            "dr_irv_early_stop")
     print(f"IRV rounds: {done} rounds on the left eye, equal to "
-          f"dr_irv_early_stop; B8 and B9 each launch once a round and eye",
-          flush=True)
+          f"dr_irv_early_stop; B8 and B9 each launch once a round and eye, "
+          f"G3 once after each round but the last", flush=True)
     return shares
 
 
@@ -5477,9 +5616,9 @@ def main() -> int:
                          "presets' shapes and its edges, timed, and print "
                          "no result line")
     ap.add_argument("--irv-checks", action="store_true",
-                    help="only hold B9 against its plain version at the "
-                         "presets' shapes and its edges, timed, and print "
-                         "no result line")
+                    help="only hold B9 and G3 against their plain "
+                         "versions at the presets' shapes and their "
+                         "edges, timed, and print no result line")
     ap.add_argument("--runtime-checks", action="store_true",
                     help="only run the stream driver, the XLA engine and "
                          "the apps (phase 5) and print no result line")
@@ -5560,6 +5699,7 @@ def main() -> int:
         check_vote_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
         check_vpass_edges(chk, arms_l, cfg)
         check_rowspan_edges(chk, chk.raw[0], chk.raw[2][0], arms_l, cfg)
+        check_frontier_edges(chk, dev)
         check_hstream_edges(chk, img_l, img_r, cfg)
         torch.cuda.empty_cache()
         masks = check_synth_kernels(chk, img_l, img_r, bl, br, cfg)
@@ -5715,6 +5855,8 @@ def main() -> int:
         # the preset's 680-row chunks, then the core as a path
         arms_l, arms_r = (cross.cross_arms(t, *arm_args)
                           for t in (img_l, img_r))
+        record_frontier_4k(chk, img_l, img_r, arms_l, arms_r, cfg4k)
+        torch.cuda.empty_cache()
         chk.suffix = AT_4K
         check_dm_kernels(chk, img_l, img_r,
                          arms_l[:, :core_rows].contiguous(),

@@ -1,4 +1,5 @@
-// B8 + B9: one round of iterative region voting (IRV).
+// B8 + B9: one round of iterative region voting (IRV); G3, the frontier
+// between rounds, at the end of this file.
 //
 // Replace the TPU kernels stereo_to_multiview_tpu/ops/irvkern.py
 // `_rowspan_kernel` (B8) and `_vote_kernel` (B9), reached via
@@ -1237,4 +1238,137 @@ STM_API int stm_irv_vote(const void* cnt, const void* disp, const void* outl,
               : irv_vote_launch<8, false>(IRV_VOTE_ARGS);
 #undef IRV_VOTE_ARGS
   return (int)err;
+}
+
+// ---- G3: the frontier between rounds ------------------------------------
+//
+// Replaces the XLA glue stereo_to_multiview_tpu/ops/band.py:1238
+// `_dilate_cheb` (no Pallas body), which the port ran as about seven torch
+// ops a round and eye (`dilate_frontier(after != before, usd)`, ops/irv.py).
+// need[y][x] = 1 iff a pixel whose label differs between `before` and
+// `after` lies in an 8x8 block (partial at the right and bottom edges)
+// within r = ceil(usd / 8) + 1 blocks of block (y / 8, x / 8) on both
+// axes (Chebyshev), else 0.
+// Bound: bytes, two u8 planes read and one written (6.2 MB at 1080p, 1.9 us
+// at 3.35 TB/s); one launch in place of seven.  A block takes a tile of 16 x
+// 16 blocks (128 x 128 pixels) and its halo of r blocks: a warp a halo
+// block row, each lane two adjacent blocks (16 bytes of each of their 8
+// rows in both planes: one 16-byte load each where W % 16 == 0 and the
+// planes are 16-byte aligned, else byte loads), the lanes' changed bits
+// joined by two OR reductions into one 64-bit mask a block row (bit j:
+// block column hx0 + j, hx0 the tile's first block column less r rounded
+// up to even, so that a lane's 16 bytes are aligned).  One thread an output
+// block row then ORs the 2r + 1 masks of its reach and the 2r + 1 shifts of
+// that; the tile goes out 16 bytes (one row of two blocks) a store.  The
+// halo's bytes are read again by the tiles beside it, mostly from L2.  Its
+// time is the chain of those three steps, not bytes: 32 warps a block, so
+// that each takes one halo row up to r = 8, took a 1080p call from 6.6 to
+// 5.1 us on an H100 (16 warps, two rows each; a 1x1 frame takes 2.6 us).
+
+#define G3_GRAIN 8                // pixels a block side
+#define G3_TILE 16                // blocks a tile side
+#define G3_THREADS 1024
+#define G3_RMAX 17                // r at usd 127
+
+template <bool VEC>
+__global__ void __launch_bounds__(G3_THREADS)
+irv_frontier_kernel(const uint8_t* __restrict__ before,
+                    const uint8_t* __restrict__ after,
+                    uint8_t* __restrict__ need, int H, int W, int r) {
+  __shared__ unsigned long long rows[G3_TILE + 2 * G3_RMAX];
+  __shared__ unsigned tile[G3_TILE];
+  const int nbh = (H + G3_GRAIN - 1) / G3_GRAIN;
+  const int by0 = blockIdx.y * G3_TILE, bx0 = blockIdx.x * G3_TILE;
+  const int s = r + (r & 1);      // block columns from hx0 to the tile
+  const int hx0 = bx0 - s;
+  const int pairs = (s + G3_TILE + r + 1) / 2;    // <= 26 lanes
+  const int lane = threadIdx.x % 32;
+  const int x0 = (hx0 + 2 * lane) * G3_GRAIN;
+  for (int hy = threadIdx.x / 32; hy < G3_TILE + 2 * r;
+       hy += G3_THREADS / 32) {
+    const int by = by0 - r + hy;
+    unsigned bits = 0;            // bit 0: block 2 lane, bit 1: the next
+    if (by >= 0 && by < nbh && lane < pairs && x0 >= 0 && x0 < W) {
+      const int y0 = by * G3_GRAIN, n = min(G3_GRAIN, H - y0);
+      if (VEC) {
+        unsigned lo = 0, hi = 0;
+#pragma unroll
+        for (int k = 0; k < G3_GRAIN; ++k) {
+          if (k < n) {
+            const size_t i = (size_t)(y0 + k) * W + x0;
+            const uint4 a = *reinterpret_cast<const uint4*>(before + i);
+            const uint4 b = *reinterpret_cast<const uint4*>(after + i);
+            lo |= (a.x ^ b.x) | (a.y ^ b.y);
+            hi |= (a.z ^ b.z) | (a.w ^ b.w);
+          }
+        }
+        bits = (lo != 0) | (hi != 0) << 1;
+      } else {
+        const int nx = min(2 * G3_GRAIN, W - x0);
+        for (int k = 0; k < n; ++k) {
+          const size_t i = (size_t)(y0 + k) * W + x0;
+          for (int c = 0; c < nx; ++c)
+            bits |= (before[i + c] != after[i + c]) << (c / G3_GRAIN);
+        }
+      }
+    }
+    const unsigned lo = __reduce_or_sync(0xFFFFFFFFu,
+                                         lane < 16 ? bits << 2 * lane : 0u);
+    const unsigned hi = __reduce_or_sync(
+        0xFFFFFFFFu, lane < 16 ? 0u : bits << 2 * (lane - 16));
+    if (lane == 0) rows[hy] = (unsigned long long)hi << 32 | lo;
+  }
+  __syncthreads();
+  if (threadIdx.x < G3_TILE) {
+    unsigned long long v = 0;
+    for (int k = 0; k <= 2 * r; ++k) v |= rows[threadIdx.x + k];
+    unsigned long long d = v;
+    for (int k = 1; k <= r; ++k) d |= v >> k | v << k;
+    tile[threadIdx.x] = (unsigned)(d >> s) & 0xFFFFu;
+  }
+  __syncthreads();
+  constexpr int CHUNKS = G3_TILE / 2;     // 16-byte chunks a tile row
+  for (int t = threadIdx.x; t < G3_TILE * G3_GRAIN * CHUNKS;
+       t += G3_THREADS) {
+    const int y = by0 * G3_GRAIN + t / CHUNKS;
+    const int x = (bx0 + 2 * (t % CHUNKS)) * G3_GRAIN;
+    if (y >= H || x >= W) continue;
+    const unsigned m = tile[t / CHUNKS / G3_GRAIN] >> 2 * (t % CHUNKS);
+    const size_t i = (size_t)y * W + x;
+    if (VEC) {
+      const unsigned lo = m & 1 ? 0x01010101u : 0u;
+      const unsigned hi = m & 2 ? 0x01010101u : 0u;
+      *reinterpret_cast<uint4*>(need + i) = make_uint4(lo, lo, hi, hi);
+    } else {
+      const int nx = min(2 * G3_GRAIN, W - x);
+      for (int c = 0; c < nx; ++c) need[i + c] = m >> (c / G3_GRAIN) & 1;
+    }
+  }
+}
+
+// before, after (H, W) u8: a round's labels before and after it; need (H,
+// W) u8 out, 0 or 1 a pixel; 0 <= usd <= 127.
+STM_API int stm_irv_frontier(const void* before, const void* after,
+                             void* need, int H, int W, int usd,
+                             void* stream) {
+  if (H <= 0 || W <= 0 || usd < 0 || usd > 127)
+    return (int)cudaErrorInvalidValue;
+  const int r = (usd + G3_GRAIN - 1) / G3_GRAIN + 1;
+  const int nbh = (H + G3_GRAIN - 1) / G3_GRAIN;
+  const int nbw = (W + G3_GRAIN - 1) / G3_GRAIN;
+  const dim3 grid((nbw + G3_TILE - 1) / G3_TILE,
+                  (nbh + G3_TILE - 1) / G3_TILE);
+  const bool vec = W % 16 == 0 &&
+                   (((uintptr_t)before | (uintptr_t)after | (uintptr_t)need)
+                    & 15) == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    irv_frontier_kernel<true><<<grid, G3_THREADS, 0, s>>>(
+        (const uint8_t*)before, (const uint8_t*)after, (uint8_t*)need, H, W,
+        r);
+  else
+    irv_frontier_kernel<false><<<grid, G3_THREADS, 0, s>>>(
+        (const uint8_t*)before, (const uint8_t*)after, (uint8_t*)need, H, W,
+        r);
+  return (int)cudaGetLastError();
 }

@@ -54,6 +54,7 @@ _SIGS = {
     "stm_irv_rowspan": [_P] * 7 + [_I] * 5 + [_P],
     "stm_irv_vote": [_P] * 9 + [_I] * 6 + [_F, _P],
     "stm_irv_vote_stages": [_I] * 2,
+    "stm_irv_frontier": [_P] * 3 + [_I] * 3 + [_P],
     "stm_bilateral": [_P] * 3 + [_I] * 3 + [_F, _F, _P],
     "stm_bleed_mask": [_P, _P, _I, _I, _I, _F, _P],
     "stm_occl_masks": [_P] * 6 + [_I] * 3 + [_F, _P],

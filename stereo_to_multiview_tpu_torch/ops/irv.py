@@ -1,5 +1,5 @@
-"""Iterative region voting: kernels B8 (row spans) and B9 (vote), with
-their plain PyTorch versions.
+"""Iterative region voting: kernels B8 (row spans), B9 (vote) and G3 (the
+frontier between rounds), with their plain PyTorch versions.
 
 Each round builds, for every pixel, the histogram of reliable
 disparities over its cross region (vertical arms of the pixel,
@@ -15,13 +15,13 @@ A round takes an optional `need` plane: only outliers at need pixels
 vote, every other pixel keeps its disparity and label.  `dr_irv` runs the
 fixed `iterations` rounds; `dr_irv_early_stop`, the pipeline's, hands
 each round the dilated frontier of the previous round's changes as its
-`need`, which is exact: a vote can only change when a pixel inside its
-cross region did.  After the first round that changes no label the
-frontier is empty and every later round is the identity, at the cost of
-its launches alone, so the loop queues every round without reading the
-device.  With a row chunk each round streams over chunks of rows with a
-halo of `usd` rows (`irv_round_chunked`), bit-equal to the whole-frame
-round.
+`need` (`irv_frontier`), which is exact: a vote can only change when a
+pixel inside its cross region did.  After the first round that changes
+no label the frontier is empty and every later round is the identity, at
+the cost of its launches alone, so the loop queues every round without
+reading the device.  With a row chunk each round streams over chunks of
+rows with a halo of `usd` rows (`irv_round_chunked`), bit-equal to the
+whole-frame round.
 
 The wrappers take the plain version only for CPU tensors; on a CUDA
 tensor they launch the kernel or raise.  Arms are clamped to [0, usd] by
@@ -244,6 +244,31 @@ def dilate_frontier(changed: torch.Tensor, usd: int,
     return full[:h, :w] > 0
 
 
+@kernels.kernel_wrapper
+def irv_frontier(before: torch.Tensor, after: torch.Tensor,
+                 usd: int) -> torch.Tensor:
+    """The next round's `need` from a round's (H, W) u8 labels before and
+    after it: `dilate_frontier(after != before, usd)`, a bool plane (one
+    byte a pixel).  Kernel G3 (csrc/irv.cu): one launch reads both planes
+    and writes the plane."""
+    if kernels.on_cpu(before):
+        return dilate_frontier(after != before, usd)
+    kernels.require(before, "before", torch.uint8, 2, before.device)
+    kernels.require(after, "after", torch.uint8, 2, before.device)
+    if after.shape != before.shape:
+        raise ValueError("irv_frontier: plane shapes differ")
+    if not 0 <= usd <= 127:
+        raise ValueError("irv_frontier: usd must be in [0, 127]")
+    h, w = before.shape
+    need = torch.empty((h, w), dtype=torch.bool, device=before.device)
+    rc = kernels.lib("irv").stm_irv_frontier(
+        before.data_ptr(), after.data_ptr(), need.data_ptr(), h, w, usd,
+        kernels.stream_of(need))
+    kernels.check_launch(rc, "irv_frontier")
+    irv_frontier.launches += 1
+    return need
+
+
 def irv_round_chunked(disp, outliers, arms, thresh_s: int, thresh_h: float,
                       num_disp: int, zero_disp: int, usd: int, need=None,
                       row_chunk: int = 0):
@@ -276,14 +301,14 @@ def dr_irv_early_stop(disp: torch.Tensor, outliers: torch.Tensor,
                       row_chunk: int = 0):
     """`dr_irv` with the band engine's round loop: each round after the
     first votes under the dilated frontier of the previous round's
-    changes (its `need`).  Once a round changes no label (a vote only
-    turns an outlier reliable) the frontier is empty and the later rounds
-    pass their state through, so all `iterations` rounds are queued and
-    nothing is read on the host.  Bit-equal to `dr_irv`.  `rounds_run`,
-    if given, gets appended the rounds up to and including the first
-    that changed no label, at most `iterations`: a device tally of the
-    rounds that changed a label, read once after the last round.  With
-    `row_chunk` every round streams over row chunks
+    changes (its `need`, from `irv_frontier`).  Once a round changes no
+    label (a vote only turns an outlier reliable) the frontier is empty
+    and the later rounds pass their state through, so all `iterations`
+    rounds are queued and nothing is read on the host.  Bit-equal to
+    `dr_irv`.  `rounds_run`, if given, gets appended the rounds up to and
+    including the first that changed no label, at most `iterations`: a
+    device tally of the rounds that changed a label, read once after the
+    last round.  With `row_chunk` every round streams over row chunks
     (`irv_round_chunked`); the frontier stays frame-wide."""
     need = None
     tally = (None if rounds_run is None else
@@ -295,10 +320,9 @@ def dr_irv_early_stop(disp: torch.Tensor, outliers: torch.Tensor,
             usd, need, row_chunk)
         if k + 1 == iterations:
             break
-        changed = outliers != before
         if tally is not None:
-            tally += changed.any()
-        need = dilate_frontier(changed, usd)
+            tally += (outliers != before).any()
+        need = irv_frontier(before, outliers, usd)
     if rounds_run is not None:
         # the rounds that change a label come first: once one changes
         # none, its frontier is empty and so is every later change

@@ -143,6 +143,50 @@ def test_dilate_frontier_covers_chebyshev_reach():
     assert not tirv.dilate_frontier(_t(np.zeros((h, w), bool)), 5).any()
 
 
+def _frontier_by_pixel(changed, usd):
+    """need[y, x]: some changed pixel lies in an 8x8 block within
+    ceil(usd / 8) + 1 blocks of (y // 8, x // 8) on both axes."""
+    h, w = changed.shape
+    r = -(-usd // 8) + 1
+    cy, cx = np.nonzero(changed)
+    blocks = np.unique(np.stack([cy // 8, cx // 8], 1), axis=0)
+    by, bx = np.mgrid[:h, :w] // 8
+    need = np.zeros((h, w), bool)
+    for b_y, b_x in blocks:
+        need |= np.maximum(abs(by - b_y), abs(bx - b_x)) <= r
+    return need
+
+
+def _frontier_changes(h, w, pattern):
+    changed = np.zeros((h, w), bool)
+    if pattern == "full":
+        changed[:] = True
+    elif pattern != "empty":
+        changed[{"top": 0, "bottom": h - 1}[pattern.split("-")[0]],
+                {"left": 0, "right": w - 1}[pattern.split("-")[1]]] = True
+    return changed
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 37), (37, 1), (21, 43),
+                                 (64, 80), (100, 250)])
+@pytest.mark.parametrize("usd", [0, 1, 7, 8, 34, 127])
+def test_irv_frontier_matches_per_pixel_definition(h, w, usd):
+    """`irv_frontier` (on the CPU: `dilate_frontier` of the changed labels)
+    against the per-pixel definition: no change, every pixel changed, and
+    one change at each corner."""
+    rng = np.random.default_rng(h * w + usd)
+    before = rng.integers(0, 3, (h, w)).astype(np.uint8)
+    for pattern in ("empty", "full", "top-left", "top-right", "bottom-left",
+                    "bottom-right"):
+        changed = _frontier_changes(h, w, pattern)
+        after = np.where(changed, before ^ 1, before).astype(np.uint8)
+        got = tirv.irv_frontier(_t(before), _t(after), usd)
+        assert got.dtype == torch.bool and got.shape == (h, w)
+        np.testing.assert_array_equal(got.numpy(),
+                                      _frontier_by_pixel(changed, usd),
+                                      err_msg=pattern)
+
+
 def _irv_inputs(stereo_pair, usd, share, seed):
     h, w = stereo_pair[0].shape[:2]
     rng = np.random.default_rng(seed)

@@ -10,7 +10,9 @@ byte-packed u32 prefixes of the bins in a ring of 2 * reach + 33 slots
 batch's reliable positions (a ballot and a count in the kernel), the gating of chunks and batches under `need` with the
 prefixes restarting after a skipped batch, and the staging of a chunk's
 outputs at their alignment in the volume, stored as a byte head, 16-byte
-pieces and a byte tail.
+pieces and a byte tail.  The same for B9's staged vote and for G3, the
+frontier between rounds (`irv_frontier_kernel`: tiles of 16 x 16 blocks
+with their halo, a 64-bit mask a halo block row, the separable OR).
 """
 
 import numpy as np
@@ -636,3 +638,122 @@ def test_irv_vote_staged_counter():
     assert tirv.irv_vote.staged == 0 and tirv.irv_vote.launches == 0
     tirv.irv_vote(cnt, t_d, t_o, ta[UP], ta[DOWN], 1, 0.05, 8, 3)
     assert tirv.irv_vote.staged == 0 and tirv.irv_vote.launches == 0
+
+
+G3_GRAIN, G3_TILE, G3_WARPS = 8, 16, 16        # irv.cu
+U64 = (1 << 64) - 1
+
+
+def emulate_irv_frontier(before, after, usd, vec, short=None):
+    """irv_frontier_kernel on (H, W) u8 planes: each tile's halo block rows
+    as 64-bit masks (a lane's two blocks from 16 bytes of each of their
+    rows: 16-byte loads with `vec`, else bytes up to the frame's edge),
+    the 2r + 1 masks of an output block row ORed, then 2r + 1 shifts, the
+    tile written 16 bytes (two blocks of a row) at a time.  `short`
+    replays a mutant: "rows" ORs one halo row too few, "pairs" gives the
+    halo one lane too few."""
+    h, w = before.shape
+    r = -(-usd // G3_GRAIN) + 1
+    nbh, nbw = -(-h // G3_GRAIN), -(-w // G3_GRAIN)
+    need = np.full((h, w), 7, np.uint8)         # every byte written
+    s = r + (r & 1)
+    pairs = (s + G3_TILE + r + 1) // 2 - (short == "pairs")
+    assert pairs <= 32 and G3_TILE + 2 * r <= G3_TILE + 2 * 17
+    for by0 in range(0, nbh, G3_TILE):
+        for bx0 in range(0, nbw, G3_TILE):
+            hx0 = bx0 - s
+            rows = []
+            for hy in range(G3_TILE + 2 * r):    # a warp each, in turns
+                by = by0 - r + hy
+                lo = hi = 0
+                for lane in range(32):
+                    x0 = (hx0 + 2 * lane) * G3_GRAIN
+                    bits = 0
+                    if 0 <= by < nbh and lane < pairs and 0 <= x0 < w:
+                        y0 = by * G3_GRAIN
+                        n = min(G3_GRAIN, h - y0)
+                        if vec:
+                            assert x0 % 16 == 0 and x0 + 16 <= w
+                        nx = 16 if vec else min(16, w - x0)
+                        diff = (before[y0:y0 + n, x0:x0 + nx]
+                                != after[y0:y0 + n, x0:x0 + nx])
+                        bits = int(diff[:, :8].any()) | (
+                            int(diff[:, 8:].any()) << 1)
+                    if lane < 16:
+                        lo |= bits << 2 * lane
+                    else:
+                        hi |= bits << 2 * (lane - 16)
+                assert lo < 1 << 32 and hi < 1 << 32
+                rows.append(hi << 32 | lo)
+            tile = []
+            for oy in range(G3_TILE):
+                v = 0
+                for k in range(2 * r + 1 - (short == "rows")):
+                    v |= rows[oy + k]
+                d = v
+                for k in range(1, r + 1):
+                    d |= (v >> k) | ((v << k) & U64)
+                tile.append((d >> s) & 0xFFFF)
+            for t in range(G3_TILE * G3_GRAIN * G3_TILE // 2):
+                y = by0 * G3_GRAIN + t // (G3_TILE // 2)
+                x = (bx0 + 2 * (t % (G3_TILE // 2))) * G3_GRAIN
+                if y >= h or x >= w:
+                    continue
+                m = tile[t // (G3_TILE // 2) // G3_GRAIN] >> 2 * (
+                    t % (G3_TILE // 2))
+                nx = 16 if vec else min(16, w - x)
+                for c in range(nx):
+                    need[y, x + c] = (m >> (c // G3_GRAIN)) & 1
+    return need
+
+
+def _frontier_planes(h, w, pattern, seed):
+    rng = np.random.default_rng(seed)
+    before = rng.integers(0, 2, (h, w)).astype(np.uint8)
+    after = before.copy()
+    if pattern == "sparse":
+        flip = rng.random((h, w)) < 0.002
+        flip[rng.integers(h), rng.integers(w)] = True
+        after[flip] ^= 1
+    elif pattern == "corners":
+        for y, x in ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1)):
+            after[y, x] ^= 1
+    elif pattern == "full":
+        after ^= 1
+    return before, after
+
+
+# (h, w): tiles and halos past the frame's edges, W % 16 == 0 (the 16-byte
+# path) and not, partial blocks, one row, one column, a halo wider than
+# the frame
+FRONTIER_CASES = [(h, w, usd, pattern)
+                  for h, w in ((150, 272), (1, 1), (1, 45), (45, 1),
+                               (77, 90), (133, 144))
+                  for usd in (0, 1, 7, 8, 34, 127)
+                  for pattern in ("sparse", "corners")]
+FRONTIER_CASES += [(37, 48, 34, "empty"), (37, 48, 1, "full")]
+
+
+@pytest.mark.parametrize("h,w,usd,pattern", FRONTIER_CASES)
+def test_irv_frontier_replay_matches_dilate_frontier(h, w, usd, pattern):
+    """G3's replay equals `dilate_frontier(after != before)` bit for bit,
+    on both load paths where W % 16 == 0."""
+    before, after = _frontier_planes(h, w, pattern, seed=h * w + usd)
+    ref = tirv.dilate_frontier(torch.from_numpy(after != before),
+                               usd).numpy().astype(np.uint8)
+    for vec in ((False, True) if w % 16 == 0 else (False,)):
+        np.testing.assert_array_equal(
+            emulate_irv_frontier(before, after, usd, vec), ref)
+
+
+@pytest.mark.parametrize("short", ["rows", "pairs"])
+def test_irv_frontier_replay_short_halo_fails(short):
+    """A halo one block row or one lane short must fail the replay."""
+    failed = False
+    for usd in (0, 34, 127):
+        before, after = _frontier_planes(150, 272, "sparse", seed=usd)
+        ref = tirv.dilate_frontier(torch.from_numpy(after != before),
+                                   usd).numpy().astype(np.uint8)
+        got = emulate_irv_frontier(before, after, usd, True, short)
+        failed |= not np.array_equal(got, ref)
+    assert failed
